@@ -1,11 +1,14 @@
-"""Front door: ``build_index`` (offline) and ``batch_query`` (online).
+"""Front door: ``build_index`` (offline), ``batch_query`` and
+``run_queries`` (online).
 
     index = build_index(graph, "2dreach-comp")
     ans   = batch_query(index, us, rects, engine="device")
+    top   = run_queries(index, QueryProgram.knn(us, points, 8),
+                        engine="device")
 
 The port of ``repro.core.api`` for the 2DReach methods.  The other
-methods of ``METHODS`` (3DReach, GeoReach) and cluster serving are not
-ported yet and raise ``NotImplementedError``.
+methods of ``METHODS`` (3DReach, GeoReach), cluster serving and polygon
+queries are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,3 +68,53 @@ def batch_query(index: TwoDReachIndex, us: np.ndarray, rects: np.ndarray,
         raise ValueError(
             f"unknown engine {engine!r}; expected host|device|cluster")
     return index.query_batch(np.asarray(us), np.asarray(rects))
+
+
+def run_queries(index: TwoDReachIndex, program, engine: str = "host",
+                device: DeviceLike = None):
+    """Execute a :class:`~repro_torch.queries.QueryProgram` through
+    ``index``: ``reach`` delegates to :func:`batch_query`; ``count`` /
+    ``collect`` / ``knn`` run the host descents (``engine="host"``) or
+    the memoised device ``QueryEngine`` on ``device`` (``"device"``;
+    ``None`` is the GPU), which answer exactly alike.  ``polygon``
+    comes with slice 3 of the port."""
+    from ..queries import host as qhost  # deferred: queries imports core
+    from ..queries.knn import knn_reach_host
+
+    if engine not in ("host", "device"):
+        raise ValueError(
+            f"unknown engine {engine!r}; expected host|device "
+            f"(run_queries serves single-index engines)")
+    kind = program.kind
+    if kind == "reach":
+        return batch_query(index, program.us, program.rects, engine=engine,
+                           device=device)
+    if kind == "polygon":
+        raise NotImplementedError(
+            "run_queries(kind='polygon') is not ported yet: polygon "
+            "queries come with slice 3 of the port (ROADMAP Queue 1)")
+    try:
+        args = {
+            "count": (program.us, program.rects),
+            "collect": (program.us, program.rects, program.k),
+            "knn": (program.us, program.points, program.k),
+        }[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown query kind {kind!r}; expected one of "
+            f"('reach', 'count', 'collect', 'knn', 'polygon')") from None
+    if not isinstance(index, TwoDReachIndex):
+        raise ValueError(
+            f"no {kind!r} query class for {type(index).__name__}: the "
+            f"analytics classes are implemented for the 2DReach variants")
+    if engine == "device":
+        from .engine import engine_for
+
+        return getattr(engine_for(index, device=device), f"{kind}_batch")(
+            *args)
+    host_fns = {
+        "count": qhost.range_count_host,
+        "collect": qhost.range_collect_host,
+        "knn": knn_reach_host,
+    }
+    return host_fns[kind](index, *args)

@@ -1,26 +1,37 @@
 """Device-resident RangeReach query engine (the port of
-``repro.core.engine``, fused path).
+``repro.core.engine``).
 
 :class:`QueryEngine` uploads a built
 :class:`~repro_torch.core.two_d_reach.TwoDReachIndex` to the GPU **once**
-and answers ``query_batch`` / ``count_batch`` / ``collect_batch`` with
-one launch of the fused serve kernel per batch
-(:func:`~repro_torch.kernels.range_query.fused.fused_serve`): the
-vertex→tree lookup runs as tensor code on the card, the leaf tiles are
-pruned against *quantized* tile-MBR planes (int16 fine / int32 coarse,
-outward-rounded so the candidate set provably contains the f32 truth),
-the survivors are compacted into an in-kernel worklist and scanned with
-the exact f32 leaf predicate.  Batches are padded to power-of-two
-buckets by a :class:`DevicePadder`, and the candidate capacity is a
-monotone high-water mark: an overflowing batch re-runs once at the
-ratcheted capacity.
+and answers ``query_batch`` / ``count_batch`` / ``collect_batch`` on one
+of two paths:
 
-Exactness never rests on the pruning: the scan re-masks by arena slice
-and exact box test, so the engine answers exactly like the host
-``TwoDReachIndex.query_batch``.
+* ``path="fused"`` (the default): one launch of the fused serve kernel
+  per batch (:func:`~repro_torch.kernels.range_query.fused.fused_serve`).
+  The vertex→tree lookup runs as tensor code on the card, the leaf tiles
+  are pruned against *quantized* tile-MBR planes (int16 fine / int32
+  coarse, outward-rounded so the candidate set provably contains the
+  f32 truth), the survivors are compacted into an in-kernel worklist and
+  scanned with the exact f32 leaf predicate.  The candidate capacity is
+  a monotone high-water mark: an overflowing batch re-runs once at the
+  ratcheted capacity.
+* ``path="two_phase"`` (and the ``*_two_phase`` methods): the retained
+  reference path, the fused path's oracle.  The float32 prune kernel
+  (:func:`~repro_torch.kernels.range_query.descent.prune_tiles`) masks
+  the leaf tiles each query tile needs, the mask is compacted in
+  PyTorch, the host reads the largest candidate count and ratchets the
+  same high-water mark, and one scan kernel walks the candidate lists:
+  ``descent_scan`` (reach), ``count_scan`` or ``collect_scan``.  It
+  never truncates.
 
-Not ported yet (a later slice): the two-phase prune→scan path, kNN and
-polygon queries, and the tracing / fault-injection hooks.
+Batches are padded to power-of-two buckets by a :class:`DevicePadder`.
+Exactness never rests on the pruning: the scans re-mask by arena slice
+and exact box test, so both paths answer exactly like the host
+``TwoDReachIndex.query_batch``.  ``knn_batch`` runs the radius-doubling
+loop of :mod:`repro_torch.queries.knn` over either path.
+
+Not ported yet (a later slice): polygon queries, and the tracing /
+fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -32,7 +43,14 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, same_device
+from ..kernels.range_query.analytics import collect_scan, count_scan
+from ..kernels.range_query.descent import (
+    descent_scan,
+    prune_tiles,
+    take_candidates,
+)
 from ..kernels.range_query.fused import (
+    compact_ascending,
     fused_serve,
     make_quant_grid,
     quantize_coarse,
@@ -48,8 +66,6 @@ from ..kernels.range_query.layout import (
 from ..queries.program import CollectResult
 from .two_d_reach import TwoDReachIndex
 
-_LATER = ("is not ported yet: the two-phase path, kNN and polygon queries "
-          "come with the next slice of the port (ROADMAP Queue 1)")
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -225,9 +241,11 @@ class QueryEngine:
     ----------
     index:  any 2DReach variant (``base`` / ``comp`` / ``pointer``).
     device: ``None`` (the GPU; raises where CUDA is absent), or an
-            explicit device.  On ``"cpu"`` the fused serve runs its plain
+            explicit device.  On ``"cpu"`` every kernel runs its plain
             PyTorch version.
-    path:   ``"fused"`` — the only path ported so far.
+    path:   ``"fused"`` (default) serves reach/count/collect through the
+            single-launch fused kernel; ``"two_phase"`` through the
+            retained prune → compact → scan path.
     """
 
     def __init__(self, index: TwoDReachIndex, device: DeviceLike = None,
@@ -236,34 +254,36 @@ class QueryEngine:
             raise TypeError(
                 f"QueryEngine serves TwoDReachIndex, got {type(index).__name__}"
             )
-        if path == "two_phase":
-            raise NotImplementedError(f"path='two_phase' {_LATER}")
-        if path != "fused":
+        if path not in ("fused", "two_phase"):
             raise ValueError(f"unknown engine path {path!r}")
         self.device = resolve_device(device)
         self.path = path
         self.variant = index.variant
         self.dim = index.forest.dim
+        self._index = index        # host mirror (kNN exact top-up)
         dev = self.device
 
         # ---- one-time upload ------------------------------------------
         self._side = PointerSide(index, dev)
         self._arena = TileArena.for_forest(index.forest, self.dim, dev)
         self.n_tiles = self._arena.n_tiles
+        # host mirrors for the analytics classes: Alg. 2 routing of
+        # excluded vertices and the kNN loop's distances and extent
         self._excluded_host = index.excluded
+        self._coords_host = index.coords
         Pp = int(self._arena.entries.shape[1])
         ids_row = np.full((1, Pp), ID_SENTINEL, dtype=np.int32)
         ids_row[0, : len(index.forest.entry_ids)] = index.forest.entry_ids
         self._ids_row = torch.as_tensor(ids_row, device=dev)
         ent = index.forest.entries
-        extent = (
+        self._extent_host = (
             np.concatenate([ent[:, : self.dim].min(0),
                             ent[:, self.dim:].max(0)]).astype(np.float64)
             if len(ent) else None
         )
         # quantized MBR planes: int16 fine / int32 coarse codes over the
         # arena extent, rounded outward
-        self._grid = make_quant_grid(extent, self.dim, dev)
+        self._grid = make_quant_grid(self._extent_host, self.dim, dev)
         self._qfine = quantize_fine(self._grid, self._arena.fine, self.dim)
         self._qcoarse = quantize_coarse(
             self._grid, self._arena.coarse, self.dim)
@@ -272,7 +292,8 @@ class QueryEngine:
             "batches": 0, "queries": 0, "tiles_scanned": 0,
             "tiles_grid": 0, "tiles_full_scan": 0, "fused_reruns": 0,
         }
-        # candidate-capacity high-water mark: only ratchets up
+        # candidate-capacity high-water mark, shared by both paths: only
+        # ratchets up
         self._kb_hwm = 1
         self._padder = DevicePadder(self.dim, dev)
 
@@ -290,31 +311,38 @@ class QueryEngine:
         qe = torch.where(valid, off[(t + 1).clamp(max=last)], zero)
         return qs, qe, self._side._coords[us], exc
 
-    def _prepare(self, us: np.ndarray, rects: np.ndarray):
-        """Pad, route and quantize one batch.  Returns ``(Bb, forced,
-        args)``: ``forced`` the Alg. 2 answers of spatial-sink query
-        vertices, ``args`` the fused serve's tensor inputs (the rect and
-        slice tensors live in the padder's per-bucket buffers until the
-        next batch of the same bucket)."""
-        Bb, us_dev, rsoa = self._padder.pad(us, rects)
-        qs, qe, pts, exc = self._route(us_dev)
-        dim = self.dim
-        inr = torch.ones(Bb, dtype=torch.bool, device=self.device)
-        for a in range(dim):
-            inr &= pts[:, a] >= rsoa[a]
-            inr &= pts[:, a] <= rsoa[dim + a]
-        r16, r32 = quantize_rects(self._grid, rsoa, dim)
+    def _serve_args(self, rsoa, qs, qe, pts, exc):
+        """The rect-dependent half of a fused batch, given its routing:
+        the Alg. 2 answers of spatial-sink query vertices (``forced``)
+        and the fused serve's tensor inputs (quantized rects)."""
+        r16, r32 = quantize_rects(self._grid, rsoa, self.dim)
         args = (self._qfine, self._qcoarse, self._arena.entries,
                 self._ids_row, r16, r32, rsoa, qs, qe)
-        return Bb, exc & inr, args
+        return self._forced(rsoa, pts, exc), args
 
-    def _fused_serve(self, us: np.ndarray, rects: np.ndarray, mode: str,
-                     kc: Optional[int] = None):
-        """One launch per batch for reach/count/collect at the current
-        capacity high-water mark; a batch whose true candidate count
-        passes it ratchets the mark and re-runs.  Returns ``(forced,
-        out)`` — for collect, ``out`` is the ``(top, counts)`` pair."""
-        Bb, forced, args = self._prepare(us, rects)
+    def _forced(self, rsoa, pts, exc):
+        """Alg. 2: an excluded query vertex answers by its own point
+        against the rect, with the host's float32 compares."""
+        inr = torch.ones(rsoa.shape[1], dtype=torch.bool, device=self.device)
+        for a in range(self.dim):
+            inr &= pts[:, a] >= rsoa[a]
+            inr &= pts[:, a] <= rsoa[self.dim + a]
+        return exc & inr
+
+    def _prepare(self, us: np.ndarray, rects: np.ndarray):
+        """Pad, route and quantize one batch.  Returns ``(Bb, forced,
+        args)`` (see :meth:`_serve_args`; the rect and slice tensors live
+        in the padder's per-bucket buffers until the next batch of the
+        same bucket)."""
+        Bb, us_dev, rsoa = self._padder.pad(us, rects)
+        forced, args = self._serve_args(rsoa, *self._route(us_dev))
+        return Bb, forced, args
+
+    def _fused_ratchet(self, args, mode: str, kc: Optional[int] = None):
+        """One fused launch at the current capacity high-water mark; a
+        batch whose true candidate count passes it ratchets the mark and
+        re-runs.  Returns ``(out, kcap, tiles)``: for collect, ``out`` is
+        the ``(top, counts)`` pair; ``tiles`` the live candidate tiles."""
         while True:
             kcap = min(self._kb_hwm, self.n_tiles)
             out, cnt = fused_serve(*args, mode=mode, kcap=kcap,
@@ -327,12 +355,46 @@ class QueryEngine:
             self.stats["fused_reruns"] += 1
         if mode == "collect":
             out = _collect_post(out, kc=kc)
+        return out, kcap, tot
+
+    def _fused_serve(self, us: np.ndarray, rects: np.ndarray, mode: str,
+                     kc: Optional[int] = None):
+        """One launch per batch for reach/count/collect (plus ratchet
+        re-runs).  Returns ``(forced, out)``."""
+        Bb, forced, args = self._prepare(us, rects)
+        out, kcap, tot = self._fused_ratchet(args, mode, kc)
         self.stats["batches"] += 1
         self.stats["queries"] += len(us)
         self.stats["tiles_scanned"] += tot
         self.stats["tiles_grid"] += (Bb // TB) * kcap
         self.stats["tiles_full_scan"] += (Bb // TB) * self.n_tiles
         return forced, out
+
+    def _route_prune(self, us: np.ndarray, rects: np.ndarray):
+        """Phase 1 of the two-phase path: pad, route, prune (K2),
+        compact, and ratchet the candidate high-water mark on the
+        batch's largest candidate count (one sync), so the scan never
+        truncates.  Returns ``(Bb, rsoa, forced, qs, qe, cand_k)`` with
+        ``cand_k`` the first ``_kb_hwm`` candidate columns."""
+        B = len(us)
+        Bb, us_dev, rsoa = self._padder.pad(us, rects)
+        qs, qe, pts, exc = self._route(us_dev)
+        mask = prune_tiles(self._arena.fine, self._arena.coarse, rsoa, qs,
+                           qe, dim=self.dim, device=self.device)
+        cand, cnt = compact_ascending(mask, self.n_tiles)
+        mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
+        self._kb_hwm = max(self._kb_hwm,
+                           min(_bucket(max(mx, 1), 1), self.n_tiles))
+        kb = self._kb_hwm
+        self.stats["batches"] += 1
+        self.stats["queries"] += B
+        # tiles_scanned: live candidate tiles (pruning effectiveness);
+        # tiles_grid: scan slots incl. padding (the kernels' work)
+        self.stats["tiles_scanned"] += tot
+        self.stats["tiles_grid"] += (Bb // TB) * kb
+        self.stats["tiles_full_scan"] += (Bb // TB) * self.n_tiles
+        forced = self._forced(rsoa, pts, exc)
+        return Bb, rsoa, forced, qs, qe, take_candidates(cand, kb)
 
     def query_batch(self, us: np.ndarray, rects: np.ndarray) -> np.ndarray:
         """Batched RangeReach, same contract as ``TwoDReachIndex
@@ -341,11 +403,36 @@ class QueryEngine:
         B = len(us)
         if B == 0:
             return np.zeros(0, dtype=bool)
-        forced, hit = self._fused_serve(us, rects, "reach")
+        if self.path == "fused":
+            forced, hit = self._fused_serve(us, rects, "reach")
+        else:
+            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
+            hit = descent_scan(cand_k, self._arena.entries, rsoa, qs, qe,
+                               dim=self.dim, device=self.device)
         return ((hit > 0) | forced)[:B].cpu().numpy()
 
     def query(self, u: int, rect) -> bool:
         return bool(self.query_batch(np.array([u]), np.array([rect]))[0])
+
+    def _with_path(self, path: str, fn, *args):
+        prev, self.path = self.path, path
+        try:
+            return fn(*args)
+        finally:
+            self.path = prev
+
+    def query_batch_two_phase(self, us, rects) -> np.ndarray:
+        """``query_batch`` through the two-phase path (prune → compact →
+        descent scan), the fused path's oracle."""
+        return self._with_path("two_phase", self.query_batch, us, rects)
+
+    def count_batch_two_phase(self, us, rects) -> np.ndarray:
+        """``count_batch`` through the two-phase path."""
+        return self._with_path("two_phase", self.count_batch, us, rects)
+
+    def collect_batch_two_phase(self, us, rects, k: int) -> CollectResult:
+        """``collect_batch`` through the two-phase path."""
+        return self._with_path("two_phase", self.collect_batch, us, rects, k)
 
     def count_batch(self, us: np.ndarray, rects: np.ndarray) -> np.ndarray:
         """Batched RangeCount: (B,) int64 exact number of reachable
@@ -355,7 +442,12 @@ class QueryEngine:
         B = len(us)
         if B == 0:
             return np.zeros(0, dtype=np.int64)
-        forced, counts = self._fused_serve(us, rects, "count")
+        if self.path == "fused":
+            forced, counts = self._fused_serve(us, rects, "count")
+        else:
+            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
+            counts = count_scan(cand_k, self._arena.entries, rsoa, qs, qe,
+                                dim=self.dim, device=self.device)
         return (counts.long() + forced.long())[:B].cpu().numpy()
 
     def collect_batch(self, us: np.ndarray, rects: np.ndarray,
@@ -373,8 +465,15 @@ class QueryEngine:
                 counts=np.zeros(0, np.int64),
                 overflow=np.zeros(0, bool),
             )
-        forced, (top, cnt) = self._fused_serve(
-            us, rects, "collect", kc=_bucket(k, 1))
+        if self.path == "fused":
+            forced, (top, cnt) = self._fused_serve(
+                us, rects, "collect", kc=_bucket(k, 1))
+        else:
+            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
+            mat = collect_scan(cand_k, self._arena.entries, self._ids_row,
+                               rsoa, qs, qe, dim=self.dim,
+                               device=self.device)
+            top, cnt = _collect_post(mat, kc=_bucket(k, 1))
         top = top[:B].cpu().numpy()
         counts = cnt[:B].cpu().numpy().astype(np.int64)
         forced = forced[:B].cpu().numpy()
@@ -389,11 +488,19 @@ class QueryEngine:
             counts[hit] = 1
         return CollectResult(ids=ids, counts=counts, overflow=counts > k)
 
-    def knn_batch(self, us, points, k: int):
-        raise NotImplementedError(f"QueryEngine.knn_batch {_LATER}")
+    def knn_batch(self, us: np.ndarray, points: np.ndarray, k: int):
+        """Batched KNNReach via the radius-doubling loop over this
+        engine's count and collect (see ``repro_torch.queries.knn``): the
+        exact (dist², id)-ordered k nearest reachable venues, equal to
+        the host best-first descent."""
+        from ..queries.knn import knn_radius_doubling  # deferred: no cycle
+
+        return knn_radius_doubling(self, us, points, k)
 
     def polygon_batch(self, us, polygons):
-        raise NotImplementedError(f"QueryEngine.polygon_batch {_LATER}")
+        raise NotImplementedError(
+            "QueryEngine.polygon_batch is not ported yet: polygon queries "
+            "come with slice 3 of the port (ROADMAP Queue 1)")
 
 
 def engine_for(index: TwoDReachIndex,

@@ -14,13 +14,16 @@ arrays:
   — no pointers anywhere.
 
 ``query_host`` is the vectorised NumPy ragged-wavefront descent with
-per-query early exit.  The device bulk load waits for a later slice.
+per-query early exit; ``query_host_count`` / ``query_host_collect_batch``
+run the same descent without early exit, and ``query_host_knn`` is a
+best-first branch-and-bound.  The device bulk load waits for a later
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -286,3 +289,192 @@ def query_host(
             q = np.zeros(0, dtype=np.int64)
     return hit
 
+
+def query_host_collect(
+    forest: RTreeForest, tree_id: int, rect: np.ndarray
+) -> np.ndarray:
+    """Single-tree probe returning the payload ids of ALL hits (used by
+    tests and the GeoReach grid tier)."""
+    if tree_id < 0:
+        return np.zeros(0, dtype=np.int32)
+    dim = forest.dim
+    rect = np.asarray(rect, dtype=np.float32)
+    s, e = forest.entry_off[tree_id], forest.entry_off[tree_id + 1]
+    boxes = forest.entries[s:e]
+    ok = intersects(boxes, rect, dim)
+    return forest.entry_ids[s:e][ok]
+
+
+def _descend_leaves(forest: RTreeForest, tree_ids: np.ndarray,
+                    rects: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Shared ragged-wavefront descent (no early exit): returns
+    ``(qi, leaf)`` — for every (query, leaf entry) pair whose leaf box
+    intersects the query rect, the query index and global entry index.
+    Each pair appears exactly once (trees are proper trees), which is
+    what makes the count/collect variants exact."""
+    dim = forest.dim
+    F = forest.fanout
+    B = len(tree_ids)
+    tree_ids = np.asarray(tree_ids, dtype=np.int64)
+    rects = np.asarray(rects, dtype=np.float32).reshape(B, 2 * dim)
+    empty = (np.zeros(0, dtype=np.int64),) * 2
+    valid = tree_ids >= 0
+    if forest.depth == 0 or not valid.any():
+        return empty
+    top = forest.depth - 1
+    top_off = forest.tree_off[top]
+    has_root = np.zeros(B, dtype=bool)
+    has_root[valid] = (
+        top_off[tree_ids[valid] + 1] - top_off[tree_ids[valid]]
+    ) > 0
+    q = np.nonzero(has_root)[0]
+    node = top_off[tree_ids[q]]
+
+    for l in range(top, -1, -1):
+        if q.size == 0:
+            return empty
+        ok = intersects(forest.level_mbr[l][node], rects[q], dim)
+        q, node = q[ok], node[ok]
+        if q.size == 0:
+            return empty
+        t = tree_ids[q]
+        if l > 0:
+            below_off = forest.tree_off[l - 1]
+            local = node - forest.tree_off[l][t]
+            c_start = below_off[t] + local * F
+            c_end = np.minimum(c_start + F, below_off[t + 1])
+        else:
+            local = node - forest.tree_off[0][t]
+            c_start = forest.entry_off[t] + local * F
+            c_end = np.minimum(c_start + F, forest.entry_off[t + 1])
+        cnt = (c_end - c_start).astype(np.int64)
+        nq = np.repeat(q, cnt)
+        child = np.repeat(c_start, cnt) + _ragged_arange(cnt)
+        if l > 0:
+            q, node = nq, child
+        else:
+            leaf_ok = intersects(forest.entries[child], rects[nq], dim)
+            return nq[leaf_ok], child[leaf_ok]
+    return empty
+
+
+def query_host_count(
+    forest: RTreeForest,
+    tree_ids: np.ndarray,
+    rects: np.ndarray,
+) -> np.ndarray:
+    """Batched "how many entries of tree t intersect rect" descent.
+
+    tree_ids: (B,) int (< 0 answers 0); rects (B, 2*dim).  Returns (B,)
+    int64 exact counts — the host oracle for the device count kernel.
+    """
+    qi, _ = _descend_leaves(forest, tree_ids, rects)
+    counts = np.zeros(len(tree_ids), dtype=np.int64)
+    if qi.size:
+        np.add.at(counts, qi, 1)
+    return counts
+
+
+def query_host_collect_batch(
+    forest: RTreeForest,
+    tree_ids: np.ndarray,
+    rects: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched collect descent: all hit payload ids per query.
+
+    Returns ``(indptr (B+1,) int64, ids int32)`` in CSR form — query
+    b's hits are ``ids[indptr[b]:indptr[b+1]]``, sorted ascending by
+    payload id (the canonical collect order every engine reproduces).
+    """
+    B = len(tree_ids)
+    qi, leaf = _descend_leaves(forest, tree_ids, rects)
+    indptr = np.zeros(B + 1, dtype=np.int64)
+    if qi.size == 0:
+        return indptr, np.zeros(0, dtype=np.int32)
+    ids = forest.entry_ids[leaf]
+    order = np.lexsort((ids, qi))
+    qi, ids = qi[order], ids[order]
+    np.cumsum(np.bincount(qi, minlength=B), out=indptr[1:])
+    return indptr, ids.astype(np.int32)
+
+
+def _mindist2(box: np.ndarray, p: np.ndarray, dim: int) -> float:
+    """Squared Euclidean point-to-box distance, float64."""
+    d2 = 0.0
+    for a in range(dim):
+        lo, hi = float(box[a]), float(box[dim + a])
+        dx = lo - p[a] if p[a] < lo else (p[a] - hi if p[a] > hi else 0.0)
+        d2 += dx * dx
+    return d2
+
+
+def query_host_knn(
+    forest: RTreeForest,
+    tree_id: int,
+    point: np.ndarray,
+    k: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """k nearest entries of one tree to ``point`` — best-first
+    branch-and-bound with a node priority queue (mindist² lower bounds).
+
+    Returns ``(ids (<=k,) int32, dist2 (<=k,) float64)`` ordered by
+    ``(dist², id)`` ascending — distances in float64 over the float32
+    coordinates, the canonical kNN order every engine reproduces.  Ties
+    at the kth distance resolve by payload id, so the heap keeps
+    popping until the next lower bound strictly exceeds the running
+    kth-smallest distance before the final sort.
+    """
+    import heapq
+
+    if tree_id < 0 or k <= 0 or forest.depth == 0:
+        return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.float64)
+    dim = forest.dim
+    F = forest.fanout
+    p = np.asarray(point, dtype=np.float64).reshape(dim)
+    top = forest.depth - 1
+    top_off = forest.tree_off[top]
+    if top_off[tree_id + 1] - top_off[tree_id] <= 0:
+        return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.float64)
+
+    # heap items: (mindist2, seq, level, global node index); level -1
+    # marks a leaf entry (exact distance)
+    seq = 0
+    heap = [(0.0, seq, top, int(top_off[tree_id]))]
+    got: list = []          # (dist2, id) of popped entries
+    kth = np.inf            # running kth-smallest entry distance
+    while heap:
+        d2, _, l, node = heapq.heappop(heap)
+        if len(got) >= k and d2 > kth:
+            break           # no remaining node/entry can enter the top-k
+        if l == -1:
+            got.append((d2, int(forest.entry_ids[node])))
+            if len(got) >= k:
+                kth = np.partition(
+                    np.array([g[0] for g in got]), k - 1)[k - 1]
+            continue
+        t = tree_id
+        if l > 0:
+            below_off = forest.tree_off[l - 1]
+            local = node - forest.tree_off[l][t]
+            c_start = below_off[t] + local * F
+            c_end = min(c_start + F, below_off[t + 1])
+            boxes = forest.level_mbr[l - 1]
+            nl = l - 1
+        else:
+            local = node - forest.tree_off[0][t]
+            c_start = forest.entry_off[t] + local * F
+            c_end = min(c_start + F, forest.entry_off[t + 1])
+            boxes = forest.entries
+            nl = -1
+        for c in range(int(c_start), int(c_end)):
+            cd2 = _mindist2(boxes[c], p, dim)
+            if len(got) >= k and cd2 > kth:
+                continue
+            seq += 1
+            heapq.heappush(heap, (cd2, seq, nl, c))
+    if not got:
+        return np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.float64)
+    arr_d = np.array([g[0] for g in got], dtype=np.float64)
+    arr_i = np.array([g[1] for g in got], dtype=np.int64)
+    order = np.lexsort((arr_i, arr_d))[:k]
+    return arr_i[order].astype(np.int32), arr_d[order]

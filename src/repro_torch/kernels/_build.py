@@ -19,12 +19,18 @@ import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
+import torch
+
+from ..device import same_device
+
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 # kernel name -> source, relative to this package
 SOURCES = {
     "fused_serve": "range_query/csrc/fused_serve.cu",
+    "prune_tiles": "range_query/csrc/prune_tiles.cu",
+    "leaf_scan": "range_query/csrc/leaf_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,3 +83,32 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)[0]))
         return lib
+
+
+def call(name: str, fn: str, argtypes, device: torch.device, *args) -> None:
+    """Call the C entry ``fn`` of kernel library ``name`` with ``args``
+    and, last, the current stream of ``device``, with ``device`` current.
+    Each entry launches on that stream without synchronising and returns
+    ``cudaGetLastError()``; raise where it reports an error."""
+    f = getattr(load(name), fn)
+    f.argtypes = list(argtypes) + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = f(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` lies on ``device`` with this dtype and shape,
+    contiguous: what a kernel's raw pointer arithmetic assumes."""
+    if not same_device(t.device, device):
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

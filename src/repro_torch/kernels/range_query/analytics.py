@@ -1,0 +1,177 @@
+"""Analytics leaf scans over the compacted candidate tiles: count and
+collect (the port of ``repro.kernels.range_query.analytics``).
+
+The boolean scan (:func:`~.descent.descent_scan`) tolerates a repeated
+candidate tile, because OR is idempotent; a sum does not.  Compacted
+lists hold the active tiles strictly ascending, then the last active
+tile repeated, so a slot whose tile is not above the previous slot's
+(``cand[i, k] <= cand[i, k-1]``, ``k > 0``) is padding and contributes
+nothing (:func:`dup_slots`, the reference's ``_dup_slot``).
+
+* :func:`count_scan` — (B,) int32 exact hit counts.  On a CUDA tensor
+  it launches ``csrc/leaf_scan.cu`` (K4); on a CPU tensor it runs
+  :func:`count_scan_torch`.
+* :func:`collect_scan` — (B, K*TP) int32: the payload id of every hit
+  entry, ``ID_SENTINEL`` everywhere else.  On a CUDA tensor it launches
+  ``csrc/leaf_scan.cu`` (K5); on a CPU tensor it runs
+  :func:`collect_scan_torch`.
+* :func:`count_scan_ref` / :func:`collect_scan_ref` — dense versions
+  over the whole arena, the oracles of the tests.
+
+The polygon scan (K6) comes with the next slice of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...device import DeviceLike, resolve_device, same_device
+from .._build import call, check_tensor
+from .descent import check_scan_inputs, tile_hits
+from .layout import ID_SENTINEL, TP
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def dup_slots(cand: torch.Tensor) -> torch.Tensor:
+    """(NB, K) bool — True where slot k of a compacted list is padding."""
+    dup = torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
+    dup[:, 1:] = cand[:, 1:] <= cand[:, :-1]
+    return dup
+
+
+def _live_hits(cand, entries_soa, rects_soa, qstart, qend, dim):
+    hit, g = tile_hits(cand, entries_soa, rects_soa, qstart, qend, dim=dim)
+    hit &= ~dup_slots(cand).repeat_interleave(TP, dim=1)[:, None, :]
+    return hit, g
+
+
+# --------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path; the kernels' oracles on the card)
+# --------------------------------------------------------------------------
+
+def count_scan_torch(cand, entries_soa, rects_soa, qstart, qend, *,
+                     dim: int = 2) -> torch.Tensor:
+    """(B,) int32 exact hit counts over the K candidate tiles, padding
+    slots counting zero (same contract as :func:`count_scan`)."""
+    hit, _ = _live_hits(cand, entries_soa, rects_soa, qstart, qend, dim)
+    return hit.sum(dim=2, dtype=torch.int32).reshape(-1)
+
+
+def collect_scan_torch(cand, entries_soa, ids_soa, rects_soa, qstart, qend,
+                       *, dim: int = 2) -> torch.Tensor:
+    """(B, K*TP) int32 hit payload ids, ``ID_SENTINEL`` elsewhere and on
+    padding slots (same contract as :func:`collect_scan`)."""
+    hit, g = _live_hits(cand, entries_soa, rects_soa, qstart, qend, dim)
+    ids = ids_soa[0][g.long()]                           # (nb, K*TP)
+    sentinel = torch.tensor(int(ID_SENTINEL), dtype=torch.int32,
+                            device=ids.device)
+    return torch.where(hit, ids[:, None, :], sentinel).reshape(
+        -1, cand.shape[1] * TP)
+
+
+def _dense_hits(entries_soa, rects_soa, qstart, qend, dim):
+    P = entries_soa.shape[1]
+    gidx = torch.arange(P, dtype=torch.int32,
+                        device=entries_soa.device)[None, :]
+    ok = (gidx >= qstart[:, None]) & (gidx < qend[:, None])
+    for a in range(dim):
+        ok &= entries_soa[a][None, :] <= rects_soa[dim + a][:, None]
+        ok &= entries_soa[dim + a][None, :] >= rects_soa[a][:, None]
+    return ok
+
+
+def count_scan_ref(entries_soa, rects_soa, qstart, qend, *,
+                   dim: int = 2) -> torch.Tensor:
+    """Dense oracle: (B,) int32 exact counts scanning the whole arena."""
+    return _dense_hits(entries_soa, rects_soa, qstart, qend, dim).sum(
+        dim=1, dtype=torch.int32)
+
+
+def collect_scan_ref(entries_soa, ids_soa, rects_soa, qstart, qend, *,
+                     dim: int = 2) -> torch.Tensor:
+    """Dense oracle: (B, P) ids-or-sentinel over the whole arena."""
+    ok = _dense_hits(entries_soa, rects_soa, qstart, qend, dim)
+    sentinel = torch.tensor(int(ID_SENTINEL), dtype=torch.int32,
+                            device=ok.device)
+    return torch.where(ok, ids_soa[0][None, :], sentinel)
+
+
+# --------------------------------------------------------------------------
+# The wrappers: the CUDA kernels on the card, the plain versions on the CPU
+# --------------------------------------------------------------------------
+
+def count_scan(
+    cand: torch.Tensor,         # (B // TB, K) int32 compacted candidates
+    entries_soa: torch.Tensor,  # (2*dim, P) float32, P % TP == 0
+    rects_soa: torch.Tensor,    # (2*dim, B) float32, B % TB == 0
+    qstart: torch.Tensor,       # (B,) int32
+    qend: torch.Tensor,         # (B,) int32
+    *,
+    dim: int = 2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """(B,) int32 exact hit counts over the K candidate tiles.  ``cand``
+    must be a compacted list (actives strictly ascending, then the last
+    active repeated) covering every tile with a possible hit.  On a CUDA
+    device the K4 kernel runs; on the CPU the plain version runs."""
+    dev = resolve_device(device)
+    if not same_device(entries_soa.device, dev):
+        raise ValueError(f"entries_soa lies on {entries_soa.device}, "
+                         f"expected {dev}")
+    if dev.type == "cpu":
+        return count_scan_torch(cand, entries_soa, rects_soa, qstart, qend,
+                                dim=dim)
+    B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
+                                dim, dev)
+    out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
+    call("leaf_scan", "count_scan_launch", [_PTR] * 6 + [_INT] * 3,
+         out.device, cand.data_ptr(), entries_soa.data_ptr(),
+         rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
+         out.data_ptr(), K, P, B)
+    count_scan.launches += 1
+    return out
+
+
+count_scan.launches = 0
+
+
+def collect_scan(
+    cand: torch.Tensor,         # (B // TB, K) int32 compacted candidates
+    entries_soa: torch.Tensor,  # (2*dim, P) float32, P % TP == 0
+    ids_soa: torch.Tensor,      # (1, P) int32 payload ids
+    rects_soa: torch.Tensor,    # (2*dim, B) float32, B % TB == 0
+    qstart: torch.Tensor,       # (B,) int32
+    qend: torch.Tensor,         # (B,) int32
+    *,
+    dim: int = 2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """(B, K*TP) int32 — the hit payload ids of each query, every other
+    slot ``ID_SENTINEL``.  Sort rows and keep the prefix for the K
+    smallest ids; count non-sentinels for the exact total.  On a CUDA
+    device the K5 kernel runs; on the CPU the plain version runs."""
+    dev = resolve_device(device)
+    if not same_device(entries_soa.device, dev):
+        raise ValueError(f"entries_soa lies on {entries_soa.device}, "
+                         f"expected {dev}")
+    if dev.type == "cpu":
+        return collect_scan_torch(cand, entries_soa, ids_soa, rects_soa,
+                                  qstart, qend, dim=dim)
+    B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
+                                dim, dev)
+    check_tensor("ids_soa", ids_soa, torch.int32, (1, P), dev)
+    out = torch.empty((B, K * TP), dtype=torch.int32,
+                      device=entries_soa.device)
+    call("leaf_scan", "collect_scan_launch", [_PTR] * 7 + [_INT] * 3,
+         out.device, cand.data_ptr(), entries_soa.data_ptr(),
+         ids_soa.data_ptr(), rects_soa.data_ptr(), qstart.data_ptr(),
+         qend.data_ptr(), out.data_ptr(), K, P, B)
+    collect_scan.launches += 1
+    return out
+
+
+collect_scan.launches = 0

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
+from .._build import call, check_tensor
+from .descent import take_candidates, tile_hits
 from .layout import COARSE_GROUP, ID_SENTINEL, TB, TP
 
 # int16 fine-plane code space: finite bounds clip to [I16_LO, I16_HI];
@@ -184,42 +186,26 @@ def fused_serve_torch(
     if mode not in MODES:
         raise ValueError(f"unknown fused mode {mode!r}")
     B = rects_soa.shape[1]
-    nb = B // TB
     kcap = max(int(kcap), 1)
     mask = quantized_prune_mask(qfine, qcoarse, r16, r32, qstart, qend,
                                 dim=dim)
     cand, cnt = compact_ascending(mask, nt)
-    if kcap <= nt:                                       # (nb, kcap)
-        ck = cand[:, :kcap]
-    else:                    # capacity beyond the tile count: repeat the
-        ck = torch.cat(      # last column; the live mask inerts it
-            [cand, cand[:, -1:].expand(nb, kcap - nt)], dim=1)
-    dev = entries_soa.device
-    live = (torch.arange(kcap, dtype=torch.int32, device=dev)[None, :]
+    ck = take_candidates(cand, kcap)                     # (nb, kcap)
+    live = (torch.arange(kcap, dtype=torch.int32,
+                         device=entries_soa.device)[None, :]
             < cnt[:, None])                              # (nb, kcap)
-    # gather the candidate leaf tiles: global entry index per lane
-    g = (ck[:, :, None] * TP
-         + torch.arange(TP, dtype=torch.int32, device=dev)[None, None, :]
-         ).reshape(nb, kcap * TP)                        # (nb, K*TP)
-    gl = g.long()
-    tiles = entries_soa[:, gl]                           # (2*dim, nb, K*TP)
-    qs = qstart.reshape(nb, TB)[:, :, None]
-    qe = qend.reshape(nb, TB)[:, :, None]
-    q = rects_soa.reshape(2 * dim, nb, TB)
-    hit = (g[:, None, :] >= qs) & (g[:, None, :] < qe)   # (nb, TB, K*TP)
-    for a in range(dim):
-        hit &= tiles[a][:, None, :] <= q[dim + a][:, :, None]
-        hit &= tiles[dim + a][:, None, :] >= q[a][:, :, None]
+    hit, g = tile_hits(ck, entries_soa, rects_soa, qstart, qend, dim=dim)
     hit &= live.repeat_interleave(TP, dim=1)[:, None, :]
     if mode == "reach":
         out = hit.any(dim=2).to(torch.int32).reshape(B)
     elif mode == "count":
         out = hit.sum(dim=2, dtype=torch.int32).reshape(B)
     else:
-        ids = ids_soa[0][gl]                             # (nb, K*TP)
+        ids = ids_soa[0][g.long()]                       # (nb, K*TP)
         out = torch.where(hit, ids[:, None, :],
                           torch.tensor(int(ID_SENTINEL), dtype=torch.int32,
-                                       device=dev)).reshape(B, kcap * TP)
+                                       device=ids.device)).reshape(
+                                           B, kcap * TP)
     return out, cnt
 
 
@@ -228,21 +214,7 @@ def fused_serve_torch(
 # --------------------------------------------------------------------------
 
 _MODE_CODE = {"reach": 0, "count": 1, "collect": 2}
-_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-         + [ctypes.c_void_p])
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if not same_device(t.device, device):
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
 
 
 def fused_serve(
@@ -285,8 +257,6 @@ def fused_serve(
             qfine, qcoarse, entries_soa, ids_soa, r16, r32, rects_soa,
             qstart, qend, mode=mode, kcap=kcap, nt=nt, dim=dim)
 
-    from .._build import load       # deferred: builds on first use
-
     P = entries_soa.shape[1]
     B = rects_soa.shape[1]
     ntp = qfine.shape[1]
@@ -299,15 +269,15 @@ def fused_serve(
     if not 0 < nt <= ntp or ntp * TP >= 2 ** 31 or P >= 2 ** 31:
         raise ValueError(f"tile counts out of range: nt={nt} NTp={ntp} "
                          f"P={P} (entry indices must stay int32)")
-    _check("qfine", qfine, torch.int16, (4, ntp), dev)
-    _check("qcoarse", qcoarse, torch.int32, (4, ntp // COARSE_GROUP), dev)
-    _check("entries_soa", entries_soa, torch.float32, (4, P), dev)
-    _check("ids_soa", ids_soa, torch.int32, (1, P), dev)
-    _check("r16", r16, torch.int16, (4, B), dev)
-    _check("r32", r32, torch.int32, (4, B), dev)
-    _check("rects_soa", rects_soa, torch.float32, (4, B), dev)
-    _check("qstart", qstart, torch.int32, (B,), dev)
-    _check("qend", qend, torch.int32, (B,), dev)
+    check_tensor("qfine", qfine, torch.int16, (4, ntp), dev)
+    check_tensor("qcoarse", qcoarse, torch.int32, (4, ntp // COARSE_GROUP), dev)
+    check_tensor("entries_soa", entries_soa, torch.float32, (4, P), dev)
+    check_tensor("ids_soa", ids_soa, torch.int32, (1, P), dev)
+    check_tensor("r16", r16, torch.int16, (4, B), dev)
+    check_tensor("r32", r32, torch.int32, (4, B), dev)
+    check_tensor("rects_soa", rects_soa, torch.float32, (4, B), dev)
+    check_tensor("qstart", qstart, torch.int32, (B,), dev)
+    check_tensor("qend", qend, torch.int32, (B,), dev)
 
     nb = B // TB
     dev = entries_soa.device
@@ -315,20 +285,12 @@ def fused_serve(
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     cnt = torch.empty(nb, dtype=torch.int32, device=dev)
     worklist = torch.empty((nb, kcap), dtype=torch.int32, device=dev)
-    lib = load("fused_serve")
-    fn = lib.fused_serve_launch
-    fn.argtypes = _ARGS
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_MODE_CODE[mode], qfine.data_ptr(), qcoarse.data_ptr(),
-                 entries_soa.data_ptr(), ids_soa.data_ptr(), r16.data_ptr(),
-                 r32.data_ptr(), rects_soa.data_ptr(), qstart.data_ptr(),
-                 qend.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                 worklist.data_ptr(), ntp, nt, P, B, kcap, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_serve kernel launch failed: CUDA error "
-                           f"{err}")
+    call("fused_serve", "fused_serve_launch", _ARGS, dev, _MODE_CODE[mode],
+         qfine.data_ptr(), qcoarse.data_ptr(), entries_soa.data_ptr(),
+         ids_soa.data_ptr(), r16.data_ptr(), r32.data_ptr(),
+         rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
+         out.data_ptr(), cnt.data_ptr(), worklist.data_ptr(), ntp, nt, P, B,
+         kcap)
     fused_serve.launches += 1
     return out, cnt
 

@@ -1,5 +1,15 @@
-"""Analytics query classes (RangeCount / RangeCollect results)."""
+"""Analytics query classes beyond boolean RangeReach: RangeCount,
+RangeCollect and KNNReach, each with a host path (NumPy descents) and a
+device path (``QueryEngine`` methods) that answer exactly alike.  Entry
+point: ``core.api.run_queries(index, program)`` with a
+:class:`QueryProgram`.  Polygon regions come with slice 3 of the port."""
 
-from .program import CollectResult
+from .host import collect_csr_host, range_collect_host, range_count_host
+from .knn import knn_radius_doubling, knn_reach_host, outward_rect
+from .program import QUERY_KINDS, CollectResult, KNNResult, QueryProgram
 
-__all__ = ["CollectResult"]
+__all__ = [
+    "QUERY_KINDS", "CollectResult", "KNNResult", "QueryProgram",
+    "collect_csr_host", "range_collect_host", "range_count_host",
+    "knn_radius_doubling", "knn_reach_host", "outward_rect",
+]

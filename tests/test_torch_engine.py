@@ -1,8 +1,10 @@
-"""The port's ``QueryEngine`` (fused path, on the CPU) against the JAX
-package's ``QueryEngine(fused_impl="xla")`` on the *same* index, carried
-across with ``repro_torch.convert``: reach / count / collect answers,
-the capacity ratchet's re-runs and the scanned-tile counts, exactly.
-Also the device contract and the port's import isolation.
+"""The port's ``QueryEngine`` (on the CPU) against the JAX package's on
+the *same* index, carried across with ``repro_torch.convert``: the fused
+path against ``QueryEngine(fused_impl="xla")`` and the two-phase path
+against ``QueryEngine(interpret=True, path="two_phase")`` — reach /
+count / collect answers, the capacity ratchet's re-runs, the shared
+high-water mark and the scanned-tile counts, exactly.  Also the device
+contract and the port's import isolation.
 """
 
 import jax
@@ -31,6 +33,8 @@ from repro_torch.core import (
 )
 from repro_torch.core.engine import DevicePadder
 from repro_torch.data import get_dataset, workload
+from repro_torch.kernels.range_query import analytics as A
+from repro_torch.kernels.range_query import descent as D
 from repro_torch.kernels.range_query import fused as F
 from repro_torch.kernels.range_query.layout import TB
 
@@ -51,11 +55,13 @@ def ref_indexes(graphs):
     return {v: R.build_2dreach(graphs[0], variant=v) for v in VARIANTS}
 
 
-def _pair(ref_idx):
-    """(reference engine, port engine on the CPU) over one index."""
+def _pair(ref_idx, path="fused"):
+    """(reference engine, port engine on the CPU) over one index, both
+    on ``path`` (the reference's two-phase kernels interpreted)."""
     port_idx = index_from_arrays(index_to_arrays(ref_idx))
-    return (R.QueryEngine(ref_idx, fused_impl="xla"),
-            QueryEngine(port_idx, device="cpu"))
+    return (R.QueryEngine(ref_idx, interpret=True, fused_impl="xla",
+                          path=path),
+            QueryEngine(port_idx, device="cpu", path=path))
 
 
 def _check_modes(ref, eng, us, rects, k=7):
@@ -156,8 +162,11 @@ def test_batch_query_device_on_port_build(graphs, ref_indexes, variant):
     assert engine_for(idx, device="cpu") is engine_for(idx, device="cpu")
     with pytest.raises(NotImplementedError):
         batch_query(idx, us, rects, engine="cluster")
-    with pytest.raises(NotImplementedError):
-        QueryEngine(idx, device="cpu", path="two_phase")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        QueryEngine(idx, device="cpu", path="two_phase").polygon_batch(
+            us, [np.zeros((3, 2), np.float32)] * len(us))
+    with pytest.raises(ValueError, match="path"):
+        QueryEngine(idx, device="cpu", path="nope")
 
 
 def test_no_gpu_raises(graphs, monkeypatch):
@@ -174,6 +183,132 @@ def test_no_gpu_raises(graphs, monkeypatch):
         batch_query(idx, us, rects, engine="device")
     with pytest.raises(RuntimeError, match="CUDA"):
         F.fused_serve(*[None] * 9, mode="reach", kcap=1, nt=1)
+
+
+# --------------------------------------------------------------------------
+# The two-phase path
+# --------------------------------------------------------------------------
+
+def _mixed_workload(g, seed, B=32, extent_ratio=0.05):
+    """Degree-bucket query vertices for even seeds, uniformly random ones
+    (reaching larger trees, so more candidate tiles) for odd seeds."""
+    us, rects = workload(g, B, extent_ratio=extent_ratio, seed=seed)
+    if seed % 2:
+        us = np.random.default_rng(seed).integers(0, g.n_nodes, B)
+    return us, rects
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_two_phase_engine_matches_reference(graphs, ref_indexes, variant):
+    ref, eng = _pair(ref_indexes[variant], path="two_phase")
+    for seed in range(2):
+        us, rects = _mixed_workload(graphs[1], seed)
+        _check_modes(ref, eng, us, rects)
+    _check_stats(ref, eng)
+    assert eng._kb_hwm == ref._kb_hwm
+    assert eng.stats["fused_reruns"] == 0     # two-phase never truncates
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_two_phase_methods_equal_fused(graphs, ref_indexes, variant):
+    """The ``*_two_phase`` methods answer like the fused path and leave
+    the engine on its own path."""
+    _, eng = _pair(ref_indexes[variant])
+    us, rects = _mixed_workload(graphs[1], 3)
+    assert (eng.query_batch_two_phase(us, rects)
+            == eng.query_batch(us, rects)).all()
+    assert (eng.count_batch_two_phase(us, rects)
+            == eng.count_batch(us, rects)).all()
+    a, b = eng.collect_batch_two_phase(us, rects, 5), eng.collect_batch(
+        us, rects, 5)
+    for f in ("ids", "counts", "overflow"):
+        assert (getattr(a, f) == getattr(b, f)).all(), f
+    assert eng.path == "fused"
+
+
+def test_route_prune_matches_reference(graphs, ref_indexes):
+    """Phase 1 on both sides: padded rects, slices, Alg. 2 answers, the
+    prune mask, the compacted candidates and their counts."""
+    from repro.core.engine import compact_candidates as ref_compact
+    from repro.kernels.range_query.descent import prune_tiles_pallas
+
+    ref, eng = _pair(ref_indexes["base"], path="two_phase")
+    for seed in range(3):
+        us, rects = _mixed_workload(graphs[1], seed, B=20)
+        got = eng._route_prune(us, rects)
+        want = ref._route_prune(us, rects)
+        assert got[0] == want[0]
+        for a, b in zip(got[1:], want[1:]):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+        rsoa, qs, qe = got[1], got[3], got[4]
+        mask = D.prune_tiles(eng._arena.fine, eng._arena.coarse, rsoa, qs,
+                             qe, device="cpu")
+        rmask = prune_tiles_pallas(ref._arena.fine, ref._arena.coarse,
+                                   *[np.asarray(x) for x in want[1:2]],
+                                   *[np.asarray(x) for x in want[3:5]],
+                                   interpret=True)
+        assert np.array_equal(mask.numpy(), np.asarray(rmask))
+        cand, cnt = F.compact_ascending(mask, eng.n_tiles)
+        rcand, rcnt = ref_compact(rmask, ref.n_tiles)
+        assert np.array_equal(cand.numpy(), np.asarray(rcand))
+        assert np.array_equal(cnt.numpy(), np.asarray(rcnt))
+        assert eng._kb_hwm == ref._kb_hwm
+    _check_stats(ref, eng)
+
+
+def test_mixed_sequence_shares_the_ratchet(graphs, ref_indexes):
+    """Fused and two-phase batches on one engine share ``_kb_hwm``: after
+    every step of a mixed sequence the mark and the stats equal the
+    reference's."""
+    ref, eng = _pair(ref_indexes["base"])
+    steps = [("query_batch", 0, 0.01), ("count_batch_two_phase", 1, 0.05),
+             ("collect_batch", 3, 0.2), ("query_batch_two_phase", 5, 0.6),
+             ("count_batch", 7, 0.6), ("collect_batch_two_phase", 2, 0.2)]
+    for name, seed, er in steps:
+        us, rects = _mixed_workload(graphs[1], seed, extent_ratio=er)
+        extra = (4,) if name.startswith("collect") else ()
+        got = getattr(eng, name)(us, rects, *extra)
+        want = getattr(ref, name)(us, rects, *extra)
+        if extra:
+            assert (got.ids == want.ids).all()
+            assert (got.counts == want.counts).all()
+        else:
+            assert (got == want).all(), name
+        assert eng._kb_hwm == ref._kb_hwm, name
+        _check_stats(ref, eng)
+    assert eng._kb_hwm > 2 and eng.stats["fused_reruns"] >= 1
+
+
+def test_two_phase_edge_cases():
+    """tid == -1 vertices, spatial-sink query vertices and a graph with no
+    venue on the two-phase path (a candidate row with no active tile
+    scans tile 0 and finds nothing)."""
+    edges = np.array([[0, 1]], dtype=np.int64)
+    coords = np.array([[0, 0], [1, 1], [0, 0], [5, 5]], dtype=np.float32)
+    spatial = np.array([False, True, False, True])
+    us = np.array([0, 2, 3, 1])
+    rects = np.array([[0.5, 0.5, 1.5, 1.5]] * 4, dtype=np.float32)
+    own = np.array([[4.5, 4.5, 5.5, 5.5]] * 4, dtype=np.float32)
+    for sp in (spatial, np.zeros(4, bool)):
+        rg = R.make_graph(4, edges, coords, sp)
+        for variant in VARIANTS:
+            ref, eng = _pair(R.build_2dreach(rg, variant=variant),
+                             path="two_phase")
+            _check_modes(ref, eng, us, rects, k=2)
+            _check_modes(ref, eng, us, own, k=2)
+            _check_stats(ref, eng)
+
+
+def test_no_gpu_raises_for_the_new_kernels(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (D.prune_tiles, D.descent_scan, A.count_scan):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(*[None] * 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        A.collect_scan(*[None] * 6)
+    idx = build_index(get_dataset("tiny"), "2dreach")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryEngine(idx, path="two_phase")
 
 
 def test_port_imports_neither_jax_nor_repro():
