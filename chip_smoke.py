@@ -20,7 +20,13 @@ not beside this script, it exits with code 2 and prints no result.
            Fused serve: every mode, kcap below, at and above the true
            candidate count and the tile count.  Tile prune, and the
            descent / count / collect scans with K below, at and above
-           the true count and K = NTp
+           the true count and K = NTp.  The polygon scan on the same
+           two arena sizes with 4- and 8-edge buckets (inert padded
+           half-planes) and venues planted exactly on polygon vertices
+           and edges; the closure product at the yelp x1.0 level-0 shape
+           (17,878 x 90 words x 95 words) and at ragged small shapes
+           with bit 31 set; the segmented MBR at fan 16, 128 and 8 with
+           ragged N and inert slots
   main     the main paths: host build of yelp x1.0 2dreach-comp and
            2dreach-pointer and of yelp x0.5 2dreach (base, whose pyramid
            exceeds shared memory); for each, ``QueryEngine`` on the card
@@ -38,7 +44,18 @@ not beside this script, it exits with code 2 and prints no result.
            the prune once per two-phase batch, each scan once per batch
            of its mode; kNN launches the fused serve on the fused path,
            and the count and collect scans but no fused serve on the
-           two-phase path
+           two-phase path.  Polygons: 2048 6-gons (extent 5%) per
+           index in batches of 256, plus batches of 3-4-gons and of
+           3-12-gons (edge buckets 8, 4 and 16), equal to the host
+           polygon path and, on a 256-query sample, to the BFS oracle;
+           the prune and the polygon scan launch once per batch
+  device_build  ``build_index(..., backend="device")`` on the card for
+           the three main-path indexes: every index array equal to the
+           host build of phase main, the engine adopts the forest (one
+           adoption, no upload), its reach answers to the main-path
+           batches equal the host-built engine's; host and device build
+           seconds (closure, forest) and the closure-product and
+           segmented-MBR launches per index
   main_batches  every kernel against its plain version on each index's
            first main-path batch (after the counts are read)
   timing   at B=256 on yelp x1.0 comp: device time per launch of each
@@ -46,10 +63,17 @@ not beside this script, it exits with code 2 and prints no result.
            times of the fused serve beside them as ``event_ms``), the
            bound counted from these inputs, end-to-end microseconds per
            query per mode on both paths; the prune also on the yelp x0.5
-           base batch, whose mask is 6x larger
-  profile  torch.profiler over one reach pass on each path: device
-           operations and busy time per batch, and the busy share of the
-           end-to-end time
+           base batch, whose mask is 6x larger.  The polygon scan on the
+           first polygon batch of yelp x1.0 comp, the closure product on
+           the largest launch of that index's device build, the
+           segmented MBR on the largest launch of the yelp x0.5 base
+           device build (its R-tree leaf level, the node count padded
+           to a power of two), each with its library
+           yardstick where one exists, and end-to-end microseconds per
+           polygon query
+  profile  torch.profiler over one reach pass on each path and one
+           polygon pass: device operations and busy time per batch, and
+           the busy share of the end-to-end time
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.
@@ -88,20 +112,29 @@ KNN_K = 8
 KNN_QUERIES = 256
 SCANS = {"reach": "descent_scan", "count": "count_scan",
          "collect": "collect_scan"}
+POLY_EDGES = 6
+POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
-           "collect_scan")
-CSRC = "src/repro_torch/kernels/range_query/csrc/"
+           "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr")
+CSRC = "src/repro_torch/kernels/"
+RQ = "range_query/csrc/"
 RECORD = {   # name -> (source, the TPU kernel it replaces)
-    "fused_serve": ("fused_serve.cu",
+    "fused_serve": (RQ + "fused_serve.cu",
                     "src/repro/kernels/range_query/fused.py:341"),
-    "prune_tiles": ("prune_tiles.cu",
+    "prune_tiles": (RQ + "prune_tiles.cu",
                     "src/repro/kernels/range_query/descent.py:149"),
-    "descent_scan": ("leaf_scan.cu",
+    "descent_scan": (RQ + "leaf_scan.cu",
                      "src/repro/kernels/range_query/descent.py:236"),
-    "count_scan": ("leaf_scan.cu",
+    "count_scan": (RQ + "leaf_scan.cu",
                    "src/repro/kernels/range_query/analytics.py:92"),
-    "collect_scan": ("leaf_scan.cu",
+    "collect_scan": (RQ + "leaf_scan.cu",
                      "src/repro/kernels/range_query/analytics.py:164"),
+    "polygon_scan": (RQ + "leaf_scan.cu",
+                     "src/repro/kernels/range_query/analytics.py:252"),
+    "bitset_mm": ("bitset_mm/csrc/bitset_mm.cu",
+                  "src/repro/kernels/bitset_mm/kernel.py:51"),
+    "seg_mbr": ("forest_build/csrc/seg_mbr.cu",
+                "src/repro/kernels/forest_build/kernel.py:44"),
 }
 
 
@@ -122,18 +155,26 @@ class Kernels:
     launch counters."""
 
     def __init__(self):
+        from repro_torch.kernels import bitset_mm, forest_build
         from repro_torch.kernels.range_query import analytics, descent, fused
 
         self.fs, self.ds, self.an = fused, descent, analytics
+        self.bm, self.fb = bitset_mm, forest_build
         self.wrap = {"fused_serve": fused.fused_serve,
                      "prune_tiles": descent.prune_tiles,
                      "descent_scan": descent.descent_scan,
                      "count_scan": analytics.count_scan,
-                     "collect_scan": analytics.collect_scan}
+                     "collect_scan": analytics.collect_scan,
+                     "polygon_scan": analytics.polygon_scan,
+                     "bitset_mm": bitset_mm.bitset_mm,
+                     "seg_mbr": forest_build.seg_mbr}
         self.plain = {"prune_tiles": descent.prune_tiles_torch,
                       "descent_scan": descent.descent_scan_torch,
                       "count_scan": analytics.count_scan_torch,
-                      "collect_scan": analytics.collect_scan_torch}
+                      "collect_scan": analytics.collect_scan_torch,
+                      "polygon_scan": analytics.polygon_scan_torch,
+                      "bitset_mm": bitset_mm.bitset_mm_torch,
+                      "seg_mbr": forest_build.seg_mbr_torch}
 
     def reset(self) -> None:
         for fn in self.wrap.values():
@@ -290,6 +331,125 @@ def random_batch(rng, arena, B, device):
             r16, r32, rsoa, i32(qs), i32(qe))
 
 
+def polygon_arena(rng, n_tiles, B, ne, device):
+    """Polygon-scan inputs at a given arena size: points sorted along x
+    in three tree slices (plus empty slices), one small convex polygon
+    of 3..ne vertices per query and, for about half of the queries, the
+    polygon's vertices and points on its edges planted into the query's
+    slice: where a fused multiply-add would flip an answer.  The
+    half-planes are padded to the power-of-two edge bucket with inert
+    ones (A = B = 0, C = +inf)."""
+    import torch
+    from repro_torch.core.polygon import convex_halfplanes, polygon_bbox
+    from repro_torch.kernels.range_query.layout import TP, build_tile_pyramid
+
+    P = n_tiles * TP - 5
+    pts = (np.round(rng.uniform(0, 100, (P, 2)) * 4) / 4).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0])]
+    off = np.array([0, P // 3, P // 2, P], np.int64)
+    t = rng.integers(0, 3, B)
+    qs, qe = off[t].copy(), off[t + 1].copy()
+    qe[B // 4: B // 3] = qs[B // 4: B // 3]
+    polys = []
+    for b in range(B):
+        k = int(rng.integers(3, ne + 1))
+        ang = np.sort(rng.random(k) * 2 * np.pi) + np.arange(k) * 1e-6
+        c, r = rng.uniform(5, 95, 2), rng.uniform(0.3, 3, 2)
+        v = np.stack([c[0] + r[0] * np.cos(ang), c[1] + r[1] * np.sin(ang)],
+                     1).astype(np.float32)
+        polys.append(v)
+        if qe[b] > qs[b] and rng.random() < 0.5:
+            w = rng.random((k, 1))
+            on = np.concatenate([v, (v * (1 - w) + np.roll(
+                v, -1, 0).astype(np.float64) * w).astype(np.float32)])
+            pts[rng.integers(qs[b], qe[b], len(on))] = on
+    esoa = np.empty((4, n_tiles * TP), np.float32)
+    esoa[:2], esoa[2:] = 1.0, 0.0
+    esoa[:2, :P] = esoa[2:, :P] = pts.T
+    fine, coarse, nt = build_tile_pyramid(esoa, 2)
+    neb = 4
+    while neb < ne:
+        neb *= 2
+    rsoa = np.stack([polygon_bbox(p) for p in polys]).T
+    hps = np.stack([convex_halfplanes(p, pad_to=neb) for p in polys])
+    lines = hps.transpose(1, 2, 0).reshape(3 * neb, B)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a),  # noqa: E731
+                                  device=device)
+    return dict(nt=nt, ne=neb, esoa=T(esoa), fine=T(fine), coarse=T(coarse),
+                rsoa=T(rsoa), lines=T(lines), qs=T(qs.astype(np.int32)),
+                qe=T(qe.astype(np.int32)))
+
+
+def compare_polygon(ks, d, where):
+    """Exact equality of the polygon scan kernel with its plain version
+    on these inputs, K below, at and above the true candidate count;
+    returns ``(largest absolute difference, true count, hits)``."""
+    ds, an = ks.ds, ks.an
+    args = (d["esoa"], d["rsoa"], d["lines"], d["qs"], d["qe"])
+    mask = ds.prune_tiles_torch(d["fine"], d["coarse"], d["rsoa"], d["qs"],
+                                d["qe"])
+    cand, cnt = ks.fs.compact_ascending(mask, d["nt"])
+    mx = int(cnt.max())
+    err, hits = 0, 0
+    for K in sorted({max(1, mx // 2), max(mx, 1), mx + 3}):
+        ck = ds.take_candidates(cand, K)
+        got = an.polygon_scan(ck, *args, ne=d["ne"], device=DEVICE)
+        e = _diff(got, an.polygon_scan_torch(ck, *args, ne=d["ne"]))
+        if e:
+            raise AssertionError(f"polygon_scan kernel != plain version "
+                                 f"({where}, K={K})")
+        err, hits = max(err, e), int(got.sum())
+    dense = an.polygon_scan_ref(*args, ne=d["ne"])
+    if _diff(got, dense):
+        raise AssertionError(f"polygon_scan != dense reference ({where})")
+    return err, mx, hits
+
+
+def bitset_operands(rng, f, m, W, device, bits_per_row=3):
+    """Random closure-product operands: A (f, ceil(m/32)) with about
+    ``bits_per_row`` set columns per row (a frontier row's out-degree),
+    R (m, W) random words with bit 31 set in the first column; both as
+    int32 tensors holding the uint32 bits."""
+    from repro_torch.kernels.bitset_mm import uint32_bits
+
+    Wm = (m + 31) // 32
+    a = np.zeros((f, Wm), np.uint32)
+    rows = np.repeat(np.arange(f), bits_per_row)
+    cols = rng.integers(0, m, len(rows))
+    cols[:: max(1, len(cols) // 7)] = m - 1           # the last column
+    np.bitwise_or.at(a, (rows, cols // 32),
+                     np.uint32(1) << (cols % 32).astype(np.uint32))
+    r = rng.integers(0, 2 ** 32, (m, W), dtype=np.uint64).astype(np.uint32)
+    r[:, 0] |= np.uint32(1 << 31)
+    return uint32_bits(a, device), uint32_bits(r, device)
+
+
+def compare_bitset(ks, a, r, where):
+    got = ks.bm.bitset_mm(a, r, device=DEVICE)
+    e = _diff(got, ks.bm.bitset_mm_torch(a, r))
+    if e or not bool((got < 0).any()):
+        raise AssertionError(f"bitset_mm kernel != plain version or no "
+                             f"bit 31 ({where})")
+    return e
+
+
+def compare_seg_mbr(ks, rng, fan, n, device):
+    import torch
+
+    c = rng.uniform(-50, 50, (fan, 4, n)).astype(np.float32)
+    inert = np.broadcast_to((rng.random((fan, n)) < 0.3)[:, None],
+                            (fan, 2, n))
+    c[:, :2][inert] = np.inf
+    c[:, 2:][inert] = -np.inf
+    x = torch.as_tensor(c.reshape(fan * 4, n), device=device)
+    e = _diff(ks.fb.seg_mbr(x, dim=2, fan=fan, device=DEVICE),
+              ks.fb.seg_mbr_torch(x, dim=2, fan=fan))
+    if e:
+        raise AssertionError(f"seg_mbr kernel != plain version (fan={fan}, "
+                             f"N={n})")
+    return e
+
+
 def phase_kernels(ks):
     import torch
 
@@ -323,6 +483,26 @@ def phase_kernels(ks):
             cases.append({"nt": nt, "B": B, "max_cnt": mx, "kcaps": kcaps,
                           "two_phase_max_cnt": pmx, "Ks": Ks,
                           "rows_without_candidates": int((pcnt == 0).sum())})
+        for B in Bs:
+            for ne in (4, 8):
+                d = polygon_arena(rng, n_tiles, B, ne, dev)
+                e, mx, hits = compare_polygon(
+                    ks, d, f"polygon nt={d['nt']} B={B} ne={ne}")
+                errs["polygon_scan"] = max(errs["polygon_scan"], e)
+                cases.append({"polygon_nt": d["nt"], "B": B, "ne": ne,
+                              "max_cnt": mx, "hits": hits})
+    # the closure product: the yelp x1.0 comp level-0 shape, ragged ones
+    for f, m, W in ((17878, 2880, 95), (1, 1, 1), (37, 64, 3),
+                    (300, 33, 70)):
+        a, r = bitset_operands(rng, f, m, W, dev)
+        errs["bitset_mm"] = max(errs["bitset_mm"], compare_bitset(
+            ks, a, r, f"f={f} m={m} W={W}"))
+        cases.append({"bitset_mm": [f, m, W]})
+    # the segmented MBR: R-tree levels (16), fine (128) and coarse (8)
+    for fan, n in ((16, 1000), (16, 1), (128, 12204), (8, 77)):
+        errs["seg_mbr"] = max(errs["seg_mbr"], compare_seg_mbr(
+            ks, rng, fan, n, dev))
+        cases.append({"seg_mbr": [fan, n]})
     emit("kernels", ok=True, max_abs_err=errs, cases=cases,
          seconds=round(time.perf_counter() - t0, 3))
     return errs
@@ -413,7 +593,7 @@ def check_two_phase(ks, name, eng, us, rects, host, fused):
     launches = ks.counts()
     batches = eng.stats["batches"] - batches0
     per_mode = batches // len(MODES)
-    want = {"fused_serve": 0, "prune_tiles": batches,
+    want = {**dict.fromkeys(KERNELS, 0), "prune_tiles": batches,
             **{SCANS[m]: per_mode for m in MODES}}
     if launches != want or batches <= 0:
         raise AssertionError(f"{name}: two-phase launches {launches}, "
@@ -461,6 +641,67 @@ def check_knn(ks, name, idx, eng, us, rects):
     return out
 
 
+def mixed_polygons(g, lo, hi, seed):
+    """One batch of BATCH queries whose polygons have lo..hi vertices
+    (``polygon_workload`` per vertex count, interleaved)."""
+    from repro_torch.data import polygon_workload
+
+    parts = [polygon_workload(g, BATCH // (hi - lo + 1) + 1, n_edges=n,
+                              extent_ratio=0.05, seed=seed + n)
+             for n in range(lo, hi + 1)]
+    us = np.stack([p[0] for p in parts], 1).reshape(-1)[:BATCH]
+    polys = [q for row in zip(*[p[1] for p in parts]) for q in row][:BATCH]
+    return us, tuple(polys)
+
+
+def check_polygons(ks, name, g, idx, eng):
+    """Polygon RangeReach on the card: the main workload's 6-gons in
+    batches of BATCH, then a batch of 3-4-gons and one of 3-12-gons;
+    equal to the host polygon path and, on a sample, to the BFS oracle.
+    The prune and the polygon scan launch once per batch, nothing
+    else."""
+    from repro_torch.core import polygon_reach_oracle
+    from repro_torch.core.engine import _bucket
+    from repro_torch.data import polygon_workload
+    from repro_torch.queries import polygon_reach_host
+
+    us, polys = polygon_workload(g, N_QUERIES, n_edges=POLY_EDGES,
+                                 extent_ratio=0.05, seed=0)
+    batches = [(us[s:s + BATCH], polys[s:s + BATCH])
+               for s in range(0, len(us), BATCH)]
+    batches += [mixed_polygons(g, lo, hi, 10 * i)
+                for i, (lo, hi) in enumerate(POLY_MIXED)]
+    t0 = time.perf_counter()
+    want = [polygon_reach_host(idx, u, p) for u, p in batches]
+    host_s = time.perf_counter() - t0
+    batches0 = eng.stats["batches"]
+    ks.reset()
+    t0 = time.perf_counter()
+    got = [eng.polygon_batch(u, p) for u, p in batches]
+    dt = time.perf_counter() - t0
+    launches = ks.counts()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{name}: polygon batch {i} != host path")
+    n = len(batches)
+    expect = {**dict.fromkeys(KERNELS, 0), "prune_tiles": n,
+              "polygon_scan": n}
+    if launches != expect or eng.stats["batches"] - batches0 != n:
+        raise AssertionError(f"{name}: polygon launches {launches}, "
+                             f"expected {expect}")
+    oracle = [polygon_reach_oracle(g, int(u), p)
+              for u, p in zip(us[:BATCH], polys[:BATCH])]
+    if not np.array_equal(got[0], oracle):
+        raise AssertionError(f"{name}: polygon answers != BFS oracle")
+    return {"index": name, "queries": sum(len(u) for u, _ in batches),
+            "batches": n, "launches": launches,
+            "edge_buckets": sorted({_bucket(max(len(q) for q in p), 4)
+                                    for _, p in batches}),
+            "hit_rate": float(np.concatenate(got).mean()),
+            "host_seconds": round(host_s, 3), "seconds": round(dt, 3)}, \
+        (us, polys)
+
+
 def phase_main(ks):
     from repro_torch.core import build_index
     from repro_torch.data import get_dataset, workload
@@ -470,11 +711,11 @@ def phase_main(ks):
         g = get_dataset(ds, scale=scale)
         t0 = time.perf_counter()
         idx = build_index(g, method)
-        built.append((f"{ds}x{scale} {method}", g, idx,
+        built.append((f"{ds}x{scale} {method}", g, method, idx,
                       time.perf_counter() - t0))
-    results, two_phase, engines = [], [], {}
+    results, two_phase, polygons, engines, indexes = [], [], [], {}, {}
     knn = None
-    for name, g, idx, build_s in built:
+    for name, g, method, idx, build_s in built:
         us, rects = workload(g, N_QUERIES, extent_ratio=0.05)
         eng, host, fused, rec = check_index(ks, name, g, idx, us, rects)
         rec["build_seconds"] = round(build_s, 3)
@@ -483,8 +724,11 @@ def phase_main(ks):
                                          fused))
         if knn is None:                   # yelp x1.0 2dreach-comp
             knn = check_knn(ks, name, idx, eng, us, rects)
+        prec, pwork = check_polygons(ks, name, g, idx, eng)
+        polygons.append(prec)
         engines[name] = (eng, us, rects)
-    return results, two_phase, knn, engines
+        indexes[name] = (g, method, idx, host[0], pwork)
+    return results, two_phase, knn, polygons, engines, indexes
 
 
 def phase_main_batches(ks, engines):
@@ -511,6 +755,136 @@ def phase_main_batches(ks, engines):
 def arena_of(eng):
     return {"fine": eng._arena.fine, "coarse": eng._arena.coarse,
             "esoa": eng._arena.entries, "ids": eng._ids_row}
+
+
+# --------------------------------------------------------------------------
+# Device build
+# --------------------------------------------------------------------------
+
+class Capture:
+    """Within ``with``, ``module.name`` is this object: it keeps the
+    arguments ``(size, args, kwargs)`` of the call with the largest
+    ``size(*args)`` (the first of equals) and hands
+    every call on to the kernel wrapper it replaced.  The wrapper counts
+    its own launches; ``launches`` reads and writes the wrapper's count,
+    so a wrapper that finds this object under its own name counts as
+    before."""
+
+    def __init__(self, module, name, size):
+        self.module, self.name, self.size = module, name, size
+        self.fn = getattr(module, name)
+        self.best = None
+
+    def __call__(self, *args, **kw):
+        n = self.size(*args)
+        if self.best is None or n > self.best[0]:
+            self.best = (n, args, kw)
+        return self.fn(*args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def same_index(a, b) -> bool:
+    """Every serving array of two 2DReach indexes equal, dtype too."""
+    fa, fb = a.forest, b.forest
+    pairs = [(fa.entries, fb.entries), (fa.entry_ids, fb.entry_ids),
+             (fa.entry_off, fb.entry_off), (a.comp_tree, b.comp_tree),
+             (a.excluded, b.excluded), (a.vertex_comp, b.vertex_comp)]
+    pairs += list(zip(fa.level_mbr + fa.tree_off, fb.level_mbr + fb.tree_off))
+    if a.vertex_tree is not None:
+        pairs.append((a.vertex_tree, b.vertex_tree))
+    else:
+        pairs += [(a.bitrank.bits, b.bitrank.bits),
+                  (a.bitrank.rank, b.bitrank.rank),
+                  (a.tree_ptrs, b.tree_ptrs)]
+    return fa.depth == fb.depth and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in pairs)
+
+
+def phase_device_build(ks, indexes, engines):
+    """``backend="device"`` builds on the card: arrays equal to the host
+    build, the forest adopted by the engine, the same reach answers; the
+    closure-product and segmented-MBR launches per index (one per
+    condensation level with edges; one per R-tree level plus the two
+    pyramid planes), and the largest launch of each for the timing."""
+    import torch
+    from repro_torch.core import QueryEngine, build_index
+    from repro_torch.core import reachability
+    from repro_torch.core.engine import UPLOAD_COUNTERS
+    from repro_torch.kernels.forest_build import ops as fb_ops
+
+    recs, largest = [], {}
+    for name, (g, method, idx, host_reach, _) in indexes.items():
+        eng, us, rects = engines[name]
+        cond = idx.cond
+        want_k7 = (len(np.unique(cond.level[cond.dag_edges[:, 0]]))
+                   if cond.dag_edges.size else 0)
+        want_k8 = idx.forest.depth + 2
+        with Capture(reachability, "bitset_mm",
+                     lambda a, r: a.shape[0] * r.shape[1]) as k7, \
+                Capture(fb_ops, "seg_mbr", lambda c: c.numel()) as k8:
+            ks.reset()
+            t0 = time.perf_counter()
+            dev = build_index(g, method, backend="device")
+            dev_s = time.perf_counter() - t0
+            launches = ks.counts()
+        expect = {**dict.fromkeys(KERNELS, 0), "bitset_mm": want_k7,
+                  "seg_mbr": want_k8}
+        if launches != expect:
+            raise AssertionError(f"{name}: device build launches "
+                                 f"{launches}, expected {expect}")
+        if not same_index(idx, dev) or dev.backend != "device":
+            raise AssertionError(f"{name}: device build != host build")
+        before = dict(UPLOAD_COUNTERS)
+        deng = QueryEngine(dev)
+        adopted = {k: UPLOAD_COUNTERS[k] - before[k] for k in before}
+        if adopted != {"host_uploads": 0, "device_adoptions": 1} \
+                or deng.stats["adopted"] != 1:
+            raise AssertionError(f"{name}: engine did not adopt the device "
+                                 f"forest: {adopted}")
+        for attr in ("entries", "fine", "coarse", "entry_off"):
+            if not torch.equal(getattr(deng._arena, attr),
+                               getattr(eng._arena, attr)):
+                raise AssertionError(f"{name}: adopted {attr} != upload")
+        got = np.concatenate([deng.query_batch(us[s:s + BATCH],
+                                               rects[s:s + BATCH])
+                              for s in range(0, len(us), BATCH)])
+        if not np.array_equal(got, host_reach):
+            raise AssertionError(f"{name}: device-built engine answers != "
+                                 f"host-built engine")
+        largest[name] = (k7.best[1], k8.best[1])
+        hs, ds_ = idx.stats, dev.stats
+        recs.append({
+            "index": name, "launches": launches, "adoption": adopted,
+            "condensation_levels_with_edges": want_k7,
+            "forest_levels": idx.forest.depth,
+            "level_nodes": [len(l) for l in idx.forest.level_mbr],
+            "largest_bitset_mm": list(k7.best[1][0].shape)
+            + [int(k7.best[1][1].shape[1])],
+            "largest_seg_mbr": list(k8.best[1][0].shape),
+            "host_seconds": {"closure": hs["t_closure"],
+                             "forest": hs["t_forest"],
+                             "total": hs["t_total"]},
+            "device_seconds": {"closure": ds_["t_closure"],
+                               "forest": ds_["t_forest"],
+                               "total": ds_["t_total"],
+                               "wall": dev_s}})
+        del deng, dev
+    emit("device_build", ok=True, indexes=recs)
+    return recs, largest
 
 
 # --------------------------------------------------------------------------
@@ -591,6 +965,19 @@ def scan_work(ck, cnt, qs, qe, K):
     hi = torch.minimum(t0 + TP, qe.long().reshape(-1, TB)[:, :, None])
     in_slice = int(((hi - lo).clamp(min=0) * live[:, None, :]).sum())
     return tiles, int(live.sum()), in_slice
+
+
+def box_hits(ds, ck, cnt, esoa, rsoa, qs, qe):
+    """Entries of each query's slice, in the live slots of its query
+    tile's candidate list, that pass its bbox test."""
+    import torch
+    from repro_torch.kernels.range_query.layout import TP
+
+    hit, _ = ds.tile_hits(ck, esoa, rsoa, qs, qe)
+    K = ck.shape[1]
+    live = (torch.arange(K, device=ck.device)[None, :]
+            < cnt.clamp(max=K)[:, None]).repeat_interleave(TP, dim=1)
+    return int((hit & live[:, None, :]).sum())
 
 
 def bound(nbytes, int_cmp, f32_cmp, **terms):
@@ -753,25 +1140,126 @@ def phase_timing(ks, engines, card):
          e2e_us_per_query={m: {"fused": per_mode[m]["e2e_us_per_query"],
                                "two_phase": two[SCANS[m]]["e2e_us_per_query"]}
                            for m in MODES})
-    for two_phase, mode_rec in ((False, per_mode["reach"]),
-                                (True, two["descent_scan"])):
-        phase_profile(eng, us, rects, mode_rec["e2e_us_per_query"],
-                      two_phase)
+    for path, query, mode_rec in (
+            ("fused", eng.query_batch, per_mode["reach"]),
+            ("two_phase", eng.query_batch_two_phase, two["descent_scan"])):
+        phase_profile(query, us, rects, mode_rec["e2e_us_per_query"], path,
+                      "reach")
     return per_mode, two
 
 
-def phase_profile(eng, us, rects, e2e_us_per_query, two_phase):
-    """Where a reach batch's time goes: device time by operation over one
-    reach pass of the workload, and the device's busy share of the
-    unprofiled end-to-end time."""
+def phase_timing_slice3(ks, engines, indexes, largest, card):
+    """K6 on the first polygon batch of the first index, K7 on the
+    largest closure-product launch of that index's device build, K8 on
+    the largest segmented-MBR launch of the last index's device build:
+    device ms, plain ms, library ms where one PyTorch call computes the
+    same function, the bound from these inputs; each kernel also held
+    against its plain version on these inputs.  End-to-end µs per
+    polygon query."""
+    import torch
+    from repro_torch.core import engine as core_engine
+
+    ds, an, fs, bm, fb = ks.ds, ks.an, ks.fs, ks.bm, ks.fb
+    timed, errs = {}, {}
+    name = next(iter(engines))
+    eng, _, _ = engines[name]
+    pus, ppolys = indexes[name][4]
+    # K6's operands as the engine assembles them for its first batch
+    with Capture(core_engine, "polygon_scan", lambda c, *a: c.numel()) as k6:
+        eng.polygon_batch(pus[:BATCH], ppolys[:BATCH])
+    _, args, kw = k6.best
+    a6 = tuple(t.clone() for t in args)     # the engine reuses its buffers
+    neb = kw["ne"]
+    ck, esoa, rsoa, lines, qs, qe = a6
+    errs["polygon_scan"] = _diff(an.polygon_scan(*a6, ne=neb, device=DEVICE),
+                                 an.polygon_scan_torch(*a6, ne=neb))
+    K = ck.shape[1]
+    _, cnt = fs.compact_ascending(
+        ds.prune_tiles_torch(eng._arena.fine, eng._arena.coarse, rsoa, qs,
+                             qe), eng.n_tiles)
+    tiles, scanned, in_slice = scan_work(ck, cnt, qs, qe, K)
+    box = box_hits(ds, ck, cnt, esoa, rsoa, qs, qe)
+    B = qs.shape[0]
+    nbytes = (tiles * 4 * 128 * 4 + ck.numel() * 4 + B * (16 + 8)
+              + lines.numel() * 4 + B * 4)
+    # the box test on every slice entry; the half-planes (2 mul, add,
+    # compare each) only where the box test passed
+    f32_ops = in_slice * 4 + box * 4 * POLY_EDGES
+    bms, by, work = bound(nbytes, 0, f32_ops, distinct_tiles=tiles,
+                          scanned_tiles=scanned, box_hits=box, ne_bucket=neb)
+    t0 = time.perf_counter()
+    for rep in range(3):
+        for s in range(0, len(pus), BATCH):
+            eng.polygon_batch(pus[s:s + BATCH], ppolys[s:s + BATCH])
+    e2e = (time.perf_counter() - t0) / (3 * len(pus)) * 1e6
+    timed["polygon_scan"] = {
+        "ms": device_ms(lambda: an.polygon_scan(*a6, ne=neb, device=DEVICE),
+                        50, "polygon_scan"),
+        "plain_ms": device_ms(lambda: an.polygon_scan_torch(*a6, ne=neb), 10,
+                              "polygon_scan_torch"),
+        "library_ms": None, "bound_ms": bms, "bound_by": by, "K": K,
+        "e2e_us_per_query": e2e, **work}
+
+    a, r = largest[name][0]
+    m, W = r.shape
+    errs["bitset_mm"] = _diff(bm.bitset_mm(a, r, device=DEVICE),
+                              bm.bitset_mm_torch(a, r))
+    ab = bm.unpack_bits(a, m).to(torch.bfloat16)
+    rb = bm.unpack_bits(r, W * 32).to(torch.bfloat16)
+    set_bits = int(bm.unpack_bits(a, m).sum())
+    nbytes = (a.numel() + r.numel() + a.shape[0] * W) * 4
+    bms, by, work = bound(nbytes, set_bits * W, 0, set_bits_of_a=set_bits,
+                          shape_f_wm_w=[a.shape[0], a.shape[1], W])
+    timed["bitset_mm"] = {
+        "ms": device_ms(lambda: bm.bitset_mm(a, r, device=DEVICE), 50,
+                        "bitset_mm"),
+        "plain_ms": device_ms(lambda: bm.bitset_mm_torch(a, r), 10,
+                              "bitset_mm_torch"),
+        "library_ms": device_ms(lambda: torch.matmul(ab, rb), 10,
+                                "torch.matmul bf16"),
+        "library_note": "torch.matmul of the unpacked bf16 operands, "
+                        "excluding unpack and pack",
+        "bound_ms": bms, "bound_by": by, "index": name, **work}
+
+    last = list(engines)[-1]
+    (c,) = largest[last][1]
+    fan = c.shape[0] // 4
+    n = c.shape[1]
+    errs["seg_mbr"] = _diff(fb.seg_mbr(c, dim=2, fan=fan, device=DEVICE),
+                            fb.seg_mbr_torch(c, dim=2, fan=fan))
+    cv = c.view(fan, 4, n)
+    bms, by, work = bound((fan + 1) * 4 * n * 4, 0, 0, fan=fan, nodes=n)
+    timed["seg_mbr"] = {
+        "ms": device_ms(lambda: fb.seg_mbr(c, dim=2, fan=fan, device=DEVICE),
+                        50, "seg_mbr"),
+        "plain_ms": device_ms(lambda: fb.seg_mbr_torch(c, dim=2, fan=fan), 10,
+                              "seg_mbr_torch"),
+        "library_ms": device_ms(
+            lambda: (torch.amin(cv[:, :2], 0), torch.amax(cv[:, 2:], 0)), 10,
+            "torch.amin + torch.amax"),
+        "library_note": "torch.amin plus torch.amax over the (fan, 2*dim, "
+                        "N) view: two calls",
+        "bound_ms": bms, "bound_by": by, "index": last, **work}
+    for k, e in errs.items():
+        if e:
+            raise AssertionError(f"{k} kernel != plain version on the main "
+                                 f"path's operands")
+    emit("timing_slice3", card=card, B=BATCH, kernels=timed,
+         polygon_e2e_us_per_query=e2e, max_abs_err=errs)
+    phase_profile(eng.polygon_batch, pus, ppolys, e2e, "two_phase", "polygon")
+    return timed, errs
+
+
+def phase_profile(query, us, regions, e2e_us_per_query, path, mode):
+    """Where a batch's time goes: device time by operation over one pass
+    of the workload through ``query(us, regions)``, and the device's busy
+    share of the unprofiled end-to-end time."""
     n_batches = len(range(0, len(us), BATCH))
-    query = eng.query_batch_two_phase if two_phase else eng.query_batch
 
     def one_pass():
         for s in range(0, len(us), BATCH):
-            query(us[s:s + BATCH], rects[s:s + BATCH])
+            query(us[s:s + BATCH], regions[s:s + BATCH])
 
-    path = "two_phase" if two_phase else "fused"
     rows = device_rows(one_pass, 1)
     if not rows:
         emit("profile", path=path, device_time="not measured: the profiler "
@@ -779,7 +1267,7 @@ def phase_profile(eng, us, rects, e2e_us_per_query, two_phase):
         return
     busy_us = sum(t for _, _, t in rows) / n_batches
     e2e_batch_us = e2e_us_per_query * BATCH
-    emit("profile", path=path, mode="reach", B=BATCH,
+    emit("profile", path=path, mode=mode, B=BATCH,
          device_ops_per_batch=sum(c for _, c, _ in rows) / n_batches,
          device_busy_us_per_batch=busy_us,
          e2e_us_per_batch=e2e_batch_us,
@@ -839,26 +1327,36 @@ def main() -> int:
     phase_build(_build)
 
     errs = phase_kernels(ks)
-    results, two_phase, knn, engines = phase_main(ks)
+    results, two_phase, knn, polygons, engines, indexes = phase_main(ks)
     emit("main", launches={r["index"]: r["launches"] for r in results},
-         indexes=results, two_phase=two_phase, knn=knn)
+         indexes=results, two_phase=two_phase, knn=knn, polygons=polygons)
+    builds, largest = phase_device_build(ks, indexes, engines)
     for k, v in phase_main_batches(ks, engines).items():
         errs[k] = max(errs[k], v)
 
     per_mode, two = phase_timing(ks, engines, card)
+    slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest, card)
+    for k, v in errs3.items():
+        errs[k] = max(errs[k], v)
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, and the two kNN runs
     per_path = {k: {} for k in KERNELS}
     for r in results:
         per_path["fused_serve"][f"{r['index']} fused"] = r["launches"]
     for r in two_phase:
-        for k in KERNELS[1:]:
+        for k in ("prune_tiles", *SCANS.values()):
             per_path[k][f"{r['index']} two_phase"] = r["launches"][k]
+    for r in polygons:
+        for k in ("prune_tiles", "polygon_scan"):
+            per_path[k][f"{r['index']} polygon"] = r["launches"][k]
+    for r in builds:
+        for k in ("bitset_mm", "seg_mbr"):
+            per_path[k][f"{r['index']} device_build"] = r["launches"][k]
     for path in ("fused", "two_phase"):
         for k, n in knn[path]["launches"].items():
             if n:
                 per_path[k][f"{knn['index']} knn {path}"] = n
-    timed = {"fused_serve": per_mode["reach"], **two}
+    timed = {"fused_serve": per_mode["reach"], **two, **slice3}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": CSRC + RECORD[k][0],
         "replaces": RECORD[k][1],
@@ -867,7 +1365,8 @@ def main() -> int:
         "max_abs_err": errs[k],
         "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
         "bound_ms": timed[k]["bound_ms"], "bound_by": timed[k]["bound_by"],
-        "library_ms": None} for k in KERNELS]}), flush=True)
+        "library_ms": timed[k].get("library_ms")} for k in KERNELS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

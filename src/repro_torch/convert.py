@@ -24,6 +24,7 @@ def index_to_arrays(index) -> Dict[str, np.ndarray]:
     f = index.forest
     arrays = {
         "variant": np.asarray(index.variant),
+        "backend": np.asarray(getattr(index, "backend", "host")),
         "coords": index.coords,
         "excluded": index.excluded,
         "vertex_comp": index.vertex_comp,
@@ -48,7 +49,8 @@ def index_to_arrays(index) -> Dict[str, np.ndarray]:
 
 def index_from_arrays(arrays: Dict[str, np.ndarray]) -> TwoDReachIndex:
     """This package's ``TwoDReachIndex`` from :func:`index_to_arrays`'s
-    dict (``cond`` is not carried: serving never reads it)."""
+    dict (``cond`` is not carried: serving never reads it; nor is a
+    device-resident forest, so an engine uploads the host arrays)."""
     depth = sum(1 for k in arrays if k.startswith("level_mbr."))
     forest = RTreeForest(
         dim=int(arrays["dim"]),
@@ -74,4 +76,5 @@ def index_from_arrays(arrays: Dict[str, np.ndarray]) -> TwoDReachIndex:
                  if pointer else None),
         tree_ptrs=arrays["tree_ptrs"] if pointer else None,
         stats={},
+        backend=str(arrays.get("backend", "host")),
     )

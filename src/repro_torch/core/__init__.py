@@ -10,6 +10,8 @@ from .condensation import Condensation, condense
 from .engine import QueryEngine, engine_for
 from .graph import CSR, GeosocialGraph, build_csr, dedup_edges, make_graph
 from .oracle import (
+    knn_reach_oracle,
+    polygon_reach_oracle,
     range_collect_oracle,
     range_count_oracle,
     rangereach_oracle,
@@ -34,6 +36,7 @@ __all__ = [
     "Condensation", "condense",
     "QueryEngine", "engine_for",
     "CSR", "GeosocialGraph", "build_csr", "dedup_edges", "make_graph",
+    "knn_reach_oracle", "polygon_reach_oracle",
     "range_collect_oracle", "range_count_oracle", "rangereach_oracle",
     "rangereach_oracle_batch", "reachable_mask",
     "ClosureResult", "closure_np",

@@ -7,8 +7,8 @@
                         engine="device")
 
 The port of ``repro.core.api`` for the 2DReach methods.  The other
-methods of ``METHODS`` (3DReach, GeoReach), cluster serving and polygon
-queries are not ported yet and raise ``NotImplementedError``.
+methods of ``METHODS`` (3DReach, GeoReach) and cluster serving are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,9 +32,10 @@ _VARIANT = {"2dreach": "base", "2dreach-comp": "comp",
 
 
 def build_index(graph: GeosocialGraph, method: str, **kw) -> TwoDReachIndex:
-    """Build the offline index for ``method`` on the host.  Keyword
-    arguments go to ``build_2dreach`` (``fanout``, ``dedup``,
-    ``backend``)."""
+    """Build the offline index for ``method``.  Keyword arguments go to
+    ``build_2dreach`` (``fanout``, ``dedup``, ``backend``, ``device``):
+    ``backend="device"`` runs the closure and the forest bulk load on
+    ``device`` (``None``: the GPU)."""
     method = method.lower()
     if method not in METHODS:
         raise ValueError(
@@ -74,10 +75,10 @@ def run_queries(index: TwoDReachIndex, program, engine: str = "host",
                 device: DeviceLike = None):
     """Execute a :class:`~repro_torch.queries.QueryProgram` through
     ``index``: ``reach`` delegates to :func:`batch_query`; ``count`` /
-    ``collect`` / ``knn`` run the host descents (``engine="host"``) or
-    the memoised device ``QueryEngine`` on ``device`` (``"device"``;
-    ``None`` is the GPU), which answer exactly alike.  ``polygon``
-    comes with slice 3 of the port."""
+    ``collect`` / ``knn`` / ``polygon`` run the host descents
+    (``engine="host"``) or the memoised device ``QueryEngine`` on
+    ``device`` (``"device"``; ``None`` is the GPU), which answer exactly
+    alike."""
     from ..queries import host as qhost  # deferred: queries imports core
     from ..queries.knn import knn_reach_host
 
@@ -89,15 +90,12 @@ def run_queries(index: TwoDReachIndex, program, engine: str = "host",
     if kind == "reach":
         return batch_query(index, program.us, program.rects, engine=engine,
                            device=device)
-    if kind == "polygon":
-        raise NotImplementedError(
-            "run_queries(kind='polygon') is not ported yet: polygon "
-            "queries come with slice 3 of the port (ROADMAP Queue 1)")
     try:
         args = {
             "count": (program.us, program.rects),
             "collect": (program.us, program.rects, program.k),
             "knn": (program.us, program.points, program.k),
+            "polygon": (program.us, program.polygons),
         }[kind]
     except KeyError:
         raise ValueError(
@@ -116,5 +114,6 @@ def run_queries(index: TwoDReachIndex, program, engine: str = "host",
         "count": qhost.range_count_host,
         "collect": qhost.range_collect_host,
         "knn": knn_reach_host,
+        "polygon": qhost.polygon_reach_host,
     }
     return host_fns[kind](index, *args)

@@ -28,10 +28,17 @@ Batches are padded to power-of-two buckets by a :class:`DevicePadder`.
 Exactness never rests on the pruning: the scans re-mask by arena slice
 and exact box test, so both paths answer exactly like the host
 ``TwoDReachIndex.query_batch``.  ``knn_batch`` runs the radius-doubling
-loop of :mod:`repro_torch.queries.knn` over either path.
+loop of :mod:`repro_torch.queries.knn` over either path;
+``polygon_batch`` serves convex-polygon regions on the two-phase path,
+with the half-plane postfilter inside the leaf scan
+(:func:`~repro_torch.kernels.range_query.analytics.polygon_scan`).
 
-Not ported yet (a later slice): polygon queries, and the tracing /
-fault-injection hooks.
+The arena of an index built with ``backend="device"`` is adopted from
+the build's :class:`~repro_torch.core.rtree.DeviceForest` when it lies
+on the engine's device (nothing is uploaded); :data:`UPLOAD_COUNTERS`
+counts both kinds of arena.
+
+Not ported yet (a later slice): the tracing / fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -43,7 +50,11 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, same_device
-from ..kernels.range_query.analytics import collect_scan, count_scan
+from ..kernels.range_query.analytics import (
+    collect_scan,
+    count_scan,
+    polygon_scan,
+)
 from ..kernels.range_query.descent import (
     descent_scan,
     prune_tiles,
@@ -64,8 +75,8 @@ from ..kernels.range_query.layout import (
     forest_soa,
 )
 from ..queries.program import CollectResult
+from .polygon import convex_halfplanes, points_in_polygon_region, polygon_bbox
 from .two_d_reach import TwoDReachIndex
-
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -98,6 +109,13 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Upload pieces
 # --------------------------------------------------------------------------
+
+# Build→serve handoff counters since import: ``host_uploads`` counts
+# arenas built from host arrays (transpose, pyramid, upload);
+# ``device_adoptions`` counts arenas adopted from a
+# ``build_forest_device`` handoff without a copy.
+UPLOAD_COUNTERS: Dict[str, int] = {"host_uploads": 0, "device_adoptions": 0}
+
 
 class PointerSide:
     """Device-resident vertex→tree lookup side of a 2DReach index: the
@@ -152,10 +170,12 @@ class TileArena:
     coarse: torch.Tensor      # (2*dim, NTp // COARSE_GROUP) float32
     entry_off: torch.Tensor   # (T+1,) int32 per-tree arena slices
     n_tiles: int              # true fine tile count (Pp // TP)
+    adopted: bool = False     # taken from a device build, not uploaded
 
     @classmethod
     def upload(cls, esoa: np.ndarray, off: np.ndarray, dim: int,
                device: torch.device) -> "TileArena":
+        UPLOAD_COUNTERS["host_uploads"] += 1
         fine, coarse, nt = build_tile_pyramid(esoa, dim)
         return cls(
             entries=torch.as_tensor(esoa, device=device),
@@ -169,6 +189,16 @@ class TileArena:
     @classmethod
     def for_forest(cls, forest, dim: int,
                    device: torch.device) -> "TileArena":
+        """Arena for a built forest: adopted from the forest's
+        ``build_forest_device`` handoff where it lies on ``device`` (the
+        tensors already have exactly this layout), uploaded from the
+        host arrays otherwise."""
+        dev = getattr(forest, "device", None)
+        if dev is not None and same_device(dev.entries.device, device):
+            UPLOAD_COUNTERS["device_adoptions"] += 1
+            return cls(entries=dev.entries, fine=dev.fine,
+                       coarse=dev.coarse, entry_off=dev.entry_off,
+                       n_tiles=dev.n_tiles, adopted=True)
         esoa, off = forest_soa(forest)        # cached transposition
         return cls.upload(esoa, off, dim, device)
 
@@ -289,8 +319,10 @@ class QueryEngine:
             self._grid, self._arena.coarse, self.dim)
 
         self.stats: Dict[str, float] = {
-            "batches": 0, "queries": 0, "tiles_scanned": 0,
-            "tiles_grid": 0, "tiles_full_scan": 0, "fused_reruns": 0,
+            "batches": 0, "queries": 0,
+            "adopted": int(self._arena.adopted),
+            "tiles_scanned": 0, "tiles_grid": 0, "tiles_full_scan": 0,
+            "fused_reruns": 0,
         }
         # candidate-capacity high-water mark, shared by both paths: only
         # ratchets up
@@ -497,10 +529,39 @@ class QueryEngine:
 
         return knn_radius_doubling(self, us, points, k)
 
-    def polygon_batch(self, us, polygons):
-        raise NotImplementedError(
-            "QueryEngine.polygon_batch is not ported yet: polygon queries "
-            "come with slice 3 of the port (ROADMAP Queue 1)")
+    def polygon_batch(self, us: np.ndarray, polygons) -> np.ndarray:
+        """Batched convex-polygon RangeReach on the two-phase path: the
+        polygons' bboxes route and prune (K2), and the half-plane
+        postfilter runs inside the leaf scan (K6); equal to
+        ``polygon_reach_host``.  Edge counts bucket to a power of two
+        >= 4 with inert half-planes."""
+        us = np.asarray(us, dtype=np.int64)
+        B = len(us)
+        if B == 0:
+            return np.zeros(0, dtype=bool)
+        if len(polygons) != B:
+            raise ValueError(f"{len(polygons)} polygons for {B} queries")
+        bboxes = np.stack([polygon_bbox(p) for p in polygons])
+        ne = max(len(np.asarray(p).reshape(-1, 2)) for p in polygons)
+        neb = _bucket(ne, 4)
+        hps = np.stack([convex_halfplanes(p, pad_to=neb) for p in polygons])
+        # ``forced`` tests a spatial-sink query vertex against the bbox
+        # only; such a vertex is answered below against the whole region
+        Bb, rsoa, _, qs, qe, cand_k = self._route_prune(us, bboxes)
+        # (B, 3, neb) -> (3*neb, Bb); padded batch lanes get inert
+        # half-planes (A=B=0, C=+inf) to match their impossible rects
+        lines = np.zeros((3 * neb, Bb), dtype=np.float32)
+        lines[2 * neb:] = np.inf
+        lines[:, :B] = hps.transpose(1, 2, 0).reshape(3 * neb, B)
+        hit = polygon_scan(cand_k, self._arena.entries, rsoa,
+                           torch.as_tensor(lines, device=self.device), qs,
+                           qe, ne=neb, dim=self.dim, device=self.device)
+        out = (hit[:B] > 0).cpu().numpy()
+        exc = self._excluded_host[us]
+        for i in np.nonzero(exc)[0]:
+            out[i] = bool(points_in_polygon_region(
+                self._coords_host[us[i]][None], bboxes[i], hps[i])[0])
+        return out
 
 
 def engine_for(index: TwoDReachIndex,

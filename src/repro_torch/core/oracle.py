@@ -1,8 +1,8 @@
 """Brute-force RangeReach oracle — ground truth for every index method.
 
 BFS over the raw graph; an index answer disagreeing with this is a bug.
-A copy of ``repro.core.oracle`` (the RangeReach, count and collect
-oracles), kept here so the port stands alone.
+A copy of ``repro.core.oracle`` (the RangeReach, count, collect, kNN
+and polygon oracles), kept here so the port stands alone.
 """
 
 from __future__ import annotations
@@ -75,6 +75,40 @@ def range_collect_oracle(graph: GeosocialGraph, u: int, rect) -> np.ndarray:
     """ALL reachable venue ids in rect, ascending (callers truncate to
     K for the capped-collect comparison)."""
     return _reachable_venues_in_rect(graph, u, rect)
+
+
+def knn_reach_oracle(graph: GeosocialGraph, u: int, point, k: int):
+    """(ids, dist2) of the k nearest reachable venues to ``point`` by
+    (dist², id) ascending — distances float64 over the float32 coords,
+    the canonical order every engine reproduces."""
+    seen = reachable_mask(graph, u)
+    ids = np.nonzero(seen & graph.spatial_mask)[0]
+    if len(ids) == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.float64)
+    p = np.asarray(point, dtype=np.float32).reshape(2)
+    dx = graph.coords[ids, 0].astype(np.float64) - float(p[0])
+    dy = graph.coords[ids, 1].astype(np.float64) - float(p[1])
+    d2 = dx * dx + dy * dy
+    order = np.lexsort((ids, d2))[: int(k)]
+    return ids[order].astype(np.int32), d2[order]
+
+
+def polygon_reach_oracle(graph: GeosocialGraph, u: int, vertices) -> bool:
+    """Any reachable venue inside the canonical (bbox + float32
+    half-plane) convex-polygon region."""
+    from .polygon import (  # deferred: polygon imports this module
+        convex_halfplanes,
+        points_in_polygon_region,
+        polygon_bbox,
+    )
+
+    seen = reachable_mask(graph, u)
+    ids = np.nonzero(seen & graph.spatial_mask)[0]
+    if len(ids) == 0:
+        return False
+    return bool(points_in_polygon_region(
+        graph.coords[ids], polygon_bbox(vertices),
+        convex_halfplanes(vertices)).any())
 
 
 def _ragged_arange(counts: np.ndarray) -> np.ndarray:

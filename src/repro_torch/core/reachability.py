@@ -1,7 +1,9 @@
 """Reachable-spatial-set closure over the SCC condensation (paper Alg. 1).
 
-A copy of the host half of ``repro.core.reachability``: the packed
-uint32 bitset helpers, :class:`ClosureResult` and ``closure_np``.
+A copy of the host half of ``repro.core.reachability`` (the packed
+uint32 bitset helpers, :class:`ClosureResult` and ``closure_np``) and a
+torch port of its device half, ``closure_bitset_mm``: the same fixpoint
+with each level's merges as one packed OR-AND product (K7 on the card).
 
 Every component's reachable spatial set is a row of a packed **uint32
 bitset matrix** ``(rows, W)`` with ``W = ceil(p / 32)`` and one column
@@ -19,7 +21,10 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..device import DeviceLike, resolve_device
+from ..kernels.bitset_mm import bitset_mm
 from .condensation import Condensation
 
 
@@ -353,3 +358,137 @@ def _ragged_arange(counts: np.ndarray) -> np.ndarray:
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
 
+
+# --------------------------------------------------------------------------
+# Device (packed) closure — the backend="device" build path
+# --------------------------------------------------------------------------
+#
+# Packed words live in int32 tensors holding the uint32 bits (torch has no
+# usable uint32).  Scatter-adds build rows whose (row, word, bit) triples
+# are distinct, so each add is an OR, bit 31 included: no carry can occur.
+
+def _bit_words(cols: np.ndarray, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Columns -> (word index, int32 one-bit mask) tensors."""
+    cols = cols.astype(np.int64)
+    masks = (np.uint32(1) << (cols % 32).astype(np.uint32)).view(np.int32)
+    return (torch.as_tensor(cols // 32, device=device),
+            torch.as_tensor(masks, device=device))
+
+
+def _leaf_row_scatter(
+    rows: torch.Tensor, local: np.ndarray, dst: np.ndarray,
+    own_indptr: np.ndarray, own_cols: np.ndarray,
+) -> torch.Tensor:
+    """OR the own columns of leaf components ``dst`` into the zero packed
+    ``rows`` at row indices ``local`` (in place; returns ``rows``)."""
+    cnt = np.diff(own_indptr)[dst]
+    rep = np.repeat(local, cnt)
+    slot = np.repeat(own_indptr[dst], cnt) + _ragged_arange(cnt)
+    words, masks = _bit_words(own_cols[slot], rows.device)
+    rows.index_put_((torch.as_tensor(rep, device=rows.device), words), masks,
+                    accumulate=True)
+    return rows
+
+
+def closure_bitset_mm(
+    cond: Condensation,
+    n: int,
+    spatial_vertex: np.ndarray,
+    extra_vertex_comp: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    *,
+    device: DeviceLike = None,
+    chunk_edges: int = 1 << 22,
+) -> ClosureResult:
+    """Device closure: level-scheduled packed fixpoint R <- own | A.R on
+    ``device`` (``None``: the GPU).
+
+    Produces a :class:`ClosureResult` with the same bits as
+    ``closure_np`` (set union is order-independent).  Level L touches
+    only its source rows and the compacted block of their unique
+    destinations (:func:`_level_step_mm`), so rows that converged at
+    deeper levels pay nothing; wide levels are cut into ``chunk_edges``
+    chunks, as ``closure_np`` cuts them."""
+    dev = resolve_device(device)
+    p, col_of_vertex, own_indptr, own_cols, interior_row, interior_ids = (
+        _closure_prologue(cond, n, spatial_vertex, extra_vertex_comp))
+    W = n_words(p)
+    n_int = len(interior_ids)
+    own_cnt = np.diff(own_indptr)
+
+    # seed: every interior row starts as its own packed columns
+    R = torch.zeros((n_int, max(W, 1)), dtype=torch.int32, device=dev)
+    rr, cc = _seed_pairs(own_indptr, own_cols, interior_row)
+    if len(rr):
+        words, masks = _bit_words(cc, dev)
+        R.index_put_((torch.as_tensor(rr, device=dev), words), masks,
+                     accumulate=True)
+
+    if cond.dag_edges.size:
+        edges = cond.edges_by_level_desc()
+        src_lv = cond.level[edges[:, 0]]
+        boundaries = np.nonzero(np.diff(-src_lv))[0] + 1
+        seg_starts = np.concatenate([[0], boundaries, [len(edges)]])
+        for s, e in zip(seg_starts[:-1], seg_starts[1:]):
+            # a source run split across chunks ORs into its row twice
+            for cs in range(s, e, chunk_edges):
+                ce = min(cs + chunk_edges, e)
+                R = _level_step_mm(
+                    R, edges[cs:ce, 0].astype(np.int64),
+                    edges[cs:ce, 1].astype(np.int64), interior_row,
+                    own_indptr, own_cols, own_cnt, dev)
+
+    bits = R[:, :W].cpu().numpy().view(np.uint32)
+    return ClosureResult(
+        p=p,
+        spatial_vertex=np.asarray(spatial_vertex, dtype=np.int32),
+        col_of_vertex=col_of_vertex,
+        interior_row=interior_row,
+        bits=np.ascontiguousarray(bits).reshape(n_int, W),
+        own_indptr=own_indptr,
+        own_cols=own_cols,
+    )
+
+
+def _level_step_mm(
+    R: torch.Tensor, src: np.ndarray, dst: np.ndarray,
+    interior_row: np.ndarray, own_indptr: np.ndarray,
+    own_cols: np.ndarray, own_cnt: np.ndarray, device: torch.device,
+) -> torch.Tensor:
+    """One level as a frontier-compacted OR-AND product (the reference's
+    ``_level_step_pallas``).
+
+    The level's unique destinations become the contraction axis: their
+    packed rows (gathered for interior components, built from own
+    columns for leaves) stack into R_L, the level's edges scatter into a
+    packed frontier adjacency A_L, and one :func:`bitset_mm` computes all
+    of the level's merges.  ``src`` runs are contiguous (the level
+    schedule keeps the source-sorted edge order)."""
+    udst, dst_inv = np.unique(dst, return_inverse=True)
+    m = len(udst)
+    Wm = (m + 31) // 32
+    Wc = R.shape[1]
+
+    R_L = torch.zeros((m, Wc), dtype=torch.int32, device=device)
+    di = interior_row[udst]
+    im = di >= 0
+    if im.any():
+        R_L[torch.as_tensor(np.nonzero(im)[0], device=device)] = R[
+            torch.as_tensor(di[im].astype(np.int64), device=device)]
+    lm = ~im & (own_cnt[udst] > 0)
+    if lm.any():
+        _leaf_row_scatter(R_L, np.nonzero(lm)[0], udst[lm], own_indptr,
+                          own_cols)
+
+    run_start = np.nonzero(np.r_[True, src[1:] != src[:-1]])[0]
+    usrc = src[run_start]
+    f = len(usrc)
+    src_local = np.searchsorted(usrc, src)
+    A = torch.zeros((f, Wm), dtype=torch.int32, device=device)
+    words, masks = _bit_words(dst_inv.reshape(-1), device)
+    A.index_put_((torch.as_tensor(src_local, device=device), words), masks,
+                 accumulate=True)
+
+    out = bitset_mm(A, R_L, device=device)
+    tr = torch.as_tensor(interior_row[usrc].astype(np.int64), device=device)
+    R[tr] = R[tr] | out
+    return R

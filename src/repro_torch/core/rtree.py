@@ -16,8 +16,13 @@ arrays:
 ``query_host`` is the vectorised NumPy ragged-wavefront descent with
 per-query early exit; ``query_host_count`` / ``query_host_collect_batch``
 run the same descent without early exit, and ``query_host_knn`` is a
-best-first branch-and-bound.  The device bulk load waits for a later
-slice.
+best-first branch-and-bound.
+
+``build_forest_device`` (the device half of ``repro.core.rtree``) runs
+the same bulk load in torch on the build's device: float64 Morton
+codes, a sort equal to ``np.lexsort((code, tree))``, and the
+segmented-MBR reduction (K8) for every level and for the serving tile
+pyramid, which the engine adopts through ``RTreeForest.device``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..kernels.forest_build import (
+    level_mbr,
+    np_inert_plane,
+    tile_pyramid_device,
+)
+from ..kernels.range_query.layout import COARSE_GROUP, TP, TPT
 
 
 DEFAULT_FANOUT = 16
@@ -96,6 +110,10 @@ class RTreeForest:
     entry_off: np.ndarray          # (T+1,) int64
     level_mbr: List[np.ndarray]    # depth arrays, each (count_l, 2*dim)
     tree_off: List[np.ndarray]     # depth arrays, each (T+1,) int64
+    # device-resident serving arrays (set by ``build_forest_device``);
+    # engines on that device adopt these instead of uploading the host
+    # arrays
+    device: Optional["DeviceForest"] = None
 
     @property
     def n_trees(self) -> int:
@@ -219,6 +237,191 @@ def _ragged_arange(counts: np.ndarray) -> np.ndarray:
         return np.zeros(0, dtype=np.int64)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+
+
+# --------------------------------------------------------------------------
+# Device bulk load (backend="device" build pipeline)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeviceForest:
+    """Device-resident serving arrays produced by ``build_forest_device``:
+    exactly the tensors :class:`~repro_torch.core.engine.TileArena`
+    holds, so an engine on the same device adopts them instead of
+    transposing and uploading the host forest."""
+
+    entries: torch.Tensor     # (2*dim, Pp) float32 SoA planes, inert padding
+    fine: torch.Tensor        # (2*dim, NTp) float32 leaf-tile MBRs
+    coarse: torch.Tensor      # (2*dim, NCp) float32
+    entry_off: torch.Tensor   # (T+1,) int32
+    n_tiles: int
+
+
+_CODE_SHIFT = 31              # key = code << 31 | entry index (P < 2^31)
+
+
+def _part1by1_torch(x: torch.Tensor) -> torch.Tensor:
+    x = x & 0xFFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def _morton_code_torch(centers: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor) -> torch.Tensor:
+    """Device mirror of the 2-D ``morton_code``: the same float64
+    operations, so the codes (and the bulk-load order) equal the host
+    build's.  Codes are int64 below 2^32."""
+    if centers.shape[1] != 2:
+        raise ValueError(f"dim {centers.shape[1]} unsupported: the device "
+                         f"bulk load serves the 2-D 2DReach forests")
+    span = torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+    unit = ((centers.to(torch.float64) - lo) / span).clamp(0.0, 1.0)
+    q = (unit * 0xFFFF).to(torch.int64)           # truncates, as astype
+    return _part1by1_torch(q[:, 0]) | (_part1by1_torch(q[:, 1]) << 1)
+
+
+def _morton_keys(soa: torch.Tensor, extent: np.ndarray) -> torch.Tensor:
+    """(P,) int64 sort keys ``code << 31 | entry index``.  The centres
+    are float32 ``(lo + hi) * 0.5``, promoted to float64 afterwards, as
+    the host computes them."""
+    dim = soa.shape[0] // 2
+    centers = ((soa[:dim] + soa[dim:]) * 0.5).T         # (P, dim) float32
+    ext = torch.as_tensor(np.asarray(extent, np.float64), device=soa.device)
+    code = _morton_code_torch(centers, ext[:dim], ext[dim:])
+    idx = torch.arange(soa.shape[1], dtype=torch.int64, device=soa.device)
+    return (code << _CODE_SHIFT) | idx
+
+
+def _tree_sort(key: torch.Tensor, tree_of_entry: torch.Tensor
+               ) -> torch.Tensor:
+    """(P,) int64 permutation equal to ``np.lexsort((code, tree))``:
+    one sort of the unique keys orders by (code, entry index), the index
+    read back from the key's low bits; a stable sort by tree then keeps
+    that order inside each tree."""
+    srt = torch.sort(key).values
+    by_code = srt & ((1 << _CODE_SHIFT) - 1)
+    by_tree = torch.sort(tree_of_entry[by_code], stable=True).indices
+    return by_code[by_tree]
+
+
+def build_forest_device(
+    boxes: np.ndarray,
+    ids: np.ndarray,
+    tree_of_entry: np.ndarray,
+    n_trees: int,
+    fanout: int = DEFAULT_FANOUT,
+    extent: Optional[np.ndarray] = None,
+    *,
+    device: DeviceLike = None,
+) -> RTreeForest:
+    """Bulk-load a forest on ``device`` (``None``: the GPU) — the same
+    contract, and the same resulting arrays bit for bit, as
+    :func:`build_forest`.
+
+    Morton encode (float64, as the host), the (tree, code) sort, then the
+    segmented-MBR reduction (K8 on the card) for every R-tree level and
+    for the serving tile pyramid.  The forest carries host mirrors of
+    every array plus a :class:`DeviceForest` (``forest.device``) that an
+    engine on the same device adopts without uploading.
+
+    ``tree_of_entry`` must be non-decreasing (entries generated per tree
+    in tree order, as ``build_2dreach`` makes them)."""
+    dev = resolve_device(device)
+    boxes = np.asarray(boxes, dtype=np.float32)
+    P, two_dim = boxes.shape
+    dim = two_dim // 2
+    ids = np.asarray(ids, dtype=np.int32)
+    tree_of_entry = np.asarray(tree_of_entry, dtype=np.int64)
+    if P and (np.diff(tree_of_entry) < 0).any():
+        raise ValueError(
+            "build_forest_device requires tree-contiguous input entries "
+            "(tree_of_entry non-decreasing)")
+    if P >= 2 ** _CODE_SHIFT:
+        raise ValueError(f"{P} entries: the sort key holds the entry index "
+                         f"in {_CODE_SHIFT} bits")
+    if extent is None:
+        if P:
+            extent = np.concatenate(
+                [boxes[:, :dim].min(0), boxes[:, dim:].max(0)])
+        else:
+            extent = np.zeros(2 * dim, dtype=np.float32)
+
+    counts = np.bincount(tree_of_entry, minlength=n_trees).astype(np.int64)
+    entry_off = np.zeros(n_trees + 1, dtype=np.int64)
+    np.cumsum(counts, out=entry_off[1:])
+
+    # ---- sort: Morton keys, then the (tree, code) order ------------------
+    Pp = max(TP, -(-P // TP) * TP)
+    soa_ext = torch.cat([
+        torch.as_tensor(np.ascontiguousarray(boxes.T), device=dev),
+        torch.as_tensor(np_inert_plane(dim, 1), device=dev),  # padding
+    ], dim=1)                                                # (2*dim, P+1)
+    if P:
+        key = _morton_keys(soa_ext[:, :P], extent)
+        order = _tree_sort(key, torch.as_tensor(tree_of_entry, device=dev))
+        # one gather builds the permuted AND padded serving plane
+        order_pad = torch.cat([order, torch.full(
+            (Pp - P,), P, dtype=torch.int64, device=dev)])
+        plane = soa_ext[:, order_pad]                        # (2*dim, Pp)
+        ids_host = ids[order.cpu().numpy()]
+    else:
+        plane = torch.as_tensor(np_inert_plane(dim, Pp), device=dev)
+        ids_host = ids
+    boxes_host = np.ascontiguousarray(plane[:, :P].cpu().numpy().T)
+
+    # ---- level loop: one segmented-MBR reduction per R-tree level --------
+    level_mbrs: List[np.ndarray] = []
+    tree_off: List[np.ndarray] = []
+    cur_soa = plane           # level 0 gathers only indices < P
+    cur_counts = counts
+    while True:
+        node_counts = -(-cur_counts // fanout)   # ceil div; 0 stays 0
+        off = np.zeros(n_trees + 1, dtype=np.int64)
+        np.cumsum(node_counts, out=off[1:])
+        n_nodes = int(off[-1])
+        if n_nodes:
+            child_off = np.zeros(n_trees + 1, dtype=np.int64)
+            np.cumsum(cur_counts, out=child_off[1:])
+            node_tree = np.repeat(np.arange(n_trees), node_counts)
+            local = _ragged_arange(node_counts)
+            starts = child_off[node_tree] + local * fanout
+            ends = np.minimum(starts + fanout, child_off[node_tree + 1])
+            mbr_soa = level_mbr(cur_soa, starts, ends, fanout, dim,
+                                device=dev)
+        else:
+            mbr_soa = torch.zeros((2 * dim, 0), dtype=torch.float32,
+                                  device=dev)
+        level_mbrs.append(
+            np.ascontiguousarray(mbr_soa[:, :n_nodes].cpu().numpy().T))
+        tree_off.append(off)
+        if np.all(node_counts <= 1):
+            break
+        cur_soa = mbr_soa     # padded tail columns are inert, never read
+        cur_counts = node_counts
+
+    # ---- the serving arrays (adopted by an engine on this device) -------
+    fine, coarse, nt = tile_pyramid_device(
+        plane, dim, tp=TP, tpt=TPT, group=COARSE_GROUP, device=dev)
+    return RTreeForest(
+        dim=dim,
+        fanout=fanout,
+        entries=boxes_host,
+        entry_ids=ids_host,
+        entry_off=entry_off,
+        level_mbr=level_mbrs,
+        tree_off=tree_off,
+        device=DeviceForest(
+            entries=plane,
+            fine=fine,
+            coarse=coarse,
+            entry_off=torch.as_tensor(entry_off.astype(np.int32),
+                                      device=dev),
+            n_tiles=nt,
+        ),
+    )
 
 
 def intersects(boxes: np.ndarray, rect: np.ndarray, dim: int) -> np.ndarray:

@@ -18,9 +18,10 @@ evaluated in the paper's Section 5:
 Beyond-paper option ``dedup="global"`` shares trees between *any* two
 components with identical reachable sets (not only parent/child).
 
-The build is host-side NumPy (the index build is offline, exactly as in
-the paper); serving runs on the GPU through
-:class:`repro_torch.core.engine.QueryEngine`.
+The build runs on the host in NumPy (the index build is offline, exactly
+as in the paper), or with ``backend="device"`` runs its two expensive
+stages — the closure and the forest bulk load — in torch on a device;
+serving runs on the GPU through :class:`repro_torch.core.engine.QueryEngine`.
 """
 
 from __future__ import annotations
@@ -30,17 +31,26 @@ import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..device import DeviceLike, resolve_device
 from .condensation import Condensation, condense
 from .graph import GeosocialGraph
 from .reachability import (
     ClosureResult,
     _ragged_arange,
+    closure_bitset_mm,
     closure_np,
     popcount32 as _popcount32,
     unpack_rows,
 )
-from .rtree import DEFAULT_FANOUT, RTreeForest, build_forest, query_host
+from .rtree import (
+    DEFAULT_FANOUT,
+    RTreeForest,
+    build_forest,
+    build_forest_device,
+    query_host,
+)
 from .scc import scc_np
 
 BUILD_BACKENDS = ("host", "device")
@@ -167,14 +177,21 @@ def build_2dreach(
     fanout: int = DEFAULT_FANOUT,
     dedup: str = "paper",
     backend: str = "host",
+    device: DeviceLike = None,
 ) -> TwoDReachIndex:
-    """Construct the 2DReach index (paper Alg. 1 + §4.1 compression) on
-    the host.  Produces the same arrays as ``repro.core.build_2dreach``
-    with ``backend="host"``, bit for bit.
+    """Construct the 2DReach index (paper Alg. 1 + §4.1 compression).
+    Produces the same arrays as ``repro.core.build_2dreach``, bit for
+    bit, with either backend.
 
-    backend: ``"host"`` only.  ``"device"`` (closure and bulk load on the
-             accelerator) raises ``NotImplementedError``: the device
-             build is ported in a later slice (ROADMAP Queue 1, item 6).
+    backend: ``"host"`` builds everything in NumPy.  ``"device"`` runs
+             the closure as a level-scheduled packed OR-AND fixpoint
+             (``closure_bitset_mm``, K7) and the forest bulk load as a
+             sort plus segmented-MBR reduction (``build_forest_device``,
+             K8) on ``device``, and leaves the serving arrays there, so
+             a ``QueryEngine`` on that device adopts them without an
+             upload.
+    device:  where ``backend="device"`` runs (``None``: the GPU; raises
+             where CUDA is absent); ignored for ``backend="host"``.
     """
     assert variant in ("base", "comp", "pointer")
     assert dedup in ("paper", "global", "none")
@@ -182,11 +199,7 @@ def build_2dreach(
         raise ValueError(
             f"unknown build backend {backend!r}; expected one of "
             f"{BUILD_BACKENDS}")
-    if backend == "device":
-        raise NotImplementedError(
-            "build_2dreach(backend='device') is not ported yet: the device "
-            "closure and forest bulk-load come with the device-build slice "
-            "(ROADMAP Queue 1, item 6); use backend='host'")
+    dev = resolve_device(device) if backend == "device" else None
     t_start = time.perf_counter()
     n = graph.n_nodes
     stats: Dict[str, float] = {}
@@ -220,7 +233,11 @@ def build_2dreach(
             src_c = cond.comp[e[m, 0]]
             ok = src_c >= 0
             extra = (e[m, 1][ok], src_c[ok])
-    clo = closure_np(cond, n, spatial_ids, extra_vertex_comp=extra)
+    if backend == "device":
+        clo = closure_bitset_mm(cond, n, spatial_ids,
+                                extra_vertex_comp=extra, device=dev)
+    else:
+        clo = closure_np(cond, n, spatial_ids, extra_vertex_comp=extra)
     stats["t_closure"] = time.perf_counter() - t0
 
     # ---- tree assignment (+ sharing) --------------------------------------
@@ -241,10 +258,17 @@ def build_2dreach(
     tree_of_entry = np.repeat(np.arange(n_tree), lens)
     ext = graph.spatial_extent()
     extent = np.array([ext[0], ext[1], ext[2], ext[3]], dtype=np.float32)
-    forest = build_forest(
-        boxes, vid.astype(np.int32), tree_of_entry, n_tree,
-        fanout=fanout, extent=extent,
-    )
+    if backend == "device":
+        forest = build_forest_device(
+            boxes, vid.astype(np.int32), tree_of_entry, n_tree,
+            fanout=fanout, extent=extent, device=dev)
+        if dev.type == "cuda":      # the pyramid's kernels have finished
+            torch.cuda.synchronize(dev)
+    else:
+        forest = build_forest(
+            boxes, vid.astype(np.int32), tree_of_entry, n_tree,
+            fanout=fanout, extent=extent,
+        )
     stats["t_forest"] = time.perf_counter() - t0
 
     # ---- pointers ----------------------------------------------------------

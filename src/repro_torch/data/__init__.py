@@ -5,9 +5,12 @@ from .lbsn import SPECS, LBSNSpec, dataset_stats, generate_lbsn
 from .queries import (
     DEGREE_BUCKETS,
     DEGREE_DEFAULT,
+    POLYGON_EDGE_VALUES,
+    POLYGON_EDGES_DEFAULT,
     REGION_EXTENT_DEFAULT,
     REGION_EXTENT_VALUES,
     SELECTIVITY_VALUES,
+    polygon_workload,
     region_for_extent,
     workload,
 )
@@ -15,8 +18,9 @@ from .registry import dataset_names, get_dataset
 
 __all__ = [
     "SPECS", "LBSNSpec", "dataset_stats", "generate_lbsn",
-    "DEGREE_BUCKETS", "DEGREE_DEFAULT", "REGION_EXTENT_DEFAULT",
-    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "region_for_extent",
-    "workload",
+    "DEGREE_BUCKETS", "DEGREE_DEFAULT", "POLYGON_EDGE_VALUES",
+    "POLYGON_EDGES_DEFAULT", "REGION_EXTENT_DEFAULT",
+    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "polygon_workload",
+    "region_for_extent", "workload",
     "dataset_names", "get_dataset",
 ]

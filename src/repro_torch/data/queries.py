@@ -1,7 +1,7 @@
 """RangeReach query-workload generators — the paper's parameters.
 
-A copy of the RangeReach part of ``repro.data.queries``: the same seeds
-give the same query vertices and the same regions.
+A copy of the RangeReach and polygon parts of ``repro.data.queries``:
+the same seeds give the same query vertices and the same regions.
 
 * region extent ratio   — query region area as a percentage of the global
                           spatial extent (1/2/5/10/20 %, default 5%).
@@ -82,6 +82,42 @@ def region_for_selectivity(
         r = np.partition(cheb, k - 1)[k - 1] + 1e-6
         rects[i] = (c[0] - r, c[1] - r, c[0] + r, c[1] + r)
     return rects
+
+
+POLYGON_EDGE_VALUES = (3, 4, 6, 8, 12)
+POLYGON_EDGES_DEFAULT = 6
+
+
+def polygon_workload(
+    g: GeosocialGraph,
+    n_queries: int = 1000,
+    n_edges: int = POLYGON_EDGES_DEFAULT,
+    extent_ratio: float = REGION_EXTENT_DEFAULT,
+    degree_bucket: Tuple[int, int] = DEGREE_DEFAULT,
+    seed: int = 0,
+) -> Tuple[np.ndarray, Tuple[np.ndarray, ...]]:
+    """(us, polygons) for the convex-polygon class: per query an
+    ``n_edges``-gon inscribed in an ellipse whose area tracks the
+    region-extent sweep — vertices at sorted random angles, which is
+    convex by construction."""
+    rng = np.random.default_rng(seed)
+    us = sample_vertices_by_degree(g, degree_bucket, n_queries, rng)
+    ext = g.spatial_extent()
+    w = max(float(ext[2] - ext[0]), 1e-3)
+    h = max(float(ext[3] - ext[1]), 1e-3)
+    rx = w * np.sqrt(extent_ratio) / 2
+    ry = h * np.sqrt(extent_ratio) / 2
+    polys = []
+    for _ in range(n_queries):
+        cx = rng.random() * w + ext[0]
+        cy = rng.random() * h + ext[1]
+        ang = np.sort(rng.random(n_edges) * 2 * np.pi)
+        # nudge coincident angles apart so the polygon is proper
+        ang = ang + np.arange(n_edges) * 1e-6
+        polys.append(np.stack(
+            [cx + rx * np.cos(ang), cy + ry * np.sin(ang)], axis=1
+        ).astype(np.float32))
+    return us.astype(np.int64), tuple(polys)
 
 
 def workload(

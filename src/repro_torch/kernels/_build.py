@@ -31,6 +31,8 @@ SOURCES = {
     "fused_serve": "range_query/csrc/fused_serve.cu",
     "prune_tiles": "range_query/csrc/prune_tiles.cu",
     "leaf_scan": "range_query/csrc/leaf_scan.cu",
+    "bitset_mm": "bitset_mm/csrc/bitset_mm.cu",
+    "seg_mbr": "forest_build/csrc/seg_mbr.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,5 @@
-"""Analytics leaf scans over the compacted candidate tiles: count and
-collect (the port of ``repro.kernels.range_query.analytics``).
+"""Analytics leaf scans over the compacted candidate tiles: count,
+collect and polygon (the port of ``repro.kernels.range_query.analytics``).
 
 The boolean scan (:func:`~.descent.descent_scan`) tolerates a repeated
 candidate tile, because OR is idempotent; a sum does not.  Compacted
@@ -15,10 +15,17 @@ nothing (:func:`dup_slots`, the reference's ``_dup_slot``).
   entry, ``ID_SENTINEL`` everywhere else.  On a CUDA tensor it launches
   ``csrc/leaf_scan.cu`` (K5); on a CPU tensor it runs
   :func:`collect_scan_torch`.
-* :func:`count_scan_ref` / :func:`collect_scan_ref` — dense versions
-  over the whole arena, the oracles of the tests.
-
-The polygon scan (K6) comes with the next slice of the port.
+* :func:`polygon_scan` — (B,) int32 0/1: boolean RangeReach where the
+  query rect is a convex polygon's bbox and each query also carries
+  ``ne`` half-planes ``A*x + B*y <= C`` (float32, inert padding ``A = B
+  = 0, C = +inf``), tested on each entry point inside the leaf scan.
+  Each product and the sum round on their own (no fused multiply-add),
+  as ``core.polygon.points_in_polygon_region`` computes them.  On a CUDA
+  tensor it launches ``csrc/leaf_scan.cu`` (K6); on a CPU tensor it
+  runs :func:`polygon_scan_torch`.
+* :func:`count_scan_ref` / :func:`collect_scan_ref` /
+  :func:`polygon_scan_ref` — dense versions over the whole arena, the
+  oracles of the tests.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 from ...device import DeviceLike, resolve_device, same_device
 from .._build import call, check_tensor
 from .descent import check_scan_inputs, tile_hits
-from .layout import ID_SENTINEL, TP
+from .layout import ID_SENTINEL, TB, TP
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -73,6 +80,33 @@ def collect_scan_torch(cand, entries_soa, ids_soa, rects_soa, qstart, qend,
         -1, cand.shape[1] * TP)
 
 
+def _in_halfplanes(ok, x, y, lines_soa, ne: int):
+    """AND the ``ne`` half-planes of each query into ``ok`` (B, N):
+    ``A*x + B*y <= C`` with each float32 product and the sum rounded on
+    their own (separate tensor operations, never a fused multiply-add).
+    ``x``/``y`` broadcast against ``ok``; ``lines_soa`` is (3*ne, B)."""
+    for hp in range(ne):
+        a = lines_soa[hp][:, None]
+        b = lines_soa[ne + hp][:, None]
+        c = lines_soa[2 * ne + hp][:, None]
+        ok &= (a * x + b * y) <= c
+    return ok
+
+
+def polygon_scan_torch(cand, entries_soa, rects_soa, lines_soa, qstart,
+                       qend, *, ne: int, dim: int = 2) -> torch.Tensor:
+    """(B,) int32 0/1 — any entry point of the K candidate tiles inside
+    the bbox and all ``ne`` half-planes (same contract as
+    :func:`polygon_scan`).  Padding slots repeat a tile: an idempotent
+    OR."""
+    hit, g = tile_hits(cand, entries_soa, rects_soa, qstart, qend, dim=dim)
+    B = qstart.shape[0]
+    hit = hit.reshape(B, -1)                             # (B, K*TP)
+    pts = entries_soa[:2, g.long()].repeat_interleave(TB, dim=1)
+    hit = _in_halfplanes(hit, pts[0], pts[1], lines_soa, ne)
+    return hit.any(dim=1).to(torch.int32)
+
+
 def _dense_hits(entries_soa, rects_soa, qstart, qend, dim):
     P = entries_soa.shape[1]
     gidx = torch.arange(P, dtype=torch.int32,
@@ -98,6 +132,16 @@ def collect_scan_ref(entries_soa, ids_soa, rects_soa, qstart, qend, *,
     sentinel = torch.tensor(int(ID_SENTINEL), dtype=torch.int32,
                             device=ok.device)
     return torch.where(ok, ids_soa[0][None, :], sentinel)
+
+
+def polygon_scan_ref(entries_soa, rects_soa, lines_soa, qstart, qend, *,
+                     ne: int, dim: int = 2) -> torch.Tensor:
+    """Dense oracle: (B,) int32 0/1 over the whole arena (the port of
+    ``polygon_scan_ref``)."""
+    ok = _dense_hits(entries_soa, rects_soa, qstart, qend, dim)
+    ok = _in_halfplanes(ok, entries_soa[0][None, :], entries_soa[1][None, :],
+                        lines_soa, ne)
+    return ok.any(dim=1).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -175,3 +219,44 @@ def collect_scan(
 
 
 collect_scan.launches = 0
+
+
+def polygon_scan(
+    cand: torch.Tensor,         # (B // TB, K) int32 compacted candidates
+    entries_soa: torch.Tensor,  # (2*dim, P) float32, P % TP == 0
+    rects_soa: torch.Tensor,    # (2*dim, B) float32 polygon bboxes
+    lines_soa: torch.Tensor,    # (3*ne, B) float32 half-planes [A.., B.., C..]
+    qstart: torch.Tensor,       # (B,) int32
+    qend: torch.Tensor,         # (B,) int32
+    *,
+    ne: int,
+    dim: int = 2,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """(B,) int32 0/1 — any entry point of the K candidate tiles inside
+    the bbox AND all ``ne`` half-planes (the convex-polygon region).
+    ``cand`` must cover every tile with a possible hit; a repeated tile
+    is harmless.  On a CUDA device the K6 kernel runs; on the CPU the
+    plain version runs."""
+    dev = resolve_device(device)
+    if not same_device(entries_soa.device, dev):
+        raise ValueError(f"entries_soa lies on {entries_soa.device}, "
+                         f"expected {dev}")
+    if dev.type == "cpu":
+        return polygon_scan_torch(cand, entries_soa, rects_soa, lines_soa,
+                                  qstart, qend, ne=ne, dim=dim)
+    B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
+                                dim, dev)
+    if ne < 1:
+        raise ValueError(f"polygon scan needs ne >= 1, got {ne}")
+    check_tensor("lines_soa", lines_soa, torch.float32, (3 * ne, B), dev)
+    out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
+    call("leaf_scan", "polygon_scan_launch", [_PTR] * 7 + [_INT] * 4,
+         out.device, cand.data_ptr(), entries_soa.data_ptr(),
+         rects_soa.data_ptr(), lines_soa.data_ptr(), qstart.data_ptr(),
+         qend.data_ptr(), out.data_ptr(), K, P, B, ne)
+    polygon_scan.launches += 1
+    return out
+
+
+polygon_scan.launches = 0

@@ -9,10 +9,11 @@ answer the device engine reproduces exactly:
 
 * counts are exact int64 totals;
 * collects are the K smallest venue ids ascending (+ exact totals and
-  overflow flags).
+  overflow flags);
+* polygon regions use the canonical float32 bbox + half-plane predicate
+  of :mod:`repro_torch.core.polygon`.
 
-kNN lives in :mod:`repro_torch.queries.knn`.  Polygon regions come with
-slice 3 of the port.
+kNN lives in :mod:`repro_torch.queries.knn`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ from typing import Tuple
 
 import numpy as np
 
+from ..core.polygon import (
+    convex_halfplanes,
+    points_in_polygon_region,
+    polygon_bbox,
+)
 from ..core.rtree import query_host_collect_batch, query_host_count
 from ..core.two_d_reach import TwoDReachIndex
 from .program import CollectResult
@@ -105,3 +111,29 @@ def range_collect_host(index: TwoDReachIndex, us: np.ndarray,
         row = all_ids[indptr[b]:indptr[b + 1]][:k]
         ids[b, : len(row)] = row
     return CollectResult(ids=ids, counts=counts, overflow=counts > k)
+
+
+def polygon_reach_host(index: TwoDReachIndex, us: np.ndarray,
+                       polygons) -> np.ndarray:
+    """Batched convex-polygon RangeReach: bbox prefilter through the
+    R-tree descent, canonical float32 half-plane postfilter."""
+    us = np.asarray(us, dtype=np.int64)
+    B = len(us)
+    if len(polygons) != B:
+        raise ValueError(f"{len(polygons)} polygons for {B} queries")
+    bboxes = np.stack([polygon_bbox(p) for p in polygons]) if B else \
+        np.zeros((0, 4), np.float32)
+    exc, tid = _route(index, us)
+    out = np.zeros(B, dtype=bool)
+    indptr, cand = query_host_collect_batch(index.forest, tid, bboxes)
+    for b in range(B):
+        hp = convex_halfplanes(polygons[b])
+        if exc[b]:
+            out[b] = bool(points_in_polygon_region(
+                index.coords[us[b]][None], bboxes[b], hp)[0])
+            continue
+        row = cand[indptr[b]:indptr[b + 1]]
+        if row.size:
+            out[b] = bool(points_in_polygon_region(
+                index.coords[row], bboxes[b], hp).any())
+    return out

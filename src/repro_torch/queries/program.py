@@ -17,8 +17,7 @@ polygon    us (B,), polygons (B sequences of (Ei, 2))   (B,) bool
 
 Construct via the classmethods (``QueryProgram.count(us, rects)``, ...)
 so the shapes are checked once up front instead of deep inside an
-engine.  The port validates polygon programs; running them comes with
-slice 3 of the port.
+engine.
 """
 
 from __future__ import annotations

@@ -96,8 +96,8 @@ def test_host_query_matches_oracle(variant):
 
 def test_unported_paths_raise():
     g = get_dataset("tiny")
-    with pytest.raises(NotImplementedError, match="device"):
-        build_2dreach(g, variant="comp", backend="device")
+    with pytest.raises(ValueError, match="backend"):
+        build_2dreach(g, variant="comp", backend="nope")
     for method in ("3dreach", "3dreach-rev", "georeach"):
         with pytest.raises(NotImplementedError, match=method):
             build_index(g, method)

@@ -1,7 +1,9 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
-descent / count / collect scans) against its plain PyTorch version, the
-wrappers' input checks, and the engine on the card (both paths) against
-the engine on the CPU.  Every test needs a CUDA device and skips where
+descent / count / collect / polygon scans, the packed closure product,
+the segmented-MBR reduction) against its plain PyTorch version, the
+wrappers' input checks, the engine on the card (both paths, polygons)
+against the engine on the CPU, and the device build on the card against
+the host build.  Every test needs a CUDA device and skips where
 there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch:
@@ -14,7 +16,11 @@ import pytest
 import torch
 
 from repro_torch.core import QueryEngine, build_index
-from repro_torch.data import get_dataset, workload
+from repro_torch.core.engine import UPLOAD_COUNTERS
+from repro_torch.core.polygon import convex_halfplanes, polygon_bbox
+from repro_torch.data import get_dataset, polygon_workload, workload
+from repro_torch.kernels import bitset_mm as BM
+from repro_torch.kernels import forest_build as FB
 from repro_torch.kernels.range_query import analytics as A
 from repro_torch.kernels.range_query import descent as D
 from repro_torch.kernels.range_query import fused as F
@@ -214,3 +220,173 @@ def test_two_phase_engine_on_card_matches_cpu(cuda, method):
     pts = rects[:64, :2].copy()
     assert (gpu.knn_batch(us[:64], pts, 5).ids
             == cpu.knn_batch(us[:64], pts, 5).ids).all()
+
+
+# --------------------------------------------------------------------------
+# Polygon scan, closure product, segmented MBR, device build
+# --------------------------------------------------------------------------
+
+def polygon_case(seed, B, n_tiles, ne, plant=True):
+    """Polygon-scan inputs: lattice venues sorted along x in three tree
+    slices, one small convex polygon of 3..ne vertices per query and
+    (``plant``), for about half of the queries, the polygon's vertices
+    and points on its edges planted into the query's slice — the inputs
+    where a fused multiply-add would flip an answer.  Returns numpy
+    arrays; ``lines`` is padded to a power-of-two edge count with inert
+    half-planes."""
+    rng = np.random.default_rng(seed)
+    P = n_tiles * TP - 5
+    pts = (np.round(rng.uniform(0, 100, (P, 2)) * 4) / 4).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0])]
+    off = np.array([0, P // 3, P // 2, P], np.int64)
+    t = rng.integers(0, 3, B)
+    qs, qe = off[t].copy(), off[t + 1].copy()
+    qe[B // 4: B // 3] = qs[B // 4: B // 3]           # empty slices
+    polys = []
+    for b in range(B):
+        k = int(rng.integers(3, ne + 1))
+        ang = np.sort(rng.random(k) * 2 * np.pi) + np.arange(k) * 1e-6
+        c, r = rng.uniform(5, 95, 2), rng.uniform(0.3, 3, 2)
+        v = np.stack([c[0] + r[0] * np.cos(ang), c[1] + r[1] * np.sin(ang)],
+                     1).astype(np.float32)
+        polys.append(v)
+        if plant and qe[b] > qs[b] and rng.random() < 0.5:
+            nxt = np.roll(v, -1, 0).astype(np.float64)
+            w = rng.random((k, 1))
+            edge = (v * (1 - w) + nxt * w).astype(np.float32)
+            on = np.concatenate([v, edge])
+            pts[rng.integers(qs[b], qe[b], len(on))] = on
+    esoa = np.empty((4, n_tiles * TP), np.float32)
+    esoa[:2], esoa[2:] = 1.0, 0.0
+    esoa[:2, :P] = esoa[2:, :P] = pts.T
+    fine, coarse, nt = build_tile_pyramid(esoa, 2)
+    neb = 4
+    while neb < max(len(p) for p in polys):
+        neb *= 2
+    rsoa = np.ascontiguousarray(np.stack([polygon_bbox(p) for p in polys]).T)
+    hps = np.stack([convex_halfplanes(p, pad_to=neb) for p in polys])
+    lines = np.ascontiguousarray(hps.transpose(1, 2, 0).reshape(3 * neb, B))
+    return dict(esoa=esoa, fine=fine, coarse=coarse, nt=nt, rsoa=rsoa,
+                lines=lines, ne=neb, qs=qs.astype(np.int32),
+                qe=qe.astype(np.int32), polys=polys)
+
+
+@pytest.mark.parametrize("ne", [4, 8])
+@pytest.mark.parametrize("B", [TB, 4 * TB])
+def test_polygon_kernel_matches_plain(cuda, B, ne):
+    d = polygon_case(B + ne, B, 300, ne)
+    T = {k: torch.as_tensor(v, device=cuda) for k, v in d.items()
+         if isinstance(v, np.ndarray)}
+    mask = D.prune_tiles_torch(T["fine"], T["coarse"], T["rsoa"], T["qs"],
+                               T["qe"])
+    cand, cnt = F.compact_ascending(mask, d["nt"])
+    mx = int(cnt.max())
+    args = (T["esoa"], T["rsoa"], T["lines"], T["qs"], T["qe"])
+    for K in (max(1, mx // 2), mx, mx + 3):
+        ck = D.take_candidates(cand, K)
+        launches = A.polygon_scan.launches
+        got = A.polygon_scan(ck, *args, ne=d["ne"])
+        assert A.polygon_scan.launches == launches + 1
+        assert torch.equal(got, A.polygon_scan_torch(ck, *args, ne=d["ne"]))
+    assert torch.equal(got, A.polygon_scan_ref(*args, ne=d["ne"]))
+    assert 0 < int(got.sum()) < B
+
+
+@pytest.mark.parametrize("f,m,W", [(1, 1, 1), (37, 64, 3), (300, 33, 70),
+                                   (1000, 900, 40)])
+def test_bitset_mm_kernel_matches_plain(cuda, f, m, W):
+    rng = np.random.default_rng(f + m + W)
+    Wm = (m + 31) // 32
+    a = rng.integers(0, 2 ** 32, (f, Wm), dtype=np.uint64).astype(np.uint32)
+    a[rng.random((f, Wm)) < 0.7] = 0             # many zero words
+    a[:, -1] &= np.uint32((1 << (m - 32 * (Wm - 1))) - 1 if m % 32 else
+                          0xFFFFFFFF)            # no bits past m ...
+    a[0, -1] |= np.uint32(1 << ((m - 1) % 32))   # ... but the last column
+    r = rng.integers(0, 2 ** 32, (m, W), dtype=np.uint64).astype(np.uint32)
+    r[:, 0] |= np.uint32(1 << 31)                 # bit 31 everywhere
+    A_, R_ = BM.uint32_bits(a, cuda), BM.uint32_bits(r, cuda)
+    launches = BM.bitset_mm.launches
+    got = BM.bitset_mm(A_, R_)
+    assert BM.bitset_mm.launches == launches + 1
+    assert torch.equal(got, BM.bitset_mm_torch(A_, R_))
+    assert (got < 0).any()                        # bit 31 came through
+
+
+@pytest.mark.parametrize("fan,n", [(16, 1), (16, 1000), (128, 301),
+                                   (8, 77)])
+def test_seg_mbr_kernel_matches_plain(cuda, fan, n):
+    rng = np.random.default_rng(fan + n)
+    c = rng.uniform(-50, 50, (fan, 4, n)).astype(np.float32)
+    inert = rng.random((fan, n)) < 0.3
+    c[:, :2][np.broadcast_to(inert[:, None], (fan, 2, n))] = np.inf
+    c[:, 2:][np.broadcast_to(inert[:, None], (fan, 2, n))] = -np.inf
+    x = torch.as_tensor(c.reshape(fan * 4, n), device=cuda)
+    launches = FB.seg_mbr.launches
+    got = FB.seg_mbr(x, dim=2, fan=fan)
+    assert FB.seg_mbr.launches == launches + 1
+    assert torch.equal(got, FB.seg_mbr_torch(x, dim=2, fan=fan))
+
+
+def test_build_wrappers_reject_what_they_do_not_take(cuda):
+    a = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    r = torch.zeros((64, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        BM.bitset_mm(a.long(), r)
+    with pytest.raises(ValueError, match="rows"):
+        BM.bitset_mm(a, torch.zeros((65, 3), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="lies on"):
+        BM.bitset_mm(a.cpu(), r)
+    x = torch.zeros((16 * 4, 10), device=cuda)
+    with pytest.raises(ValueError, match="rows"):
+        FB.seg_mbr(x, dim=2, fan=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.seg_mbr(x.t().contiguous().t(), dim=2, fan=16)
+    d = polygon_case(0, TB, 4, 4)
+    T = {k: torch.as_tensor(v, device=cuda) for k, v in d.items()
+         if isinstance(v, np.ndarray)}
+    ck = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        A.polygon_scan(ck, T["esoa"], T["rsoa"], T["lines"], T["qs"],
+                       T["qe"], ne=8)
+
+
+@pytest.mark.parametrize("method", ["2dreach", "2dreach-comp",
+                                    "2dreach-pointer"])
+def test_device_build_on_card_matches_host(cuda, method):
+    g = get_dataset("yelp", scale=0.05)
+    host = build_index(g, method)
+    launches = (BM.bitset_mm.launches, FB.seg_mbr.launches)
+    dev = build_index(g, method, backend="device")
+    assert BM.bitset_mm.launches > launches[0]
+    assert FB.seg_mbr.launches > launches[1]
+    f, fd = host.forest, dev.forest
+    for a, b in ((f.entries, fd.entries), (f.entry_ids, fd.entry_ids),
+                 (f.entry_off, fd.entry_off), (host.comp_tree, dev.comp_tree)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert len(f.level_mbr) == len(fd.level_mbr)
+    for a, b in zip(f.level_mbr + f.tree_off, fd.level_mbr + fd.tree_off):
+        assert np.array_equal(a, b)
+    before = dict(UPLOAD_COUNTERS)
+    gpu = QueryEngine(dev)
+    assert (UPLOAD_COUNTERS["device_adoptions"]
+            == before["device_adoptions"] + 1)
+    assert UPLOAD_COUNTERS["host_uploads"] == before["host_uploads"]
+    assert gpu.stats["adopted"] == 1
+    # served on another device than it was built on, the forest uploads
+    cross = QueryEngine(dev, device="cpu")
+    assert UPLOAD_COUNTERS == {
+        "host_uploads": before["host_uploads"] + 1,
+        "device_adoptions": before["device_adoptions"] + 1}
+    assert cross.stats["adopted"] == 0
+    cpu = QueryEngine(host, device="cpu", path="two_phase")
+    for name in ("entries", "fine", "coarse", "entry_off"):
+        assert torch.equal(getattr(gpu._arena, name).cpu(),
+                           getattr(cpu._arena, name))
+    us, rects = workload(g, 300, extent_ratio=0.05, seed=1)
+    assert (gpu.query_batch(us, rects) == host.query_batch(us, rects)).all()
+    assert (cross.query_batch(us, rects) == host.query_batch(us, rects)).all()
+    us, polys = polygon_workload(g, 100, seed=2)
+    launches = A.polygon_scan.launches
+    assert (gpu.polygon_batch(us, polys)
+            == cpu.polygon_batch(us, polys)).all()
+    assert A.polygon_scan.launches == launches + 1

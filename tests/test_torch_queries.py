@@ -243,9 +243,11 @@ def test_run_queries_matches_reference(graph, pairs, engine):
             _same_knn(got, want)
         else:
             assert got.dtype == want.dtype and np.array_equal(got, want)
-    poly = QueryProgram.polygon(us, [np.eye(3, 2)] * len(us))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        run_queries(idx, poly, engine=engine, **kw)
+    _, polys = RD.polygon_workload(graph, len(us), seed=4)
+    got = run_queries(idx, QueryProgram.polygon(us, polys), engine=engine,
+                      **kw)
+    assert np.array_equal(got, R.run_queries(
+        ref, RQ.QueryProgram.polygon(us, polys), engine="host"))
     with pytest.raises(ValueError, match="engine"):
         run_queries(idx, progs[0][0], engine="cluster")
     with pytest.raises(ValueError, match="kind"):
