@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of 2DReach serving on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of 2DReach serving and its baselines on
+one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -26,7 +27,11 @@ not beside this script, it exits with code 2 and prints no result.
            and edges; the closure product at the yelp x1.0 level-0 shape
            (17,878 x 90 words x 95 words) and at ragged small shapes
            with bit 31 set; the segmented MBR at fan 16, 128 and 8 with
-           ragged N and inert slots
+           ragged N and inert slots; the full-arena leaf scan on
+           random arenas of 12,204, 3 and 0 tiles (P = 0 padded to one
+           inert tile) at dims 2 and 3 and B = 8, 24 and 33 (ragged),
+           with tree ids of -1 and slices that start and end inside
+           128-entry tiles
   main     the main paths: host build of yelp x1.0 2dreach-comp and
            2dreach-pointer and of yelp x0.5 2dreach (base, whose pyramid
            exceeds shared memory); for each, ``QueryEngine`` on the card
@@ -56,8 +61,27 @@ not beside this script, it exits with code 2 and prints no result.
            batches equal the host-built engine's; host and device build
            seconds (closure, forest) and the closure-product and
            segmented-MBR launches per index
+  legacy   the leaf-scan engine (``range_query_forest``) serving the
+           main workload of each index in batches of 256, for the host
+           build and the device build: equal to the host index on every
+           query whose vertex is not excluded, K9 launched once per
+           batch, the entry planes neither uploaded nor adopted again
+           but shared with the ``QueryEngine`` that uploaded (host
+           build) or adopted (device build) them; the wavefront engine
+           (``query_wavefront``, capacity 128, plain torch) on each host
+           build, equal to the host index where it did not overflow,
+           with the overflowed queries counted; 3DReach, 3DReach-Rev
+           and GeoReach built on the host at yelp x1.0, their answers
+           equal to 2dreach-comp's on the workload and to the BFS oracle
+           on a 256-query sample, ``batch_query(engine="device",
+           required=True)`` raising for each; K9 at dim 3 against its
+           plain version on the leaf scan of the probe each 3DReach
+           variant's ``query_batch`` hands ``query_host``; the index
+           sizes (``index_nbytes``) and build seconds of all six methods
+           at yelp x1.0
   main_batches  every kernel against its plain version on each index's
-           first main-path batch (after the counts are read)
+           first main-path batch (after the counts are read); K9 on the
+           leaf-scan engine's first batch
   timing   at B=256 on yelp x1.0 comp: device time per launch of each
            kernel and of its plain version (torch.profiler; CUDA-event
            times of the fused serve beside them as ``event_ms``), the
@@ -71,9 +95,22 @@ not beside this script, it exits with code 2 and prints no result.
            to a power of two), each with its library
            yardstick where one exists, and end-to-end microseconds per
            polygon query
-  profile  torch.profiler over one reach pass on each path and one
-           polygon pass: device operations and busy time per batch, and
-           the busy share of the end-to-end time
+  timing_slice4  K9 on the first leaf-scan batch of yelp x1.0 comp and
+           of yelp x0.5 base, and on a random arena of 12,204 tiles
+           whose 256 queries probe distinct slices (dims 2 and 3):
+           device ms, plain ms, the bound from these inputs (a query
+           needs its slice up to its first hit); end-to-end µs per
+           query of the leaf-scan, wavefront and fused engines on every
+           index
+  profile  torch.profiler over one reach pass on each path (fused,
+           two-phase, leaf scan, wavefront) and one polygon pass: device
+           operations and busy time per batch, and the busy share of
+           the end-to-end time
+  timers   the profiler's retries (a window with no device rows, or a
+           row whose count is not a multiple of the calls, is profiled
+           again), every time taken with CUDA events because no try was
+           whole (``by_events``; empty when every time is the
+           profiler's), and each timed window's device rows
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.
@@ -115,7 +152,10 @@ SCANS = {"reach": "descent_scan", "count": "count_scan",
 POLY_EDGES = 6
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
-           "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr")
+           "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr",
+           "range_query")
+BASELINES = ("3dreach", "3dreach-rev", "georeach")
+WAVEFRONT_CAPACITY = 128
 CSRC = "src/repro_torch/kernels/"
 RQ = "range_query/csrc/"
 RECORD = {   # name -> (source, the TPU kernel it replaces)
@@ -135,6 +175,8 @@ RECORD = {   # name -> (source, the TPU kernel it replaces)
                   "src/repro/kernels/bitset_mm/kernel.py:51"),
     "seg_mbr": ("forest_build/csrc/seg_mbr.cu",
                 "src/repro/kernels/forest_build/kernel.py:44"),
+    "range_query": (RQ + "range_query.cu",
+                    "src/repro/kernels/range_query/kernel.py:59"),
 }
 
 
@@ -156,10 +198,15 @@ class Kernels:
 
     def __init__(self):
         from repro_torch.kernels import bitset_mm, forest_build
-        from repro_torch.kernels.range_query import analytics, descent, fused
+        from repro_torch.kernels.range_query import (
+            analytics,
+            descent,
+            fused,
+            leafscan,
+        )
 
         self.fs, self.ds, self.an = fused, descent, analytics
-        self.bm, self.fb = bitset_mm, forest_build
+        self.bm, self.fb, self.ls = bitset_mm, forest_build, leafscan
         self.wrap = {"fused_serve": fused.fused_serve,
                      "prune_tiles": descent.prune_tiles,
                      "descent_scan": descent.descent_scan,
@@ -167,14 +214,16 @@ class Kernels:
                      "collect_scan": analytics.collect_scan,
                      "polygon_scan": analytics.polygon_scan,
                      "bitset_mm": bitset_mm.bitset_mm,
-                     "seg_mbr": forest_build.seg_mbr}
+                     "seg_mbr": forest_build.seg_mbr,
+                     "range_query": leafscan.range_query}
         self.plain = {"prune_tiles": descent.prune_tiles_torch,
                       "descent_scan": descent.descent_scan_torch,
                       "count_scan": analytics.count_scan_torch,
                       "collect_scan": analytics.collect_scan_torch,
                       "polygon_scan": analytics.polygon_scan_torch,
                       "bitset_mm": bitset_mm.bitset_mm_torch,
-                      "seg_mbr": forest_build.seg_mbr_torch}
+                      "seg_mbr": forest_build.seg_mbr_torch,
+                      "range_query": leafscan.range_query_torch}
 
     def reset(self) -> None:
         for fn in self.wrap.values():
@@ -450,6 +499,51 @@ def compare_seg_mbr(ks, rng, fan, n, device):
     return e
 
 
+def leafscan_case(rng, n_tiles, n_trees, dim, B, device):
+    """K9's inputs at an arena of ``n_tiles`` 128-entry tiles (P = 0 for
+    0 tiles, padded to one inert tile): clustered entries (3-D boxes for
+    dim 3) cut into ``n_trees`` slices that start and end inside tiles;
+    per query a tree id in [-1, n_trees), query 0 with id -1 and query 1
+    with its rect around an entry of its slice."""
+    import torch
+    from repro_torch.kernels.range_query.layout import TP
+
+    P = max(0, n_tiles * TP - int(rng.integers(1, TP)))
+    lo = (rng.random((P, dim)) * 100).astype(np.float32)
+    lo[:, 0].sort()
+    hi = lo + (0 if dim == 2 else (rng.random((P, dim)) * 3).astype(
+        np.float32))
+    Pp = max(TP, n_tiles * TP)
+    esoa = np.empty((2 * dim, Pp), np.float32)
+    esoa[:dim], esoa[dim:] = 1.0, 0.0
+    esoa[:dim, :P], esoa[dim:, :P] = lo.T, hi.T
+    cuts = np.sort(rng.integers(0, P + 1, n_trees - 1))
+    off = np.concatenate([[0], cuts, [P]]).astype(np.int64)
+    t = rng.integers(-1, n_trees, B)
+    t[0], t[1] = -1, int(np.argmax(np.diff(off)))
+    qs = np.where(t >= 0, off[np.maximum(t, 0)], 0)
+    qe = np.where(t >= 0, off[np.maximum(t, 0) + 1], 0)
+    c = rng.random((B, dim)) * 100
+    if P:
+        c[1] = lo[(qs[1] + qe[1]) // 2]
+    r = rng.uniform(0.5, 10, (B, dim))
+    rsoa = np.concatenate([c - r, c + r], 1).T.astype(np.float32)
+    T = lambda a, d: torch.as_tensor(np.ascontiguousarray(a, d),  # noqa: E731
+                                     device=device)
+    return (T(esoa, np.float32), T(rsoa, np.float32), T(qs, np.int32),
+            T(qe, np.int32))
+
+
+def compare_range_query(ks, args, dim, where):
+    """Exact equality of K9 and its plain version on these inputs;
+    returns ``(largest absolute difference, hits)``."""
+    got = ks.ls.range_query(*args, dim=dim, device=DEVICE)
+    e = _diff(got, ks.ls.range_query_torch(*args, dim=dim))
+    if e:
+        raise AssertionError(f"range_query kernel != plain version ({where})")
+    return e, int(got.sum())
+
+
 def phase_kernels(ks):
     import torch
 
@@ -491,6 +585,16 @@ def phase_kernels(ks):
                 errs["polygon_scan"] = max(errs["polygon_scan"], e)
                 cases.append({"polygon_nt": d["nt"], "B": B, "ne": ne,
                               "max_cnt": mx, "hits": hits})
+    # the full-arena leaf scan: dims 2 and 3, ragged B, P = 0
+    for n_tiles, n_trees in ((ARENAS[0][0], ARENAS[0][1]), (3, 2), (0, 1)):
+        for dim in (2, 3):
+            for B in (8, 24, 33):
+                args = leafscan_case(rng, n_tiles, n_trees, dim, B, dev)
+                e, hits = compare_range_query(
+                    ks, args, dim, f"tiles={n_tiles} dim={dim} B={B}")
+                errs["range_query"] = max(errs["range_query"], e)
+                cases.append({"range_query": [n_tiles, dim, B],
+                              "hits": hits})
     # the closure product: the yelp x1.0 comp level-0 shape, ragged ones
     for f, m, W in ((17878, 2880, 95), (1, 1, 1), (37, 64, 3),
                     (300, 33, 70)):
@@ -731,11 +835,16 @@ def phase_main(ks):
     return results, two_phase, knn, polygons, engines, indexes
 
 
-def phase_main_batches(ks, engines):
+def phase_main_batches(ks, engines, leafscan_ops):
     """Every kernel against its plain version on each index's first
     main-path batch: the fused serve at the steady capacity and a
-    truncating one, the prune and the scans at the steady K."""
+    truncating one, the prune and the scans at the steady K, and the
+    full-arena leaf scan on the operands of the leaf-scan engine's first
+    batch (``leafscan_ops``, from phase legacy)."""
     errs = dict.fromkeys(KERNELS, 0)
+    for name, (args, dim) in leafscan_ops.items():
+        e, _ = compare_range_query(ks, args, dim, f"{name} main-path batch")
+        errs["range_query"] = max(errs["range_query"], e)
     for name, (eng, us, rects) in engines.items():
         _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
         kcap = min(eng._kb_hwm, eng.n_tiles)
@@ -750,6 +859,199 @@ def phase_main_batches(ks, engines):
             errs[k] = max(errs[k], v)
     emit("main_batches", ok=True, max_abs_err=errs)
     return errs
+
+
+# --------------------------------------------------------------------------
+# The leaf-scan and wavefront engines, the baselines
+# --------------------------------------------------------------------------
+
+def leafscan_pass(ls, idx, us, rects):
+    """The leaf-scan engine over the workload in batches of BATCH."""
+    return np.concatenate([
+        ls.range_query_forest(idx.forest, idx.lookup_tree(us[s:s + BATCH]),
+                              rects[s:s + BATCH])
+        for s in range(0, len(us), BATCH)])
+
+
+def wavefront_pass(idx, us, rects):
+    """The wavefront engine over the workload in batches of BATCH:
+    ``(hit, overflow)``."""
+    from repro_torch.core import query_wavefront
+
+    out = [query_wavefront(idx.forest, idx.lookup_tree(us[s:s + BATCH]),
+                           rects[s:s + BATCH], capacity=WAVEFRONT_CAPACITY)
+           for s in range(0, len(us), BATCH)]
+    return (np.concatenate([h for h, _ in out]),
+            np.concatenate([o for _, o in out]))
+
+
+def check_leafscan(ks, name, idx, us, rects, host_reach, adopt, planes):
+    """The leaf-scan engine on the card: equal to the host index on every
+    query whose vertex is not excluded (the engine probes trees only, as
+    ``launch/serve.py`` masks it); K9 once per batch and nothing else;
+    no upload and no adoption of the entry planes, which are ``planes``,
+    the copy that ``QueryEngine`` uploaded (host build) or adopted
+    (device build) for this forest.  Returns the record and K9's
+    operands of the first batch."""
+    import torch
+    from repro_torch.kernels.range_query.layout import (
+        UPLOAD_COUNTERS,
+        forest_planes,
+    )
+
+    ls = ks.ls
+    before = dict(UPLOAD_COUNTERS)
+    with Capture(ls, "range_query", lambda *a: 0) as k9:   # the first call
+        ks.reset()
+        t0 = time.perf_counter()
+        got = leafscan_pass(ls, idx, us, rects)
+        dt = time.perf_counter() - t0
+        launches = ks.counts()
+    moved = {k: UPLOAD_COUNTERS[k] - before[k] for k in before}
+    batches = len(range(0, len(us), BATCH))
+    want = {**dict.fromkeys(KERNELS, 0), "range_query": batches}
+    shared = forest_planes(idx.forest, torch.device(DEVICE))[0] is planes
+    if launches != want or any(moved.values()) or not shared:
+        raise AssertionError(f"{name}: leaf-scan launches {launches}, "
+                             f"planes {moved}, shared with the engine "
+                             f"{shared}; expected {want}, no upload, "
+                             f"shared")
+    exc = idx.excluded[us]
+    if not np.array_equal(got[~exc], host_reach[~exc]):
+        raise AssertionError(f"{name}: leaf-scan answers != host index")
+    _, args, kw = k9.best
+    return ({"index": name, "built_on": "device" if adopt else "host",
+             "queries": len(us), "excluded": int(exc.sum()),
+             "batches": batches, "launches": launches["range_query"],
+             "planes": moved, "planes_shared_with_engine": shared,
+             "seconds": round(dt, 3),
+             "hit_rate": float(got.mean())},
+            (tuple(a.clone() for a in args), kw["dim"]))
+
+
+def check_wavefront(ks, name, idx, us, rects, host_reach):
+    """The wavefront engine on the card (plain torch, no kernel of the
+    port): equal to the host index wherever it did not overflow and the
+    vertex is not excluded; the overflowed queries are counted."""
+    ks.reset()
+    t0 = time.perf_counter()
+    hit, over = wavefront_pass(idx, us, rects)
+    dt = time.perf_counter() - t0
+    launches = ks.counts()
+    exc = idx.excluded[us]
+    ok = ~over & ~exc
+    if not np.array_equal(hit[ok], host_reach[ok]):
+        raise AssertionError(f"{name}: wavefront answers != host index")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: the wavefront launched {launches}")
+    return {"index": name, "capacity": WAVEFRONT_CAPACITY,
+            "queries": len(us), "overflowed": int(over.sum()),
+            "compared": int(ok.sum()), "seconds": round(dt, 3)}
+
+
+def check_baselines(ks, g, us, rects, host_reach):
+    """3DReach, 3DReach-Rev and GeoReach built on the host: answers equal
+    to the 2dreach-comp host index on the workload and to the BFS oracle
+    on a sample; no device engine (``required=True`` raises).  K9 at
+    dim 3 against its plain version on the operands of the leaf scan of
+    the probe ``ThreeDReachIndex.query_batch`` hands ``query_host`` for
+    the first batch, and that leaf scan equal to ``query_host``."""
+    from repro_torch.core import (
+        batch_query,
+        build_index,
+        index_nbytes,
+        rangereach_oracle_batch,
+        three_d_reach,
+    )
+
+    ls = ks.ls
+    oracle = rangereach_oracle_batch(g, us[:BATCH], rects[:BATCH])
+    recs, errs = {}, {"range_query": 0}
+    for method in BASELINES:
+        t0 = time.perf_counter()
+        idx = build_index(g, method)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ans = idx.query_batch(us, rects)
+        query_s = time.perf_counter() - t0
+        if not np.array_equal(ans, host_reach):
+            raise AssertionError(f"{method}: answers != 2dreach-comp")
+        if not np.array_equal(ans[:BATCH], oracle):
+            raise AssertionError(f"{method}: answers != BFS oracle")
+        try:
+            batch_query(idx, us[:8], rects[:8], engine="device",
+                        required=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{method}: a device engine was found")
+        rec = {"build_seconds": round(build_s, 3),
+               "us_per_query": query_s / len(us) * 1e6,
+               "hit_rate": float(ans.mean()), "nbytes": index_nbytes(idx)}
+        if method != "georeach":
+            with Capture(three_d_reach, "query_host",
+                         lambda f, t, r: len(t)) as qh:
+                idx.query_batch(us[:BATCH], rects[:BATCH])
+            _, (forest, tids, rect3), _ = qh.best
+            want = three_d_reach.query_host(forest, tids, rect3)
+            with Capture(ls, "range_query", lambda *a: 0) as k9:
+                got = ls.range_query_forest(forest, tids, rect3)
+            _, args, kw = k9.best
+            e, hits = compare_range_query(ks, args, kw["dim"],
+                                          f"{method} dim 3 probe")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{method}: leaf scan != query_host")
+            errs["range_query"] = max(errs["range_query"], e)
+            rec.update(entries=int(len(forest.entries)),
+                       probes=int(len(tids)), probe_hits=hits,
+                       intervals=int(idx.labels.total_intervals))
+        recs[method] = rec
+        del idx
+    return recs, errs
+
+
+def phase_legacy(ks, indexes, built, results, engines):
+    """The leaf-scan engine on each main-path index, host-built and
+    device-built; the wavefront engine on each host-built index; the
+    three baselines at yelp x1.0; index sizes of all six methods there.
+    Returns the leaf-scan records, K9's first-batch operands per index
+    and K9's largest difference from its plain version."""
+    from repro_torch.core import build_index, index_nbytes
+
+    leafscan, wavefront, ops = [], [], {}
+    for name, (g, method, idx, host_reach, _) in indexes.items():
+        eng, us, rects = engines[name]
+        rec, ops[name] = check_leafscan(ks, name, idx, us, rects, host_reach,
+                                        False, eng._arena.entries)
+        leafscan.append(rec)
+        dev = built[name]
+        rec, _ = check_leafscan(ks, name, dev, us, rects, host_reach, True,
+                                dev.forest.device.entries)
+        leafscan.append(rec)
+        wavefront.append(check_wavefront(ks, name, idx, us, rects,
+                                         host_reach))
+    name = next(iter(indexes))                 # yelp x1.0 2dreach-comp
+    g, _, _, host_reach, _ = indexes[name]
+    _, us, rects = engines[name]
+    baselines, errs = check_baselines(ks, g, us, rects, host_reach)
+    sizes = {m: {"nbytes": r["nbytes"], "build_seconds": r["build_seconds"]}
+             for m, r in baselines.items()}
+    for (ds, scale, method), r in zip(CONFIGS, results):
+        if (ds, scale) == CONFIGS[0][:2]:
+            sizes[method] = {"nbytes": index_nbytes(indexes[r["index"]][2]),
+                             "build_seconds": r["build_seconds"]}
+    t0 = time.perf_counter()
+    base = build_index(g, "2dreach")            # the one not yet at x1.0
+    sizes["2dreach"] = {"nbytes": index_nbytes(base),
+                        "build_seconds": round(time.perf_counter() - t0, 3)}
+    del base
+    emit("legacy", ok=True, leafscan=leafscan, wavefront=wavefront,
+         baselines=baselines, sizes={
+             "config": name.split()[0],
+             **{m: sizes[m] for m in ("2dreach", "2dreach-comp",
+                                      "2dreach-pointer", *BASELINES)}},
+         max_abs_err=errs)
+    return leafscan, ops, errs
 
 
 def arena_of(eng):
@@ -819,14 +1121,15 @@ def phase_device_build(ks, indexes, engines):
     build, the forest adopted by the engine, the same reach answers; the
     closure-product and segmented-MBR launches per index (one per
     condensation level with edges; one per R-tree level plus the two
-    pyramid planes), and the largest launch of each for the timing."""
+    pyramid planes), and the largest launch of each for the timing.
+    Returns the records, those launches and the device-built indexes."""
     import torch
     from repro_torch.core import QueryEngine, build_index
     from repro_torch.core import reachability
     from repro_torch.core.engine import UPLOAD_COUNTERS
     from repro_torch.kernels.forest_build import ops as fb_ops
 
-    recs, largest = [], {}
+    recs, largest, built = [], {}, {}
     for name, (g, method, idx, host_reach, _) in indexes.items():
         eng, us, rects = engines[name]
         cond = idx.cond
@@ -882,9 +1185,10 @@ def phase_device_build(ks, indexes, engines):
                                "forest": ds_["t_forest"],
                                "total": ds_["t_total"],
                                "wall": dev_s}})
-        del deng, dev
+        built[name] = dev
+        del deng
     emit("device_build", ok=True, indexes=recs)
-    return recs, largest
+    return recs, largest, built
 
 
 # --------------------------------------------------------------------------
@@ -909,34 +1213,56 @@ def event_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
+# the profiler's retries, what it left without whole device rows on
+# every try, and the device events of each timed window: the "timers"
+# line
+TIMERS = {"profiler_retries": 0, "by_events": [], "windows": []}
+PROFILER_TRIES = 3
+
+
 def device_rows(fn, iters):
     """torch.profiler over ``iters`` calls: (name, count, device µs) of
     every kernel and copy the device ran (device rows only, so an
-    operator and the kernel it launched are not both counted)."""
+    operator and the kernel it launched are not both counted).  Each
+    call runs the same device operations, so a row whose count is not a
+    multiple of ``iters`` means the profiler lost events; such a window,
+    or one with no device rows, is profiled again, up to
+    ``PROFILER_TRIES`` times, and ``[]`` is returned after that."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[2])
+    for attempt in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows and all(c % iters == 0 for _, c, _ in rows):
+            TIMERS["profiler_retries"] += attempt
+            return sorted(rows, key=lambda r: -r[2])
+    return []
 
 
 def device_ms(fn, iters, what):
-    """Device milliseconds per call from the profiler; raises where it
-    saw no device activity, so no host time is reported as device time."""
+    """Device milliseconds per call from the profiler.  Where it gave no
+    whole device rows in any try, CUDA events around the same calls time
+    them instead (``event_ms``: the device's time while the host keeps
+    ahead of it, else the launch rate), and ``what`` is listed under
+    ``by_events`` on the "timers" line."""
     rows = device_rows(fn, iters)
-    if not rows:
-        raise RuntimeError(f"torch.profiler saw no device time for {what}")
-    return sum(t for _, _, t in rows) / iters / 1e3
+    TIMERS["windows"].append({"what": what, "iters": iters, "rows": [
+        [k[:40], c, round(t, 3)] for k, c, t in rows]})
+    if rows:
+        return sum(t for _, _, t in rows) / iters / 1e3
+    TIMERS["by_events"].append(what)
+    return event_ms(fn, iters)
 
 
 def slice_spans(qs, qe, width):
@@ -1250,6 +1576,111 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
     return timed, errs
 
 
+def range_query_bound(args, dim):
+    """K9's least time on these inputs.  ``out[b]`` is an OR, so a query
+    needs the entries of its slice up to and including its first hit,
+    or its whole slice where it misses.  Bytes: the distinct entries
+    those prefixes cover (2*dim float32 each), the rects and slices read
+    once, the (B,) int32 output written once.  Operations: 2*dim float32
+    compares per needed entry per query."""
+    import torch
+
+    esoa, rsoa, qs, qe = args
+    P, B = esoa.shape[1], qs.shape[0]
+    dev = esoa.device
+    s, e = qs.long().clamp(0, P), qe.long().clamp(0, P)
+    n = (e - s).clamp(min=0)
+    live = n > 0
+    # every (query, slice entry) pair, flat
+    q = torch.repeat_interleave(torch.arange(B, device=dev), n)
+    start = torch.cumsum(n, 0) - n
+    pos = s[q] + torch.arange(q.numel(), device=dev) - start[q]
+    hit = torch.ones_like(q, dtype=torch.bool)
+    for a in range(dim):
+        hit &= (esoa[a, pos] <= rsoa[dim + a, q]) \
+            & (esoa[dim + a, pos] >= rsoa[a, q])
+    first = torch.full((B,), P, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, q[hit], pos[hit], "amin")
+    hits = first < e
+    need = torch.where(hits, first - s + 1, n)
+    cov = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    cov.index_add_(0, s[live], torch.ones_like(s[live]))
+    cov.index_add_(0, (s + need)[live], -torch.ones_like(s[live]))
+    distinct = int((cov.cumsum(0)[:P] > 0).sum())
+    needed = int(need.sum())
+    nbytes = distinct * 2 * dim * 4 + B * (2 * dim * 4 + 8) + B * 4
+    return bound(nbytes, 0, 2 * dim * needed, distinct_entries=distinct,
+                 needed_entries=needed, slice_entries=int(n.sum()),
+                 queries_with_slice=int(live.sum()),
+                 queries_with_hit=int(hits.sum()))
+
+
+def passes_us(fn, n):
+    """End-to-end µs per query over 3 calls of ``fn``, each serving
+    ``n`` queries."""
+    t0 = time.perf_counter()
+    for rep in range(3):
+        fn()
+    return (time.perf_counter() - t0) / (3 * n) * 1e6
+
+
+def phase_timing_slice4(ks, engines, indexes, ops, card):
+    """K9 on the first leaf-scan batch of yelp x1.0 comp and of yelp x0.5
+    base, and on a random arena of the comp arena's size with distinct
+    slices (dims 2 and 3): device ms, plain ms, the bound from these
+    inputs (no single PyTorch call computes a masked segmented any);
+    each also held against its plain version.  End-to-end µs per query of the
+    leaf-scan, wavefront and fused engines on every main-path index, and
+    the device's busy share of a leaf-scan and a wavefront pass."""
+    from repro_torch.core import query_wavefront
+
+    import torch
+
+    ls = ks.ls
+    first, last = next(iter(engines)), list(engines)[-1]
+    # the main path's batches share one tree's slice; the random arena
+    # at the yelp x1.0 comp size gives distinct slices, mostly missed
+    rng = np.random.default_rng(4)
+    cases = {name: ops[name] for name in (first, last)}
+    for dim in (2, 3):
+        cases[f"random {ARENAS[0][0]} tiles dim {dim}"] = (leafscan_case(
+            rng, ARENAS[0][0], ARENAS[0][1], dim, BATCH,
+            torch.device(DEVICE)), dim)
+    timed = {}
+    for name, (args, dim) in cases.items():
+        compare_range_query(ks, args, dim, f"{name} timing operands")
+        bms, by, work = range_query_bound(args, dim)
+        timed[name] = {
+            "ms": device_ms(lambda: ls.range_query(*args, dim=dim,
+                                                   device=DEVICE), 50,
+                            f"range_query ({name})"),
+            "plain_ms": device_ms(lambda: ls.range_query_torch(*args,
+                                                               dim=dim), 5,
+                                  f"range_query_torch ({name})"),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "operands": name, "dim": dim, **work}
+    e2e = {}
+    for name, (g, method, idx, _, _) in indexes.items():
+        eng, us, rects = engines[name]
+        e2e[name] = {
+            "fused": e2e_us(eng, us, rects, "reach"),
+            "leafscan": passes_us(lambda: leafscan_pass(ls, idx, us, rects),
+                                  len(us)),
+            "wavefront": passes_us(lambda: wavefront_pass(idx, us, rects),
+                                   len(us))}
+    emit("timing_slice4", card=card, B=BATCH, range_query=timed,
+         e2e_us_per_query=e2e)
+    idx = indexes[first][2]
+    _, us, rects = engines[first]
+    phase_profile(lambda u, r: ls.range_query_forest(
+        idx.forest, idx.lookup_tree(u), r), us, rects,
+        e2e[first]["leafscan"], "leafscan", "reach")
+    phase_profile(lambda u, r: query_wavefront(
+        idx.forest, idx.lookup_tree(u), r, capacity=WAVEFRONT_CAPACITY),
+        us, rects, e2e[first]["wavefront"], "wavefront", "reach")
+    return timed
+
+
 def phase_profile(query, us, regions, e2e_us_per_query, path, mode):
     """Where a batch's time goes: device time by operation over one pass
     of the workload through ``query(us, regions)``, and the device's busy
@@ -1321,8 +1752,11 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    import scipy
+
     emit("device", card=card, torch=torch.__version__,
-         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
+         cuda=torch.version.cuda, numpy=np.__version__,
+         scipy=scipy.__version__, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     phase_build(_build)
 
@@ -1330,16 +1764,22 @@ def main() -> int:
     results, two_phase, knn, polygons, engines, indexes = phase_main(ks)
     emit("main", launches={r["index"]: r["launches"] for r in results},
          indexes=results, two_phase=two_phase, knn=knn, polygons=polygons)
-    builds, largest = phase_device_build(ks, indexes, engines)
-    for k, v in phase_main_batches(ks, engines).items():
+    builds, largest, built = phase_device_build(ks, indexes, engines)
+    leafscan, ls_ops, errs4 = phase_legacy(ks, indexes, built, results,
+                                           engines)
+    del built
+    for k, v in (*errs4.items(),
+                 *phase_main_batches(ks, engines, ls_ops).items()):
         errs[k] = max(errs[k], v)
 
     per_mode, two = phase_timing(ks, engines, card)
     slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest, card)
     for k, v in errs3.items():
         errs[k] = max(errs[k], v)
+    slice4 = phase_timing_slice4(ks, engines, indexes, ls_ops, card)
     # launches on the main path, per path: each index's fused serving,
-    # its two-phase serving, and the two kNN runs
+    # its two-phase serving, polygons, device build and leaf-scan
+    # serving (host- and device-built), and the two kNN runs
     per_path = {k: {} for k in KERNELS}
     for r in results:
         per_path["fused_serve"][f"{r['index']} fused"] = r["launches"]
@@ -1356,7 +1796,12 @@ def main() -> int:
         for k, n in knn[path]["launches"].items():
             if n:
                 per_path[k][f"{knn['index']} knn {path}"] = n
-    timed = {"fused_serve": per_mode["reach"], **two, **slice3}
+    for r in leafscan:
+        per_path["range_query"][
+            f"{r['index']} leafscan {r['built_on']}-built"] = r["launches"]
+    emit("timers", **TIMERS)
+    timed = {"fused_serve": per_mode["reach"], **two, **slice3,
+             "range_query": slice4[next(iter(engines))]}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": CSRC + RECORD[k][0],
         "replaces": RECORD[k][1],

@@ -35,8 +35,10 @@ with the half-plane postfilter inside the leaf scan
 
 The arena of an index built with ``backend="device"`` is adopted from
 the build's :class:`~repro_torch.core.rtree.DeviceForest` when it lies
-on the engine's device (nothing is uploaded); :data:`UPLOAD_COUNTERS`
-counts both kinds of arena.
+on the engine's device (nothing is uploaded).  The entry planes are
+those of :func:`~repro_torch.kernels.range_query.layout.forest_planes`,
+one copy per forest and device shared with the leaf-scan engine;
+:data:`UPLOAD_COUNTERS` (that module's) counts uploads and adoptions.
 
 Not ported yet (a later slice): the tracing / fault-injection hooks.
 """
@@ -71,7 +73,9 @@ from ..kernels.range_query.fused import (
 from ..kernels.range_query.layout import (
     ID_SENTINEL,
     TB,
+    UPLOAD_COUNTERS,  # noqa: F401  (the handoff counters, read as engine's)
     build_tile_pyramid,
+    forest_planes,
     forest_soa,
 )
 from ..queries.program import CollectResult
@@ -110,11 +114,6 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 # Upload pieces
 # --------------------------------------------------------------------------
 
-# Build→serve handoff counters since import: ``host_uploads`` counts
-# arenas built from host arrays (transpose, pyramid, upload);
-# ``device_adoptions`` counts arenas adopted from a
-# ``build_forest_device`` handoff without a copy.
-UPLOAD_COUNTERS: Dict[str, int] = {"host_uploads": 0, "device_adoptions": 0}
 
 
 class PointerSide:
@@ -173,34 +172,23 @@ class TileArena:
     adopted: bool = False     # taken from a device build, not uploaded
 
     @classmethod
-    def upload(cls, esoa: np.ndarray, off: np.ndarray, dim: int,
-               device: torch.device) -> "TileArena":
-        UPLOAD_COUNTERS["host_uploads"] += 1
-        fine, coarse, nt = build_tile_pyramid(esoa, dim)
-        return cls(
-            entries=torch.as_tensor(esoa, device=device),
-            fine=torch.as_tensor(fine, device=device),
-            coarse=torch.as_tensor(coarse, device=device),
-            entry_off=torch.as_tensor(
-                np.asarray(off, np.int32), device=device),
-            n_tiles=nt,
-        )
-
-    @classmethod
     def for_forest(cls, forest, dim: int,
                    device: torch.device) -> "TileArena":
-        """Arena for a built forest: adopted from the forest's
-        ``build_forest_device`` handoff where it lies on ``device`` (the
-        tensors already have exactly this layout), uploaded from the
-        host arrays otherwise."""
+        """Arena for a built forest over its shared entry planes
+        (:func:`forest_planes`): the pyramid too is adopted from the
+        forest's ``build_forest_device`` handoff where the planes were
+        (the tensors already have exactly this layout), built from the
+        host transposition and uploaded otherwise."""
+        entries, off = forest_planes(forest, device)
         dev = getattr(forest, "device", None)
-        if dev is not None and same_device(dev.entries.device, device):
-            UPLOAD_COUNTERS["device_adoptions"] += 1
-            return cls(entries=dev.entries, fine=dev.fine,
-                       coarse=dev.coarse, entry_off=dev.entry_off,
-                       n_tiles=dev.n_tiles, adopted=True)
-        esoa, off = forest_soa(forest)        # cached transposition
-        return cls.upload(esoa, off, dim, device)
+        if dev is not None and entries is dev.entries:
+            return cls(entries=entries, fine=dev.fine, coarse=dev.coarse,
+                       entry_off=off, n_tiles=dev.n_tiles, adopted=True)
+        fine, coarse, nt = build_tile_pyramid(forest_soa(forest)[0], dim)
+        return cls(entries=entries,
+                   fine=torch.as_tensor(fine, device=device),
+                   coarse=torch.as_tensor(coarse, device=device),
+                   entry_off=off, n_tiles=nt)
 
 
 class DevicePadder:
@@ -564,14 +552,20 @@ class QueryEngine:
         return out
 
 
-def engine_for(index: TwoDReachIndex,
-               device: DeviceLike = None) -> QueryEngine:
+def engine_for(index, device: DeviceLike = None,
+               required: bool = False) -> Optional[QueryEngine]:
     """Memoised ``QueryEngine`` for a built 2DReach index (one upload per
-    index instance and device).  Raises a ``ValueError`` naming any
-    other index type: device serving supports the 2DReach variants."""
+    index instance and device).  For an index type the device engine
+    does not serve (3DReach, GeoReach) it returns ``None``, so that the
+    caller can serve the host path, or, with ``required=True``, raises a
+    ``ValueError`` naming the index."""
     if not isinstance(index, TwoDReachIndex):
+        if not required:
+            return None
+        method = getattr(index, "variant", None)
+        via = f" (method {method!r})" if isinstance(method, str) else ""
         raise ValueError(
-            f"no device QueryEngine for {type(index).__name__}: device "
+            f"no device QueryEngine for {type(index).__name__}{via}: device "
             f"serving supports the 2DReach variants only (2dreach, "
             f"2dreach-comp, 2dreach-pointer)")
     dev = resolve_device(device)

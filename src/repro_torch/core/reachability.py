@@ -1,9 +1,11 @@
 """Reachable-spatial-set closure over the SCC condensation (paper Alg. 1).
 
 A copy of the host half of ``repro.core.reachability`` (the packed
-uint32 bitset helpers, :class:`ClosureResult` and ``closure_np``) and a
-torch port of its device half, ``closure_bitset_mm``: the same fixpoint
-with each level's merges as one packed OR-AND product (K7 on the card).
+uint32 bitset helpers, :class:`ClosureResult`, ``closure_np`` and the
+GeoReach baseline's ``closure_mbr_np``) and a torch port of its device
+half: ``closure_bitset_mm``, the same fixpoint with each level's merges
+as one packed OR-AND product (K7 on the card), and ``closure_torch``,
+the boolean sweep closure of ``closure_jax``.
 
 Every component's reachable spatial set is a row of a packed **uint32
 bitset matrix** ``(rows, W)`` with ``W = ceil(p / 32)`` and one column
@@ -357,6 +359,77 @@ def _ragged_arange(counts: np.ndarray) -> np.ndarray:
         return np.zeros(0, dtype=np.int64)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     return np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
+
+
+# --------------------------------------------------------------------------
+# MBR closure (GeoReach baseline substrate)
+# --------------------------------------------------------------------------
+
+def closure_mbr_np(
+    cond: Condensation,
+    coords: np.ndarray,
+    spatial_mask: np.ndarray,
+) -> np.ndarray:
+    """(d, 4) reachability MBR [xmin, ymin, xmax, ymax] per component;
+    components with empty reachable sets get an empty box (min > max)."""
+    d = cond.n_comps
+    mbr = np.empty((d, 4), dtype=np.float32)
+    mbr[:, :2] = np.inf
+    mbr[:, 2:] = -np.inf
+    sv = np.nonzero(spatial_mask)[0]
+    if sv.size:
+        c = cond.comp[sv]
+        keep = c >= 0
+        c, pts = c[keep], coords[sv[keep]]
+        np.minimum.at(mbr[:, 0], c, pts[:, 0])
+        np.minimum.at(mbr[:, 1], c, pts[:, 1])
+        np.maximum.at(mbr[:, 2], c, pts[:, 0])
+        np.maximum.at(mbr[:, 3], c, pts[:, 1])
+    if cond.dag_edges.size:
+        # one level at a time: np.minimum.at gathers dst values at call
+        # time, so multi-hop propagation needs the same per-level
+        # segmentation as the bitset closure
+        edges = cond.edges_by_level_desc()
+        src_lv = cond.level[edges[:, 0]]
+        boundaries = np.nonzero(np.diff(src_lv))[0] + 1
+        seg_starts = np.concatenate([[0], boundaries, [len(edges)]])
+        for s, e in zip(seg_starts[:-1], seg_starts[1:]):
+            src, dst = edges[s:e, 0], edges[s:e, 1]
+            np.minimum.at(mbr[:, 0], src, mbr[dst, 0])
+            np.minimum.at(mbr[:, 1], src, mbr[dst, 1])
+            np.maximum.at(mbr[:, 2], src, mbr[dst, 2])
+            np.maximum.at(mbr[:, 3], src, mbr[dst, 3])
+    return mbr
+
+
+# --------------------------------------------------------------------------
+# Boolean sweep closure (the reference's jit closure)
+# --------------------------------------------------------------------------
+
+def closure_torch(
+    n_comps: int,
+    dag_edges: np.ndarray,
+    own_bool: np.ndarray,
+    n_sweeps: int,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Boolean closure on ``device`` (``None``: the GPU): rows ``(d, p)``;
+    ``n_sweeps`` scatter-max sweeps, each gathering every edge's child
+    row before any parent row changes (>= DAG depth sweeps converge; one
+    sweep propagates at least one DAG hop).  The port of
+    ``repro.core.reachability.closure_jax``: the max of 0/1 values is
+    taken as an int32 ``index_add`` clamped at 1, which cannot wrap
+    (fan-in < 2^31)."""
+    dev = resolve_device(device)
+    if dag_edges.size == 0:
+        return np.asarray(own_bool, dtype=bool)
+    edges = torch.as_tensor(np.asarray(dag_edges, dtype=np.int64),
+                            device=dev)
+    src, dst = edges[:, 0], edges[:, 1]
+    bits = torch.as_tensor(np.asarray(own_bool, dtype=np.int32), device=dev)
+    for _ in range(int(n_sweeps)):
+        bits = bits.index_add(0, src, bits[dst]).clamp_(max=1)
+    return bits.bool().cpu().numpy()
 
 
 # --------------------------------------------------------------------------

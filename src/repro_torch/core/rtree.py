@@ -16,7 +16,10 @@ arrays:
 ``query_host`` is the vectorised NumPy ragged-wavefront descent with
 per-query early exit; ``query_host_count`` / ``query_host_collect_batch``
 run the same descent without early exit, and ``query_host_knn`` is a
-best-first branch-and-bound.
+best-first branch-and-bound.  ``query_wavefront`` is the fixed-capacity
+wavefront engine in torch on a device (the reference's
+``query_jax_wavefront``); the leaf-scan engine over ``entries`` and
+``entry_off`` is ``kernels.range_query.leafscan.range_query_forest``.
 
 ``build_forest_device`` (the device half of ``repro.core.rtree``) runs
 the same bulk load in torch on the build's device: float64 Morton
@@ -33,7 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, same_device
 from ..kernels.forest_build import (
     level_mbr,
     np_inert_plane,
@@ -140,6 +143,25 @@ class RTreeForest:
 
     def tree_n_entries(self) -> np.ndarray:
         return np.diff(self.entry_off)
+
+    # -- device views ----------------------------------------------------
+    def device_arrays(self, device: DeviceLike = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-level arrays stacked for the wavefront engine on
+        ``device`` (``None``: the GPU): mbr ``(D, Nmax, 2*dim)`` float32,
+        padding boxes inert (min > max), and off ``(D, T+1)`` int64."""
+        dev = resolve_device(device)
+        D = self.depth
+        nmax = max(int(l.shape[0]) for l in self.level_mbr) if D else 0
+        mbr = np.zeros((D, nmax, 2 * self.dim), dtype=np.float32)
+        mbr[..., : self.dim] = 1.0
+        mbr[..., self.dim:] = 0.0
+        off = np.zeros((D, self.n_trees + 1), dtype=np.int64)
+        for l in range(D):
+            mbr[l, : len(self.level_mbr[l])] = self.level_mbr[l]
+            off[l] = self.tree_off[l]
+        return (torch.as_tensor(mbr, device=dev),
+                torch.as_tensor(off, device=dev))
 
 
 def build_forest(
@@ -681,3 +703,92 @@ def query_host_knn(
     arr_i = np.array([g[1] for g in got], dtype=np.int64)
     order = np.lexsort((arr_i, arr_d))[:k]
     return arr_i[order].astype(np.int32), arr_d[order]
+
+
+# --------------------------------------------------------------------------
+# Device batched query engine (fixed-capacity wavefront)
+# --------------------------------------------------------------------------
+
+def _isect(boxes: torch.Tensor, rect: torch.Tensor, dim: int) -> torch.Tensor:
+    """boxes (B, K, 2*dim) vs rect (B, 2*dim) -> (B, K) bool."""
+    lo_ok = boxes[..., :dim] <= rect[:, None, dim:]
+    hi_ok = boxes[..., dim:] >= rect[:, None, :dim]
+    return (lo_ok & hi_ok).all(dim=-1)
+
+
+def _wavefront_arrays(forest: RTreeForest, dev: torch.device):
+    """``device_arrays`` plus the leaf entries (one inert box appended,
+    so that a masked gather has a row to read even where P = 0) and the
+    entry offsets on ``dev``, memoised on the immutable forest: one
+    upload per forest and device."""
+    cached = getattr(forest, "_wavefront_cache", None)
+    if cached is not None and same_device(cached[0].device, dev):
+        return cached
+    dim = forest.dim
+    inert = np.concatenate([np.ones(dim), np.zeros(dim)]).astype(np.float32)
+    mbr, off = forest.device_arrays(dev)
+    cached = (mbr, off,
+              torch.as_tensor(np.concatenate([forest.entries, inert[None]]),
+                              device=dev),
+              torch.as_tensor(np.asarray(forest.entry_off, np.int64),
+                              device=dev))
+    forest._wavefront_cache = cached
+    return cached
+
+
+def query_wavefront(
+    forest: RTreeForest,
+    tree_ids: np.ndarray,
+    rects: np.ndarray,
+    capacity: int = 128,
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fixed-capacity wavefront probe on ``device`` (``None``: the GPU);
+    the port of ``repro.core.rtree.query_jax_wavefront``.  Returns
+    ``(hit, overflow)`` as (B,) NumPy bools.  Each level keeps at most
+    ``capacity`` frontier nodes per query; a query whose children at
+    some level exceed it is flagged in ``overflow`` (set before the cut)
+    and its ``hit`` must be recomputed on the host."""
+    dev = resolve_device(device)
+    dim, F = forest.dim, forest.fanout
+    B = len(tree_ids)
+    mbr, off, ent, eoff = _wavefront_arrays(forest, dev)
+    D = mbr.shape[0]
+    tid = torch.as_tensor(np.asarray(tree_ids, np.int64), device=dev)
+    r = torch.as_tensor(np.asarray(rects, np.float32).reshape(B, 2 * dim),
+                        device=dev)
+    hit = torch.zeros(B, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    if D == 0:
+        return hit.cpu().numpy(), overflow.cpu().numpy()
+    valid = tid >= 0
+    t = tid.clamp(min=0)
+    root = off[D - 1][t]
+    has_root = (off[D - 1][t + 1] - root) > 0
+    # (B, capacity) global node ids at the current level, -1 = empty
+    frontier = torch.full((B, capacity), -1, dtype=torch.int64, device=dev)
+    frontier[:, 0] = torch.where(valid & has_root, root, -1)
+    fan = torch.arange(F, device=dev)
+    for l in range(D - 1, -1, -1):
+        node = frontier.clamp(min=0)
+        ok = _isect(mbr[l][node], r, dim) & (frontier >= 0)   # (B, C)
+        local = node - off[l][t][:, None]
+        if l == 0:
+            base, bound = eoff[t][:, None], eoff[t + 1][:, None]
+        else:
+            base, bound = off[l - 1][t][:, None], off[l - 1][t + 1][:, None]
+        c_start = base + local * F
+        c_end = torch.minimum(c_start + F, bound)
+        child = c_start[..., None] + fan                      # (B, C, F)
+        cmask = ok[..., None] & (child < c_end[..., None])
+        child_flat = torch.where(cmask, child, -1).reshape(B, -1)
+        if l == 0:
+            eb = ent[child_flat.clamp(min=0)]
+            hit |= (_isect(eb, r, dim) & (child_flat >= 0)).any(dim=1)
+        else:
+            overflow |= (child_flat >= 0).sum(dim=1) > capacity
+            # the descending sort puts the valid children first; where
+            # they fit in ``capacity`` nothing is lost
+            frontier = child_flat.sort(dim=1, descending=True).values[
+                :, :capacity]
+    return hit.cpu().numpy(), overflow.cpu().numpy()

@@ -1,5 +1,6 @@
 """Data layout of the serving arena: tile constants, the SoA entry
-planes and the leaf-tile MBR pyramid (host NumPy, once per upload).
+planes and the leaf-tile MBR pyramid (host NumPy, once per upload), and
+the one device copy of a forest's planes that every engine shares.
 
 Copies of ``repro.kernels.range_query``'s layout pieces.  The tile
 grain stays the reference's: ``TB = 8`` queries per query tile and
@@ -13,6 +14,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from ...device import same_device
 
 TB = 8            # queries per query tile
 TP = 128          # arena entries per leaf tile
@@ -23,12 +27,23 @@ COARSE_GROUP = 8  # leaf tiles per coarse pyramid node
 # vertex id and survives the int32 round trip
 ID_SENTINEL = np.int32(np.iinfo(np.int32).max)
 
+# host-side forest transpositions since import: steady-state serving
+# leaves it flat (``forest_soa`` memoises one per forest)
+SOA_BUILDS = 0
+
+# forest entry planes put on a device by ``forest_planes`` since import:
+# ``host_uploads`` from the host transposition, ``device_adoptions`` from
+# a ``build_forest_device`` handoff without a copy
+UPLOAD_COUNTERS = {"host_uploads": 0, "device_adoptions": 0}
+
 
 def forest_to_soa(forest) -> Tuple[np.ndarray, np.ndarray]:
     """(2*dim, P_padded) SoA entry planes + (T+1,) int32 offsets.
 
     Padding entries are impossible boxes (min > max) so they never hit.
     """
+    global SOA_BUILDS
+    SOA_BUILDS += 1
     dim = forest.dim
     P = len(forest.entries)
     Pp = max(TP, ((P + TP - 1) // TP) * TP)
@@ -48,6 +63,35 @@ def forest_soa(forest) -> Tuple[np.ndarray, np.ndarray]:
         cached = forest_to_soa(forest)
         forest._soa_cache = cached
     return cached
+
+
+def forest_planes(forest, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forest's SoA entry planes ``(2*dim, Pp)`` float32 and offsets
+    ``(T+1,)`` int32 on ``device``, memoised per device on the
+    (immutable) forest, so every engine that serves it shares one copy:
+    adopted from its ``build_forest_device`` handoff where that lies on
+    ``device``, else uploaded once from the cached host transposition.
+    A memo stays valid while the handoff it came from (or its absence)
+    does."""
+    dforest = getattr(forest, "device", None)
+    src = (dforest if dforest is not None
+           and same_device(dforest.entries.device, device) else None)
+    memo = getattr(forest, "_planes", None) or []
+    for dev, s, planes in memo:
+        if same_device(dev, device) and s is src:
+            return planes
+    if src is not None:
+        UPLOAD_COUNTERS["device_adoptions"] += 1
+        planes = (src.entries, src.entry_off)
+    else:
+        UPLOAD_COUNTERS["host_uploads"] += 1
+        esoa, off = forest_soa(forest)
+        planes = (torch.as_tensor(esoa, device=device),
+                  torch.as_tensor(off, device=device))
+    forest._planes = [m for m in memo if not same_device(m[0], device)] \
+        + [(device, src, planes)]
+    return planes
 
 
 def build_tile_pyramid(

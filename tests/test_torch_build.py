@@ -95,11 +95,16 @@ def test_host_query_matches_oracle(variant):
 
 
 def test_unported_paths_raise():
+    """The build contract: every method builds on the host; a device
+    build of a baseline, an unknown backend and an unknown method
+    raise a ValueError naming them."""
     g = get_dataset("tiny")
     with pytest.raises(ValueError, match="backend"):
         build_2dreach(g, variant="comp", backend="nope")
     for method in ("3dreach", "3dreach-rev", "georeach"):
-        with pytest.raises(NotImplementedError, match=method):
-            build_index(g, method)
-    with pytest.raises(ValueError):
+        idx = build_index(g, method)
+        assert idx.query(0, np.array([5.5, 1.5, 6.5, 2.5], np.float32))
+        with pytest.raises(ValueError, match=method):
+            build_index(g, method, backend="device")
+    with pytest.raises(ValueError, match="nope"):
         build_index(g, "nope")

@@ -1,10 +1,12 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
 descent / count / collect / polygon scans, the packed closure product,
-the segmented-MBR reduction) against its plain PyTorch version, the
-wrappers' input checks, the engine on the card (both paths, polygons)
-against the engine on the CPU, and the device build on the card against
-the host build.  Every test needs a CUDA device and skips where
-there is none.
+the segmented-MBR reduction, the full-arena leaf scan) against its plain
+PyTorch version, the wrappers' input checks, the engine on the card
+(both paths, polygons) against the engine on the CPU, the device build
+on the card against the host build, the leaf-scan and wavefront
+engines on the card against the host descent, and the boolean sweep
+closure on the card against its CPU run.  Every test needs a CUDA
+device and skips where there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch:
 
@@ -15,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import QueryEngine, build_index
+from repro_torch.core import (
+    QueryEngine,
+    build_index,
+    closure_torch,
+    query_host,
+    query_wavefront,
+)
 from repro_torch.core.engine import UPLOAD_COUNTERS
 from repro_torch.core.polygon import convex_halfplanes, polygon_bbox
 from repro_torch.data import get_dataset, polygon_workload, workload
@@ -24,7 +32,13 @@ from repro_torch.kernels import forest_build as FB
 from repro_torch.kernels.range_query import analytics as A
 from repro_torch.kernels.range_query import descent as D
 from repro_torch.kernels.range_query import fused as F
-from repro_torch.kernels.range_query.layout import TB, TP, build_tile_pyramid
+from repro_torch.kernels.range_query import leafscan as L
+from repro_torch.kernels.range_query.layout import (
+    TB,
+    TP,
+    build_tile_pyramid,
+    forest_planes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -390,3 +404,109 @@ def test_device_build_on_card_matches_host(cuda, method):
     assert (gpu.polygon_batch(us, polys)
             == cpu.polygon_batch(us, polys)).all()
     assert A.polygon_scan.launches == launches + 1
+
+
+def _leafscan_case(seed, dim, B, P):
+    """Random K9 inputs: P entries (3-D boxes for dim 3) in tree slices
+    that start and end inside 128-entry tiles, P = 0 allowed; slices of
+    tree id -1 (empty, query 0 among them), random rects, and query 1's
+    rect around an entry of the largest slice."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 100, (P, dim)).astype(np.float32)
+    hi = lo + (0 if dim == 2 else rng.uniform(0, 3, (P, dim)).astype(
+        np.float32))
+    Pp = max(TP, -(-P // TP) * TP)
+    esoa = np.empty((2 * dim, Pp), np.float32)
+    esoa[:dim], esoa[dim:] = 1.0, 0.0
+    esoa[:dim, :P], esoa[dim:, :P] = lo.T, hi.T
+    cuts = np.sort(rng.integers(0, P + 1, 6))
+    off = np.concatenate([[0], cuts, [P]]).astype(np.int32)
+    t = rng.integers(-1, len(off) - 1, B)
+    t[0], t[1] = -1, np.argmax(np.diff(off))     # a miss, a hit below
+    qs = np.where(t >= 0, off[np.maximum(t, 0)], 0).astype(np.int32)
+    qe = np.where(t >= 0, off[np.maximum(t, 0) + 1], 0).astype(np.int32)
+    c = rng.uniform(0, 100, (B, dim))
+    if P:
+        c[1] = lo[(qs[1] + qe[1]) // 2]          # an entry of its slice
+    r = rng.uniform(0.5, 15, (B, dim))
+    rsoa = np.concatenate([c - r, c + r], 1).T.astype(np.float32)
+    return [np.ascontiguousarray(a) for a in (esoa, rsoa, qs, qe)]
+
+
+@pytest.mark.parametrize("P", [0, 1000, 40000])
+@pytest.mark.parametrize("B", [TB, 3 * TB, 33])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_range_query_kernel_matches_plain(cuda, dim, B, P):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _leafscan_case(dim * 1000 + B + P, dim, B, P)]
+    launches = L.range_query.launches
+    got = L.range_query(*args, dim=dim)
+    assert L.range_query.launches == launches + 1
+    assert torch.equal(got, L.range_query_torch(*args, dim=dim))
+    if P:
+        assert 0 < int(got.sum()) < B
+
+
+def test_range_query_rejects_what_it_does_not_take(cuda):
+    esoa, rsoa, qs, qe = [torch.as_tensor(a, device=cuda)
+                          for a in _leafscan_case(0, 2, TB, 300)]
+    with pytest.raises(ValueError, match="dim"):
+        L.range_query(esoa, rsoa, qs, qe, dim=4)
+    with pytest.raises(ValueError, match="shape"):
+        L.range_query(esoa, rsoa, qs, qe, dim=3)
+    with pytest.raises(ValueError, match="dtype"):
+        L.range_query(esoa, rsoa, qs.long(), qe, dim=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        L.range_query(esoa, rsoa.t().contiguous().t(), qs, qe, dim=2)
+    with pytest.raises(ValueError, match="lies on"):
+        L.range_query(esoa.cpu(), rsoa, qs, qe, dim=2)
+
+
+@pytest.mark.parametrize("method", ["2dreach", "2dreach-comp", "3dreach"])
+def test_leafscan_and_wavefront_on_card_match_host(cuda, method):
+    """The two engines on the card: the leaf scan one K9 launch per
+    batch and one upload per forest, equal to the host descent; the
+    wavefront equal to its CPU run, hit and overflow."""
+    g = get_dataset("yelp", scale=0.05)
+    idx = build_index(g, method)
+    us, rects = workload(g, 300, extent_ratio=0.05, seed=4)
+    if method == "3dreach":
+        z = (np.arange(len(us)) % idx.cond.n_comps).astype(np.float32)
+        rects = np.concatenate([rects[:, :2], z[:, None] - 0.5, rects[:, 2:],
+                                z[:, None] + 0.5], 1).astype(np.float32)
+        tids = np.where(np.arange(len(us)) % 7 == 0, -1, 0)
+    else:
+        tids = idx.lookup_tree(us)
+    uploads = UPLOAD_COUNTERS["host_uploads"]
+    launches = L.range_query.launches
+    got = np.concatenate([L.range_query_forest(idx.forest, tids[s:s + 100],
+                                               rects[s:s + 100])
+                          for s in range(0, 300, 100)])
+    assert L.range_query.launches == launches + 3
+    assert UPLOAD_COUNTERS["host_uploads"] == uploads + 1
+    if method != "3dreach":       # the serving engine shares the planes
+        eng = QueryEngine(idx)
+        assert UPLOAD_COUNTERS["host_uploads"] == uploads + 1
+        assert eng._arena.entries is forest_planes(idx.forest, cuda)[0]
+    want = query_host(idx.forest, tids, rects)
+    assert np.array_equal(got, want)
+    for cap in (128, 2):
+        hit, over = query_wavefront(idx.forest, tids, rects, capacity=cap)
+        chit, cover = query_wavefront(idx.forest, tids, rects, capacity=cap,
+                                      device="cpu")
+        assert np.array_equal(hit, chit) and np.array_equal(over, cover)
+        assert np.array_equal(hit[~over], want[~over])
+
+
+@pytest.mark.parametrize("method", ["2dreach", "3dreach"])
+def test_closure_torch_on_card_matches_cpu(cuda, method):
+    """The boolean sweep closure on the card equals its CPU run after one
+    sweep and after as many sweeps as the DAG has levels."""
+    g = get_dataset("yelp", scale=0.05)
+    c = build_index(g, method).cond
+    own = np.random.default_rng(c.n_comps).random((c.n_comps, 37)) < 0.1
+    for sweeps in (1, max(c.n_levels, 1)):
+        got = closure_torch(c.n_comps, c.dag_edges, own, sweeps)
+        want = closure_torch(c.n_comps, c.dag_edges, own, sweeps,
+                             device="cpu")
+        assert got.dtype == bool and np.array_equal(got, want)
