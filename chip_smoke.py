@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of 2DReach serving and its baselines on
-one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of 2DReach serving, its baselines and the
+recsys substrate's DIN serving path on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -31,7 +31,11 @@ not beside this script, it exits with code 2 and prints no result.
            random arenas of 12,204, 3 and 0 tiles (P = 0 padded to one
            inert tile) at dims 2 and 3 and B = 8, 24 and 33 (ragged),
            with tree ids of -1 and slices that start and end inside
-           128-entry tiles
+           128-entry tiles; the fused EmbeddingBag (K10) at D = 18, 32
+           and 128, tables of 10 to 1,000,000 rows in float32 and bf16,
+           ragged bag counts, empty bags, an all-padding tail and L = 0
+           (one inert tile), within 1e-5 of its plain version on the
+           card and bit for bit equal to it on the CPU
   main     the main paths: host build of yelp x1.0 2dreach-comp and
            2dreach-pointer and of yelp x0.5 2dreach (base, whose pyramid
            exceeds shared memory); for each, ``QueryEngine`` on the card
@@ -85,7 +89,9 @@ not beside this script, it exits with code 2 and prints no result.
   timing   at B=256 on yelp x1.0 comp: device time per launch of each
            kernel and of its plain version (torch.profiler; CUDA-event
            times of the fused serve beside them as ``event_ms``), the
-           bound counted from these inputs, end-to-end microseconds per
+           bound counted from these inputs (in reach mode a query needs
+           its worklist's slice entries only up to its first hit; the
+           bound over whole worklists beside it), end-to-end microseconds per
            query per mode on both paths; the prune also on the yelp x0.5
            base batch, whose mask is 6x larger.  The polygon scan on the
            first polygon batch of yelp x1.0 comp, the closure product on
@@ -102,6 +108,23 @@ not beside this script, it exits with code 2 and prints no result.
            needs its slice up to its first hit); end-to-end µs per
            query of the leaf-scan, wavefront and fused engines on every
            index
+  recsys   DIN at its published widths (1M items, d = 18, S = 100,
+           attention MLP 80-40, MLP 200-80), parameters from a
+           torch.Generator seed, batches from ``din_batches``, float32
+           products without TF32: serve_p99 (B = 512) and serve_bulk
+           (B = 262,144, about 36 GB at its peak) through ``apply``, the
+           logits of 512 rows and the loss
+           equal to ``apply`` on the CPU within 1e-4; retrieval_cand
+           (one user, 1,007,616 candidates) through
+           ``score_candidates``, its first two chunks equal to the CPU
+           within 1e-4; per shape end-to-end µs per batch (host clock)
+           and device busy µs, and serve_bulk's peak allocation.  Then
+           the EmbeddingBag op over DIN's item table, the serve batches'
+           histories as bags, sum and mean: one K10 launch each (counts
+           reset just before, read just after), within 1e-5 of
+           ``segment_bag_torch`` on the card; K10 timed on both batches'
+           bags with its plain version, ``F.embedding_bag`` as the
+           library yardstick, and the bound from these inputs
   profile  torch.profiler over one reach pass on each path (fused,
            two-phase, leaf scan, wavefront) and one polygon pass: device
            operations and busy time per batch, and the busy share of
@@ -118,6 +141,7 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -130,10 +154,12 @@ import numpy as np
 # H100 SXM peaks at 700 W.  The float32 rate outside the tensor cores,
 # 67 TFLOP/s, counts an FMA as two operations on 128 FP32 lanes per SM; a
 # compare is one instruction, so float32 compares run at half that rate,
-# and integer compares, on the SM's 64 INT32 lanes, at a quarter.
+# as do multiply-adds, and integer compares, on the SM's 64 INT32 lanes,
+# at a quarter.
 HBM_BYTES_PER_S = 3.35e12
 F32_CMP_PER_S = 67e12 / 2
 I32_CMP_PER_S = 67e12 / 4
+F32_FMA_PER_S = 67e12 / 2
 DEVICE = "cuda"
 BATCH = 256
 N_QUERIES = 2048
@@ -153,7 +179,7 @@ POLY_EDGES = 6
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
            "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr",
-           "range_query")
+           "range_query", "segment_bag")
 BASELINES = ("3dreach", "3dreach-rev", "georeach")
 WAVEFRONT_CAPACITY = 128
 CSRC = "src/repro_torch/kernels/"
@@ -177,7 +203,18 @@ RECORD = {   # name -> (source, the TPU kernel it replaces)
                 "src/repro/kernels/forest_build/kernel.py:44"),
     "range_query": (RQ + "range_query.cu",
                     "src/repro/kernels/range_query/kernel.py:59"),
+    "segment_bag": ("segment_bag/csrc/segment_bag.cu",
+                    "src/repro/kernels/segment_bag/kernel.py:54"),
 }
+# the recsys serving path: DIN's logits and scores on the card against
+# the same parameters on the CPU (float32, no TF32; the products sum in
+# another order), and K10 on DIN's table against its plain version on
+# the card (whose index_add_ adds atomically, in any order), absolute
+DIN_TOL = 1e-4
+BAG_TOL = 1e-5
+# each kernel's tolerance against its plain version in the kernels line
+TOLERANCE = dict.fromkeys(KERNELS, 0) | {"segment_bag": BAG_TOL}
+BAG_CHECK_ROWS = 512     # serve_bulk rows and bags held against the CPU
 
 
 def emit(phase: str, **fields) -> None:
@@ -197,7 +234,7 @@ class Kernels:
     launch counters."""
 
     def __init__(self):
-        from repro_torch.kernels import bitset_mm, forest_build
+        from repro_torch.kernels import bitset_mm, forest_build, segment_bag
         from repro_torch.kernels.range_query import (
             analytics,
             descent,
@@ -207,6 +244,7 @@ class Kernels:
 
         self.fs, self.ds, self.an = fused, descent, analytics
         self.bm, self.fb, self.ls = bitset_mm, forest_build, leafscan
+        self.sb = segment_bag
         self.wrap = {"fused_serve": fused.fused_serve,
                      "prune_tiles": descent.prune_tiles,
                      "descent_scan": descent.descent_scan,
@@ -215,7 +253,8 @@ class Kernels:
                      "polygon_scan": analytics.polygon_scan,
                      "bitset_mm": bitset_mm.bitset_mm,
                      "seg_mbr": forest_build.seg_mbr,
-                     "range_query": leafscan.range_query}
+                     "range_query": leafscan.range_query,
+                     "segment_bag": segment_bag.segment_bag}
         self.plain = {"prune_tiles": descent.prune_tiles_torch,
                       "descent_scan": descent.descent_scan_torch,
                       "count_scan": analytics.count_scan_torch,
@@ -223,7 +262,8 @@ class Kernels:
                       "polygon_scan": analytics.polygon_scan_torch,
                       "bitset_mm": bitset_mm.bitset_mm_torch,
                       "seg_mbr": forest_build.seg_mbr_torch,
-                      "range_query": leafscan.range_query_torch}
+                      "range_query": leafscan.range_query_torch,
+                      "segment_bag": segment_bag.segment_bag_torch}
 
     def reset(self) -> None:
         for fn in self.wrap.values():
@@ -544,6 +584,72 @@ def compare_range_query(ks, args, dim, where):
     return e, int(got.sum())
 
 
+# K10's cases: (rows V, width D, bags B, longest bag); each with three
+# empty bags at the end, float32 and bf16 tables
+BAG_CASES = ((10, 18, 1, 3), (1000, 32, 37, 100), (1_000_000, 18, 512, 100),
+             (100_000, 128, 300, 40), (64, 128, 9, 0))
+
+
+def bag_operands(rng, V, D, B, maxlen, dtype, device):
+    """K10's packed operands for B random bags of 0..maxlen lookups into
+    a (V, D) table (the last three bags empty, the packed tail padding),
+    with random weights; maxlen = 0 gives L = 0, one inert tile."""
+    import torch
+    from repro_torch.kernels.segment_bag import pack_bags
+
+    lens = rng.integers(0, maxlen + 1, B)
+    lens[max(B - 3, 0):] = 0
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = rng.integers(0, V, int(offsets[-1]))
+    i, s, w = pack_bags(idx, offsets)
+    w[: len(idx)] = rng.uniform(0.5, 2.0, len(idx)).astype(np.float32)
+    table = torch.as_tensor(rng.standard_normal((V, D), np.float32))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (table.to(dtype), i, s, w))
+
+
+def compare_segment_bag(ks, ops, B, where):
+    """K10 bit for bit against its plain version on the CPU, which adds
+    the same products in the same ascending order, and against the
+    plain version on the card within BAG_TOL absolute plus BAG_TOL
+    relative (its atomic adds take any order; these random tables sum
+    to tens, not to DIN's tenths).  Returns the largest absolute
+    difference from the card's plain version (the CPU's is 0)."""
+    import torch
+
+    sb = ks.sb
+    got = sb.segment_bag(*ops, n_segments=B, device=DEVICE)
+    plain = sb.segment_bag_torch(*ops, n_segments=B)
+    torch.cuda.synchronize()
+    diff = (got - plain).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    if (got.dtype != torch.float32 or got.shape != plain.shape
+            or not bool((diff <= BAG_TOL + BAG_TOL * plain.abs()).all())):
+        raise AssertionError(f"segment_bag kernel != plain version ({where}: "
+                             f"max_abs_err {err})")
+    if not torch.equal(got.cpu(), sb.segment_bag_torch(
+            *(t.cpu() for t in ops), n_segments=B)):
+        raise AssertionError(f"segment_bag kernel != plain version on the "
+                             f"CPU ({where})")
+    return err
+
+
+def segment_bag_cases(ks, rng, dev, cases):
+    """K10 on BAG_CASES, float32 and bf16 tables, each case's difference
+    from the card's plain version recorded in ``cases``."""
+    import torch
+
+    for V, D, B, maxlen in BAG_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = bag_operands(rng, V, D, B, maxlen, dtype, dev)
+            where = f"V={V} D={D} B={B} maxlen={maxlen} {dtype}"
+            cases.append({"segment_bag": [V, D, B, maxlen, str(dtype)],
+                          "lookups": int((ops[3] > 0).sum()),
+                          "cpu_plain_max_abs_err": 0,
+                          "card_plain_max_abs_err": compare_segment_bag(
+                              ks, ops, B, where)})
+
+
 def phase_kernels(ks):
     import torch
 
@@ -607,6 +713,7 @@ def phase_kernels(ks):
         errs["seg_mbr"] = max(errs["seg_mbr"], compare_seg_mbr(
             ks, rng, fan, n, dev))
         cases.append({"seg_mbr": [fan, n]})
+    segment_bag_cases(ks, rng, dev, cases)     # 0 from the CPU's version
     emit("kernels", ok=True, max_abs_err=errs, cases=cases,
          seconds=round(time.perf_counter() - t0, 3))
     return errs
@@ -1293,6 +1400,32 @@ def scan_work(ck, cnt, qs, qe, K):
     return tiles, int(live.sum()), in_slice
 
 
+def reach_work(ck, cnt, esoa, rsoa, qs, qe):
+    """What a reach scan of these candidate lists needs.  ``out[b]`` is
+    an OR, so a query needs the entries of its slice in its query tile's
+    live tiles, in the ascending order of the worklist, only up to and
+    including its first hit (all of them where it misses).  Returns the
+    distinct tiles those entries lie in, the needed entries, and the
+    queries with a hit."""
+    import torch
+    from repro_torch.kernels.range_query.descent import tile_hits
+    from repro_torch.kernels.range_query.layout import TB, TP
+
+    nb, K = ck.shape
+    hit, g = tile_hits(ck, esoa, rsoa, qs, qe)           # (nb, TB, K*TP)
+    live = (torch.arange(K, device=ck.device)[None, :]
+            < cnt.clamp(max=K)[:, None]).repeat_interleave(TP, dim=1)
+    s = qs.long().reshape(nb, TB, 1)
+    e = qe.long().reshape(nb, TB, 1)
+    scanned = (g[:, None, :] >= s) & (g[:, None, :] < e) & live[:, None, :]
+    hit = hit & live[:, None, :]
+    h = hit.to(torch.int32)
+    need = scanned & (torch.cumsum(h, dim=2) - h == 0)   # no hit before
+    tiles = need.reshape(nb, TB, K, TP).any(dim=3).any(dim=1)   # (nb, K)
+    return (int(torch.unique(ck.long()[tiles]).numel()), int(need.sum()),
+            int(hit.any(dim=2).sum()))
+
+
 def box_hits(ds, ck, cnt, esoa, rsoa, qs, qe):
     """Entries of each query's slice, in the live slots of its query
     tile's candidate list, that pass its bbox test."""
@@ -1306,14 +1439,15 @@ def box_hits(ds, ck, cnt, esoa, rsoa, qs, qe):
     return int((hit & live[:, None, :]).sum())
 
 
-def bound(nbytes, int_cmp, f32_cmp, **terms):
-    """The larger of the byte time and the compare time, and which."""
+def bound(nbytes, int_cmp, f32_cmp, f32_fma=0, **terms):
+    """The larger of the byte time and the operation time, and which."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = (int_cmp / I32_CMP_PER_S + f32_cmp / F32_CMP_PER_S) * 1e3
+    op_ms = (int_cmp / I32_CMP_PER_S + f32_cmp / F32_CMP_PER_S
+             + f32_fma / F32_FMA_PER_S) * 1e3
     return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations",
             {"bytes": int(nbytes), "int_compares": int(int_cmp),
-             "f32_compares": int(f32_cmp), "byte_ms": byte_ms,
-             "op_ms": op_ms, **terms})
+             "f32_compares": int(f32_cmp), "f32_fmas": int(f32_fma),
+             "byte_ms": byte_ms, "op_ms": op_ms, **terms})
 
 
 def kernel_bound(fs, args, nt, kcap, mode):
@@ -1323,7 +1457,10 @@ def kernel_bound(fs, args, nt, kcap, mode):
     Operations: per query, 4 integer compares for each fine tile and for
     each coarse group that its arena slice [qs, qe) overlaps (the slice
     range itself costs O(1)), and 4 float32 compares for each entry of
-    its slice in the tiles its query tile scans."""
+    its slice in the tiles its query tile scans.  In reach mode a query
+    needs those entries only up to its first hit (``reach_work``), and
+    the tiles only where they hold such entries; the bound over the
+    whole worklists is kept beside it (``whole_worklists``)."""
     from repro_torch.kernels.range_query.layout import COARSE_GROUP, TP
 
     qf, qc, ent, ids, r16, r32, rsoa, qs, qe = args
@@ -1334,12 +1471,22 @@ def kernel_bound(fs, args, nt, kcap, mode):
     tiles, scanned, in_slice = scan_work(cand[:, :k], cnt, qs, qe, kcap)
     tile_b = 4 * TP * 4 + (TP * 4 if mode == "collect" else 0)
     out_b = B * kcap * TP * 4 if mode == "collect" else B * 4
-    nbytes = (qf.numel() * 2 + qc.numel() * 4 + tiles * tile_b
-              + B * (4 * 2 + 4 * 4 + 4 * 4 + 4 + 4) + out_b + cnt.numel() * 4)
+    fixed = (qf.numel() * 2 + qc.numel() * 4
+             + B * (4 * 2 + 4 * 4 + 4 * 4 + 4 + 4) + out_b + cnt.numel() * 4)
     int_cmp = 4 * int((slice_spans(qs, qe, TP)
                        + slice_spans(qs, qe, TP * COARSE_GROUP)).sum())
-    return bound(nbytes, int_cmp, 4 * in_slice, distinct_tiles=tiles,
-                 scanned_tiles=scanned)
+    whole = bound(fixed + tiles * tile_b, int_cmp, 4 * in_slice,
+                  distinct_tiles=tiles, scanned_tiles=scanned,
+                  scanned_entries=in_slice)
+    if mode != "reach":
+        return whole
+    tiles, needed, hits = reach_work(cand[:, :k], cnt, ent, rsoa, qs, qe)
+    bms, by, work = bound(fixed + tiles * tile_b, int_cmp, 4 * needed,
+                          distinct_tiles=tiles, scanned_tiles=scanned,
+                          scanned_entries=in_slice, needed_entries=needed,
+                          queries_with_hit=hits)
+    return bms, by, dict(work, whole_worklists={"bound_ms": whole[0],
+                                                "bound_by": whole[1]})
 
 
 def prune_bound(fine, coarse, rsoa, qs, qe):
@@ -1359,13 +1506,15 @@ def prune_bound(fine, coarse, rsoa, qs, qe):
     return bound(nbytes, 0, f32_cmp, mask_bytes=mask_b)
 
 
-def scan_bound(ck, cnt, qs, qe, mode):
+def scan_bound(ck, cnt, esoa, rsoa, qs, qe, mode):
     """K3/K4/K5's least time on these inputs.  Bytes: the distinct leaf
     tiles of the live slots (2 KB each, +512 B of ids for collect), the
     candidate lists and query inputs read once, the output written once
     ((B,) int32, or (B, K*128) int32 for collect).  Operations: 4
     float32 compares per entry of each query's slice in the live tiles
-    its query tile scans."""
+    its query tile scans.  In reach mode (K3) a query needs those
+    entries only up to its first hit (``reach_work``); the bound over
+    the whole worklists is kept beside it (``whole_worklists``)."""
     from repro_torch.kernels.range_query.layout import TP
 
     B = qs.shape[0]
@@ -1373,9 +1522,19 @@ def scan_bound(ck, cnt, qs, qe, mode):
     tiles, scanned, in_slice = scan_work(ck, cnt, qs, qe, K)
     tile_b = 4 * TP * 4 + (TP * 4 if mode == "collect" else 0)
     out_b = B * K * TP * 4 if mode == "collect" else B * 4
-    nbytes = tiles * tile_b + ck.numel() * 4 + B * (16 + 8) + out_b
-    return bound(nbytes, 0, 4 * in_slice, distinct_tiles=tiles,
-                 scanned_tiles=scanned, out_bytes=out_b)
+    fixed = ck.numel() * 4 + B * (16 + 8) + out_b
+    whole = bound(fixed + tiles * tile_b, 0, 4 * in_slice,
+                  distinct_tiles=tiles, scanned_tiles=scanned,
+                  scanned_entries=in_slice, out_bytes=out_b)
+    if mode != "reach":
+        return whole
+    tiles, needed, hits = reach_work(ck, cnt, esoa, rsoa, qs, qe)
+    bms, by, work = bound(fixed + tiles * tile_b, 0, 4 * needed,
+                          distinct_tiles=tiles, scanned_tiles=scanned,
+                          scanned_entries=in_slice, needed_entries=needed,
+                          queries_with_hit=hits, out_bytes=out_b)
+    return bms, by, dict(work, whole_worklists={"bound_ms": whole[0],
+                                                "bound_by": whole[1]})
 
 
 def e2e_us(eng, us, rects, mode, two_phase=False):
@@ -1440,7 +1599,8 @@ def phase_timing(ks, engines, card):
         kname = SCANS[mode]
         a = ((ck, arena["esoa"], arena["ids"], rsoa, qs, qe)
              if mode == "collect" else (ck, arena["esoa"], rsoa, qs, qe))
-        bms, by, work = scan_bound(ck, cnt, qs, qe, mode)
+        bms, by, work = scan_bound(ck, cnt, arena["esoa"], rsoa, qs, qe,
+                                   mode)
         two[kname] = {
             "ms": device_ms(lambda: ks.wrap[kname](*a, device=DEVICE), 50,
                             kname),
@@ -1708,6 +1868,253 @@ def phase_profile(query, us, regions, e2e_us_per_query, path, mode):
 
 
 # --------------------------------------------------------------------------
+# The recsys serving path: DIN and the EmbeddingBag op (K10)
+# --------------------------------------------------------------------------
+
+def din_inputs(batch, device):
+    import torch
+
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def bag_inputs(batch):
+    """A DIN batch's histories as EmbeddingBag bags: each row's items up
+    to its length (``hist_mask`` is a prefix of each row)."""
+    mask = batch["hist_mask"]
+    offsets = np.concatenate([[0], np.cumsum(mask.sum(1))]).astype(np.int64)
+    return batch["hist_items"][mask], offsets
+
+
+def busy_us(fn, iters):
+    """The device's busy µs per call of ``fn`` (profiler rows summed) and
+    its five largest device operations per call."""
+    rows = device_rows(fn, iters)
+    top = [{"op": k[:60], "calls": c / iters, "us": t / iters}
+           for k, c, t in rows[:5]]
+    return {"device_busy_us_per_batch": (sum(t for _, _, t in rows) / iters
+                                         if rows else None),
+            "device_top": top}
+
+
+def serve_shape(ks, shape, params, cpu_params, cfg, batch):
+    """One serve shape through ``din.apply`` on the card: logits of the
+    right shape and finite, the first BAG_CHECK_ROWS rows (all of a
+    smaller batch) equal to ``apply`` on the CPU with the same
+    parameters within DIN_TOL, and the loss too where the batch has
+    labels.  Every kernel count is reset just before and read just
+    after: ``apply`` pools the history by target attention, as the
+    reference does, and launches no kernel of the port.  End-to-end µs
+    per batch (host clock: upload, apply, logits back) and the device's
+    busy µs per batch."""
+    import torch
+    from repro_torch.models.recsys import din
+
+    dev = torch.device(DEVICE)
+    B = len(batch["target_item"])
+
+    def serve():
+        return din.apply(params, din_inputs(batch, dev), cfg).cpu()
+
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset()
+    logits = serve()
+    launches = ks.counts()
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (B,) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{shape}: logits not finite or of shape "
+                             f"{tuple(logits.shape)}")
+    sub = {k: v[:BAG_CHECK_ROWS] for k, v in batch.items()}
+    cpu_sub = din_inputs(sub, "cpu")
+    err = float((logits[:BAG_CHECK_ROWS]
+                 - din.apply(cpu_params, cpu_sub, cfg)).abs().max())
+    loss_err = float(abs(din.loss_fn(params, din_inputs(sub, dev), cfg).cpu()
+                         - din.loss_fn(cpu_params, cpu_sub, cfg)))
+    if not (err <= DIN_TOL and loss_err <= DIN_TOL):
+        raise AssertionError(f"{shape}: card != CPU (logits {err}, loss "
+                             f"{loss_err})")
+    reps = 20 if B <= 4096 else 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        serve()
+    e2e = (time.perf_counter() - t0) / reps * 1e6
+    return {"shape": shape, "B": B, "seq_len": cfg.seq_len,
+            "checked_rows": len(sub["target_item"]), "max_abs_err": err,
+            "loss_abs_err": loss_err, "launches": launches,
+            "max_memory_allocated": int(peak), "e2e_us_per_batch": e2e,
+            **busy_us(serve, 1 if B > 4096 else 5),
+            "logit_mean": float(logits.mean())}
+
+
+def retrieval_shape(ks, params, cpu_params, cfg):
+    """retrieval_cand through ``din.score_candidates`` on the card: one
+    user against round_up(1e6, 8192) random candidates; scores finite,
+    the first two chunks equal to the CPU within DIN_TOL; counts reset
+    just before and read just after; end-to-end µs and busy µs."""
+    import torch
+    from repro_torch.configs.base import RECSYS_SHAPES, round_up
+    from repro_torch.data import din_batches
+    from repro_torch.models.recsys import din
+
+    dev = torch.device(DEVICE)
+    chunk = 8192
+    C = round_up(RECSYS_SHAPES["retrieval_cand"]["n_candidates"], chunk)
+    user = next(din_batches(cfg.n_items, cfg.n_cates, cfg.seq_len, 1,
+                            seed=2))
+    batch = {"hist_items": user["hist_items"][0],
+             "hist_mask": user["hist_mask"][0],
+             "candidates": np.random.default_rng(2).integers(
+                 0, cfg.n_items, C).astype(np.int32)}
+
+    def score():
+        return din.score_candidates(params, din_inputs(batch, dev), cfg,
+                                    chunk=chunk).cpu()
+
+    ks.reset()
+    scores = score()
+    launches = ks.counts()
+    if tuple(scores.shape) != (C,) or not torch.isfinite(scores).all():
+        raise AssertionError("retrieval_cand: scores not finite or of shape "
+                             f"{tuple(scores.shape)}")
+    sub = dict(batch, candidates=batch["candidates"][:2 * chunk])
+    want = din.score_candidates(cpu_params, din_inputs(sub, "cpu"), cfg,
+                                chunk=chunk)
+    err = float((scores[:2 * chunk] - want).abs().max())
+    if not err <= DIN_TOL:
+        raise AssertionError(f"retrieval_cand: card != CPU ({err})")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        score()
+    e2e = (time.perf_counter() - t0) / 3 * 1e6
+    return {"shape": "retrieval_cand", "candidates": C, "chunk": chunk,
+            "checked_candidates": 2 * chunk, "max_abs_err": err,
+            "launches": launches, "e2e_us_per_batch": e2e,
+            **busy_us(score, 1)}
+
+
+def bag_path(ks, table, batch, mode):
+    """K10 through ``embedding_bag`` over DIN's item table, the batch's
+    histories as bags: the counts reset just before and read just after
+    (one launch of K10, no other kernel), the result held against the
+    plain version on the card on the same packed operands (and the same
+    mean division) within BAG_TOL.  Returns the record and the packed
+    operands."""
+    import torch
+
+    sb = ks.sb
+    dev = torch.device(DEVICE)
+    idx, offsets = bag_inputs(batch)
+    B = len(offsets) - 1
+    ks.reset()
+    got = sb.embedding_bag(table, idx, offsets, mode)
+    launches = ks.counts()
+    ops = (table, *(torch.as_tensor(a, device=dev)
+                    for a in sb.pack_bags(idx, offsets)))
+    want = sb.segment_bag_torch(*ops, n_segments=B)
+    if mode == "mean":
+        cnt = np.maximum(np.diff(offsets), 1).astype(np.float32)
+        want = want / torch.as_tensor(cnt, device=dev)[:, None]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    others = {k: n for k, n in launches.items() if k != "segment_bag" and n}
+    if launches["segment_bag"] != 1 or others:
+        raise AssertionError(f"embedding_bag B={B} {mode}: launches "
+                             f"{launches}, expected one of segment_bag")
+    if tuple(got.shape) != (B, table.shape[1]) or not err <= BAG_TOL:
+        raise AssertionError(f"embedding_bag B={B} {mode}: kernel != plain "
+                             f"version ({err})")
+    return {"B": B, "mode": mode, "lookups": len(idx),
+            "launches": launches["segment_bag"], "max_abs_err": err}, ops
+
+
+def segment_bag_timing(sb, ops, offsets_np, B):
+    """K10 on the packed operands of a serve batch's bags (sum): device
+    ms, plain ms, ``F.embedding_bag`` with the same indices and
+    per-sample weights (one PyTorch call for the same function, held
+    equal within BAG_TOL first), and the bound from these inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    table, idx, seg, w = ops
+    L = int(offsets_np[-1])
+    D = table.shape[1]
+    starts = torch.as_tensor(offsets_np[:-1].astype(np.int32),
+                             device=table.device)
+    kern = lambda: sb.segment_bag(*ops, n_segments=B, device=DEVICE)  # noqa
+    lib = lambda: F.embedding_bag(idx[:L], table, starts,  # noqa: E731
+                                  mode="sum", per_sample_weights=w[:L])
+    lib_err = float((kern() - lib()).abs().max())
+    if not lib_err <= BAG_TOL:
+        raise AssertionError(f"F.embedding_bag != K10 ({lib_err}): not the "
+                             f"same function")
+    rows = int(torch.unique(idx[:L]).numel())
+    nbytes = rows * D * table.element_size() + 12 * idx.numel() + B * D * 4
+    bms, by, work = bound(nbytes, 0, 0, f32_fma=L * D, lookups=L,
+                          padded_lookups=int(idx.numel()), distinct_rows=rows,
+                          bags=B, D=D)
+    return {"ms": device_ms(kern, 20, f"segment_bag (B={B})"),
+            "plain_ms": device_ms(
+                lambda: sb.segment_bag_torch(*ops, n_segments=B), 5,
+                f"segment_bag_torch (B={B})"),
+            "library_ms": device_ms(lib, 20, f"F.embedding_bag (B={B})"),
+            "library_note": "F.embedding_bag(mode='sum', "
+                            "per_sample_weights=w) on the same indices",
+            "library_max_abs_diff": lib_err,
+            "bound_ms": bms, "bound_by": by, **work}
+
+
+def phase_recsys(ks, card):
+    """DIN at its published widths (configs.din.make_config()) on the
+    card, parameters from a torch.Generator seed, batches from
+    ``din_batches``: serve_p99 and serve_bulk through ``apply``,
+    retrieval_cand through ``score_candidates``; then K10 through
+    ``embedding_bag`` over DIN's item table with the serve batches'
+    histories as bags, sum and mean, and K10 timed on serve_bulk's
+    bags.  float32 products in full precision (no TF32)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import din_batches
+    from repro_torch.models.nn import count_params, param_bytes
+    from repro_torch.models.recsys import din
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    spec = get_arch("din")
+    cfg = spec.make_config()
+    params = din.init_params(torch.Generator().manual_seed(0), cfg)
+    cpu_params = din.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    shapes, batches = [], {}
+    for seed, shape in enumerate(("serve_p99", "serve_bulk")):
+        batches[shape] = next(din_batches(
+            cfg.n_items, cfg.n_cates, cfg.seq_len,
+            RECSYS_SHAPES[shape]["batch"], seed=seed))
+        shapes.append(serve_shape(ks, shape, params, cpu_params, cfg,
+                                  batches[shape]))
+    shapes.append(retrieval_shape(ks, params, cpu_params, cfg))
+    bags, per_path, err, timed = [], {}, 0.0, {}
+    table = params["item_emb"]["emb"]
+    for shape, batch in batches.items():
+        for mode in ("sum", "mean"):
+            rec, ops = bag_path(ks, table, batch, mode)
+            bags.append(dict(rec, shape=shape))
+            per_path[f"din {shape} bags {mode}"] = rec["launches"]
+            err = max(err, rec["max_abs_err"])
+            if mode == "sum":
+                timed[shape] = segment_bag_timing(
+                    ks.sb, ops, bag_inputs(batch)[1], rec["B"])
+    emit("recsys", ok=True, card=card, config=dataclasses.asdict(cfg),
+         params=count_params(params), param_bytes=param_bytes(params),
+         cells=list(spec.cells), shapes=shapes, bags=bags,
+         bag_max_abs_err=err, tolerances={"din": DIN_TOL, "bags": BAG_TOL},
+         segment_bag=timed, tf32=torch.backends.cuda.matmul.allow_tf32,
+         seconds=round(time.perf_counter() - t0, 3))
+    return per_path, err, timed["serve_bulk"]
+
+
+# --------------------------------------------------------------------------
 # Build
 # --------------------------------------------------------------------------
 
@@ -1777,6 +2184,8 @@ def main() -> int:
     for k, v in errs3.items():
         errs[k] = max(errs[k], v)
     slice4 = phase_timing_slice4(ks, engines, indexes, ls_ops, card)
+    bag_paths, bag_err, bag_timed = phase_recsys(ks, card)
+    errs["segment_bag"] = max(errs["segment_bag"], bag_err)
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, polygons, device build and leaf-scan
     # serving (host- and device-built), and the two kNN runs
@@ -1799,15 +2208,17 @@ def main() -> int:
     for r in leafscan:
         per_path["range_query"][
             f"{r['index']} leafscan {r['built_on']}-built"] = r["launches"]
+    per_path["segment_bag"] = bag_paths
     emit("timers", **TIMERS)
     timed = {"fused_serve": per_mode["reach"], **two, **slice3,
-             "range_query": slice4[next(iter(engines))]}
+             "range_query": slice4[next(iter(engines))],
+             "segment_bag": bag_timed}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": CSRC + RECORD[k][0],
         "replaces": RECORD[k][1],
         "launches": sum(per_path[k].values()),
         "launches_per_path": per_path[k],
-        "max_abs_err": errs[k],
+        "max_abs_err": errs[k], "tolerance": TOLERANCE[k],
         "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
         "bound_ms": timed[k]["bound_ms"], "bound_by": timed[k]["bound_by"],
         "library_ms": timed[k].get("library_ms")} for k in KERNELS]}),

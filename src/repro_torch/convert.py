@@ -7,6 +7,11 @@ the reference's) into a flat ``dict[str, np.ndarray]``;
 from such a dict.  With the pair, one index can be served by two
 engines, so serving is compared apart from the build, and two builds
 compare array for array.
+
+:func:`din_params_from_jax` carries a DIN parameter tree of the
+reference (JAX arrays or NumPy) into this package's: the same nested
+dict, with each array as a tensor.  Both keep a dense layer as ``w``
+``(d_in, d_out)`` and ``b``, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .core.condensation import Condensation
 from .core.georeach import GeoReachIndex
@@ -21,6 +27,7 @@ from .core.interval_labels import IntervalLabels
 from .core.rtree import RTreeForest
 from .core.three_d_reach import ThreeDReachIndex
 from .core.two_d_reach import BitRank, TwoDReachIndex
+from .device import DeviceLike, resolve_device
 
 _COND = ("comp", "n_comps", "dag_edges", "level", "comp_sizes")
 _LABELS = ("post", "indptr", "lo", "hi")
@@ -127,3 +134,23 @@ def index_from_arrays(arrays: Dict[str, np.ndarray]):
         stats={},
         backend=str(arrays.get("backend", "host")),
     )
+
+
+_DIN_KEYS = {"item_emb", "cate_emb", "attn", "mlp"}
+
+
+def din_params_from_jax(tree, device: DeviceLike = None):
+    """The port's DIN parameters (``repro_torch.models.recsys.din``) from
+    the reference's tree ``{"item_emb": {"emb"}, "cate_emb": {"emb"},
+    "attn": {"l<i>": {"w", "b"}}, "mlp": {...}}`` of arrays, on
+    ``device`` (``None``: the GPU)."""
+    dev = resolve_device(device)
+    if set(tree) != _DIN_KEYS:
+        raise ValueError(f"not a DIN parameter tree: keys {sorted(tree)}")
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.as_tensor(np.array(node), device=dev)
+
+    return conv(tree)

@@ -1,5 +1,6 @@
 """Data: synthetic LBSN graphs shaped to the paper's datasets and the
-RangeReach query workloads (copies of ``repro.data``'s generators)."""
+RangeReach query workloads, and the recsys input pipeline (copies of
+``repro.data``'s generators)."""
 
 from .lbsn import SPECS, LBSNSpec, dataset_stats, generate_lbsn
 from .queries import (
@@ -14,6 +15,7 @@ from .queries import (
     region_for_extent,
     workload,
 )
+from .pipeline import ShardInfo, din_batches
 from .registry import dataset_names, get_dataset
 
 __all__ = [
@@ -22,5 +24,6 @@ __all__ = [
     "POLYGON_EDGES_DEFAULT", "REGION_EXTENT_DEFAULT",
     "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "polygon_workload",
     "region_for_extent", "workload",
+    "ShardInfo", "din_batches",
     "dataset_names", "get_dataset",
 ]

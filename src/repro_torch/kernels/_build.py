@@ -34,6 +34,7 @@ SOURCES = {
     "bitset_mm": "bitset_mm/csrc/bitset_mm.cu",
     "seg_mbr": "forest_build/csrc/seg_mbr.cu",
     "range_query": "range_query/csrc/range_query.cu",
+    "segment_bag": "segment_bag/csrc/segment_bag.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,12 +1,13 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
 descent / count / collect / polygon scans, the packed closure product,
-the segmented-MBR reduction, the full-arena leaf scan) against its plain
-PyTorch version, the wrappers' input checks, the engine on the card
-(both paths, polygons) against the engine on the CPU, the device build
-on the card against the host build, the leaf-scan and wavefront
-engines on the card against the host descent, and the boolean sweep
-closure on the card against its CPU run.  Every test needs a CUDA
-device and skips where there is none.
+the segmented-MBR reduction, the full-arena leaf scan, the fused
+EmbeddingBag) against its plain PyTorch version, the wrappers' input
+checks, the engine on the card (both paths, polygons) against the
+engine on the CPU, the device build on the card against the host build,
+the leaf-scan and wavefront engines on the card against the host
+descent, the boolean sweep closure on the card against its CPU run, and
+DIN (apply, score_candidates) on the card against its CPU run.  Every
+test needs a CUDA device and skips where there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch:
 
@@ -25,10 +26,17 @@ from repro_torch.core import (
     query_wavefront,
 )
 from repro_torch.core.engine import UPLOAD_COUNTERS
+from repro_torch.configs.din import make_config
 from repro_torch.core.polygon import convex_halfplanes, polygon_bbox
-from repro_torch.data import get_dataset, polygon_workload, workload
+from repro_torch.data import (
+    din_batches,
+    get_dataset,
+    polygon_workload,
+    workload,
+)
 from repro_torch.kernels import bitset_mm as BM
 from repro_torch.kernels import forest_build as FB
+from repro_torch.kernels import segment_bag as SB
 from repro_torch.kernels.range_query import analytics as A
 from repro_torch.kernels.range_query import descent as D
 from repro_torch.kernels.range_query import fused as F
@@ -39,6 +47,8 @@ from repro_torch.kernels.range_query.layout import (
     build_tile_pyramid,
     forest_planes,
 )
+from repro_torch.models.nn import tree_to
+from repro_torch.models.recsys import din
 
 pytestmark = pytest.mark.cuda
 
@@ -510,3 +520,106 @@ def test_closure_torch_on_card_matches_cpu(cuda, method):
         want = closure_torch(c.n_comps, c.dag_edges, own, sweeps,
                              device="cpu")
         assert got.dtype == bool and np.array_equal(got, want)
+
+
+def _bag_case(seed, V, B, maxlen, tail=3):
+    """Bags of 0..maxlen lookups into V rows, the last ``tail`` empty."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, maxlen + 1, size=B)
+    lens[max(B - tail, 0):] = 0
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return rng, rng.integers(0, V, int(offsets[-1])), offsets
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,B,maxlen", [
+    (10, 18, 1, 3), (1000, 18, 33, 100), (100, 32, 17, 7), (64, 128, 9, 0),
+    (257, 128, 40, 12), (1_000_000, 18, 512, 100)])
+def test_segment_bag_kernel_matches_plain(cuda, V, D, B, maxlen, dtype):
+    """K10 adds the same float32 products in the same ascending order as
+    the plain version on the CPU: equal bit for bit.  Against the plain
+    version on the card, whose ``index_add_`` adds atomically in any
+    order: within 1e-5 absolute and relative."""
+    rng, idx, offsets = _bag_case(V * 7 + D + B, V, B, maxlen)
+    table = torch.as_tensor(
+        rng.standard_normal((V, D)).astype(np.float32)).to(dtype)
+    i, s, w = SB.pack_bags(idx, offsets)
+    w[: len(idx)] = rng.uniform(0.5, 2.0, len(idx)).astype(np.float32)
+    args = [table] + [torch.as_tensor(a) for a in (i, s, w)]
+    dev = [a.to(cuda) for a in args]
+    launches = SB.segment_bag.launches
+    got = SB.segment_bag(*dev, n_segments=B)
+    assert SB.segment_bag.launches == launches + 1
+    assert got.dtype == torch.float32 and got.shape == (B, D)
+    assert torch.equal(got.cpu(), SB.segment_bag_torch(*args, n_segments=B))
+    torch.testing.assert_close(got, SB.segment_bag_torch(*dev, n_segments=B),
+                               rtol=1e-5, atol=1e-5)
+    assert not got[B - min(B, 3):].any()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_on_card_matches_cpu(cuda, mode):
+    rng, idx, offsets = _bag_case(9, 5000, 300, 100)
+    table = torch.as_tensor(rng.standard_normal((5000, 18)).astype(
+        np.float32))
+    launches = SB.segment_bag.launches
+    got = SB.embedding_bag(table.to(cuda), idx, offsets, mode)
+    assert SB.segment_bag.launches == launches + 1
+    assert torch.equal(got.cpu(), SB.embedding_bag(table, idx, offsets, mode,
+                                                   device="cpu"))
+    empty = SB.embedding_bag(table.to(cuda), [], [0], mode)
+    assert empty.shape == (0, 18)
+
+
+def test_segment_bag_rejects_what_it_does_not_take(cuda):
+    table = torch.zeros(7, 18, device=cuda)
+    i, s, w = (torch.as_tensor(a, device=cuda)
+               for a in SB.pack_bags(np.array([1, 2, 3]), np.array([0, 3])))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        SB.segment_bag(table.double(), i, s, w, n_segments=1)
+    with pytest.raises(ValueError, match="dtype"):
+        SB.segment_bag(table, i.long(), s, w, n_segments=1)
+    with pytest.raises(ValueError, match="shape"):
+        SB.segment_bag(table, i, s, w[:4], n_segments=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        SB.segment_bag(table.t().contiguous().t(), i, s, w, n_segments=1)
+    with pytest.raises(ValueError, match="lies on"):
+        SB.segment_bag(table, i.cpu(), s, w, n_segments=1)
+    with pytest.raises(ValueError, match="lies on"):
+        SB.embedding_bag(table.cpu(), np.array([1]), np.array([0, 1]))
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 matrix products in full precision on the card."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("fn", ["apply", "score_candidates"])
+def test_din_on_card_matches_cpu(cuda, no_tf32, fn):
+    """DIN at its published widths (1M items) on a batch of 64, and
+    retrieval scoring of 64 candidates in chunks of 16, on the card
+    against the same parameters on the CPU: within 1e-5 absolute and
+    relative (the products sum in another order)."""
+    cfg = make_config()
+    cpu = din.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    card = din.init_params(torch.Generator().manual_seed(0), cfg)
+    assert torch.equal(card["item_emb"]["emb"].cpu(), cpu["item_emb"]["emb"])
+    b = next(din_batches(cfg.n_items, cfg.n_cates, cfg.seq_len, 64))
+    if fn == "apply":
+        batch = {k: torch.as_tensor(v) for k, v in b.items()}
+        got = din.apply(card, tree_to(batch, cuda), cfg)
+        want = din.apply(cpu, batch, cfg)
+    else:
+        cand = np.random.default_rng(0).integers(0, cfg.n_items, 64)
+        batch = {"hist_items": torch.as_tensor(b["hist_items"][0]),
+                 "hist_mask": torch.as_tensor(b["hist_mask"][0]),
+                 "candidates": torch.as_tensor(cand.astype(np.int32))}
+        got = din.score_candidates(card, tree_to(batch, cuda), cfg, chunk=16)
+        want = din.score_candidates(cpu, batch, cfg, chunk=16)
+    assert got.shape == (64,) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
