@@ -35,7 +35,14 @@ not beside this script, it exits with code 2 and prints no result.
            and 128, tables of 10 to 1,000,000 rows in float32 and bf16,
            ragged bag counts, empty bags, an all-padding tail and L = 0
            (one inert tile), within 1e-5 of its plain version on the
-           card and bit for bit equal to it on the CPU
+           card and bit for bit equal to it on the CPU.  The two pyramid
+           prunes (fused serve K1 in every mode, tile prune K2) on
+           slices of every kind per query tile (8 disjoint ones, nested
+           and overlapping ones, degenerate ones beside a short one, one
+           over the whole arena), on an arena of 3,000 tiles at B = 8,
+           24, 256 and 2048 and on one of 77,390 tiles (NTp = 77,440, the
+           yelp x0.5 base arena) at B = 8 and 256, kcap below, at and
+           above the true count (and at nt for the small batches)
   main     the main paths: host build of yelp x1.0 2dreach-comp and
            2dreach-pointer and of yelp x0.5 2dreach (base, whose pyramid
            exceeds shared memory); for each, ``QueryEngine`` on the card
@@ -50,6 +57,9 @@ not beside this script, it exits with code 2 and prints no result.
            two-phase path, equal to the host best-first descent.  Every
            kernel's launch count is reset just before each path and read
            just after: fused serve once per batch plus ratchet re-runs;
+           then a batch with a vertex id out of range (n, and -n - 1)
+           raises IndexError on the host and the same engine answers the
+           first batch as the host index does (the CUDA context lives);
            the prune once per two-phase batch, each scan once per batch
            of its mode; kNN launches the fused serve on the fused path,
            and the count and collect scans but no fused serve on the
@@ -86,14 +96,19 @@ not beside this script, it exits with code 2 and prints no result.
   main_batches  every kernel against its plain version on each index's
            first main-path batch (after the counts are read); K9 on the
            leaf-scan engine's first batch
-  timing   at B=256 on yelp x1.0 comp: device time per launch of each
-           kernel and of its plain version (torch.profiler; CUDA-event
-           times of the fused serve beside them as ``event_ms``), the
-           bound counted from these inputs (in reach mode a query needs
-           its worklist's slice entries only up to its first hit; the
-           bound over whole worklists beside it), end-to-end microseconds per
-           query per mode on both paths; the prune also on the yelp x0.5
-           base batch, whose mask is 6x larger.  The polygon scan on the
+  timing   the launch floor (the profiler's device time of a
+           one-element ``add_``, printed beside the serving kernels'
+           bounds); at B=256 on yelp x1.0 comp: device time per launch
+           of each kernel and of its plain version (torch.profiler;
+           CUDA-event times of the fused serve beside them as
+           ``event_ms``), the bound counted from these inputs (the
+           pyramid planes only within the batch's slice spans, the tiles
+           a prune must read; in reach mode a query needs its worklist's
+           slice entries only up to its first hit; the bound over whole
+           worklists beside it), end-to-end microseconds per query per
+           mode on both paths; the fused serve (every mode) and the
+           prune also on the yelp x0.5 base batch, whose arena is 6x
+           larger.  The polygon scan on the
            first polygon batch of yelp x1.0 comp, the closure product on
            the largest launch of that index's device build, the
            segmented MBR on the largest launch of the yelp x0.5 base
@@ -137,10 +152,22 @@ not beside this script, it exits with code 2 and prints no result.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --ab SRC
+
+runs only phase ``ab``, with the ``repro_torch`` package under ``SRC``
+(for instance a parent commit's ``src``, unpacked with ``git archive``):
+K1 in every mode and K2 on the first batch of yelp x1.0 2dreach-comp
+and of yelp x0.5 2dreach, DIN's serve_p99 and serve_bulk end to end
+and device busy, and the device time of their histories' item
+embedding, on inputs that every checkout of the port makes alike.
+Run it for two checkouts in turns (parent, change, change, parent) in
+one call to compare them on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -169,6 +196,12 @@ CONFIGS = (("yelp", 1.0, "2dreach-comp"), ("yelp", 1.0, "2dreach-pointer"),
 # random arenas: (leaf tiles, trees, batch sizes); 12,204 leaf tiles is
 # the yelp x1.0 2dreach-comp arena
 ARENAS = ((12204, 3000, (8, 24)), (3, 2, (8,)))
+# the pyramid prunes' (K1, K2) slice cases: (leaf tiles, batch sizes,
+# slice kinds); 77,390 leaf tiles (NTp = 77,440) is the yelp x0.5 2dreach
+# arena
+SLICE_KINDS = ("disjoint", "nested", "degenerate", "whole")
+SLICE_CASES = ((3000, (8, 24, 256, 2048), SLICE_KINDS),
+               (77390, (8, 256), ("disjoint", "whole")))
 MODES = ("reach", "count", "collect")
 COLLECT_K = 10
 KNN_K = 8
@@ -180,6 +213,10 @@ POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
            "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr",
            "range_query", "segment_bag")
+# the kernels that serve queries: the launch floor is printed beside
+# their bounds
+SERVING = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
+           "collect_scan", "polygon_scan", "range_query")
 BASELINES = ("3dreach", "3dreach-rev", "georeach")
 WAVEFRONT_CAPACITY = 128
 CSRC = "src/repro_torch/kernels/"
@@ -418,6 +455,121 @@ def random_batch(rng, arena, B, device):
     i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa
     return (arena["qfine"], arena["qcoarse"], arena["esoa"], arena["ids"],
             r16, r32, rsoa, i32(qs), i32(qe))
+
+
+def slice_arena(rng, n_tiles, device):
+    """An arena of uniform points sorted along x (its leaf tiles are
+    x-bands) for the slice cases, with its float32 and quantized
+    pyramids."""
+    import torch
+    from repro_torch.kernels.range_query import fused as fs
+    from repro_torch.kernels.range_query.layout import TP, build_tile_pyramid
+
+    P = n_tiles * TP - 37
+    pts = rng.uniform(0, 100, (P, 2)).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    esoa = np.empty((4, n_tiles * TP), np.float32)
+    esoa[:2], esoa[2:] = 1.0, 0.0
+    esoa[:2, :P] = esoa[2:, :P] = pts.T
+    ids = np.full((1, n_tiles * TP), np.iinfo(np.int32).max, np.int32)
+    ids[0, :P] = rng.permutation(P)
+    fine, coarse, nt = build_tile_pyramid(esoa, 2)
+    ext = np.concatenate([pts.min(0), pts.max(0)]).astype(np.float64)
+    grid = fs.make_quant_grid(ext, 2, device)
+    T = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    return dict(grid=grid, P=P, pts=pts, nt=nt, esoa=T(esoa), ids=T(ids),
+                fine=T(fine), coarse=T(coarse),
+                qfine=fs.quantize_fine(grid, T(fine), 2),
+                qcoarse=fs.quantize_coarse(grid, T(coarse), 2))
+
+
+def slice_bounds(rng, P, B, kind):
+    """Per query tile, slices of one kind: 8 disjoint ones; nested and
+    overlapping ones; degenerate ones (qs == qe inside a tile and on a
+    tile edge, [0, 0)) beside one short slice; one over the whole arena
+    beside random ones."""
+    from repro_torch.kernels.range_query.layout import TB, TP
+
+    qs, qe = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for q0 in range(0, B, TB):
+        s = slice(q0, q0 + TB)
+        if kind == "disjoint":
+            cuts = np.sort(rng.choice(P + 1, 2 * TB, replace=False))
+            qs[s], qe[s] = cuts[0::2], cuts[1::2]
+        elif kind == "nested":
+            c = int(rng.integers(0, P))
+            w = np.sort(rng.integers(1, max(2, P // 8), TB))[::-1]
+            qs[s], qe[s] = np.clip(c - w, 0, P), np.clip(c + w, 0, P)
+            qs[q0 + 6] = min(c + w[2] // 2, P)    # overlapping, not nested
+            qe[q0 + 6] = min(c + 2 * w[0], P)
+        elif kind == "degenerate":
+            a = rng.integers(0, P, TB)
+            a[:2] = a[:2] // TP * TP              # on a tile edge
+            a[2] = 0
+            qs[s], qe[s] = a, a
+            qe[q0 + 3] = min(a[3] + 50, P)        # one short real slice
+        else:
+            a = np.sort(rng.integers(0, P + 1, (TB, 2)), axis=1)
+            qs[s], qe[s] = a[:, 0], a[:, 1]
+            qs[q0], qe[q0] = 0, P
+    return qs, qe
+
+
+def slice_batch(rng, arena, B, kind, device):
+    """The fused serve's inputs for B queries with slices of one kind,
+    each rect 0.5-40 leaf tiles wide around an entry of its slice
+    (anywhere for an empty one) and tall."""
+    import torch
+    from repro_torch.kernels.range_query import fused as fs
+
+    P = arena["P"]
+    qs, qe = slice_bounds(rng, P, B, kind)
+    live = qe > qs
+    pick = rng.integers(0, P, B)
+    pick[live] = rng.integers(qs[live], qe[live])
+    c = arena["pts"][pick].astype(np.float64)
+    half = np.stack([rng.uniform(0.25, 20, B) * 100 / arena["nt"],
+                     rng.uniform(2, 25, B)], 1)
+    rsoa = torch.as_tensor(np.ascontiguousarray(np.concatenate(
+        [c - half, c + half], 1).T.astype(np.float32)), device=device)
+    r16, r32 = fs.quantize_rects(arena["grid"], rsoa, 2)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa
+    return (arena["qfine"], arena["qcoarse"], arena["esoa"], arena["ids"],
+            r16, r32, rsoa, i32(qs), i32(qe))
+
+
+def compare_prune(ks, fine, coarse, rsoa, qs, qe, where):
+    """Exact equality of the tile prune (K2) and its plain version."""
+    e = _diff(ks.ds.prune_tiles(fine, coarse, rsoa, qs, qe, device=DEVICE),
+              ks.ds.prune_tiles_torch(fine, coarse, rsoa, qs, qe))
+    if e:
+        raise AssertionError(f"prune_tiles kernel != plain version ({where})")
+    return e
+
+
+def slice_cases(ks, rng, dev, errs, cases):
+    """K1 (every mode; kcap below, at and above the true count, and at
+    nt for B <= 24 on the small arena and B = 8 on the large) and K2 on
+    SLICE_CASES, each bit for bit its plain version."""
+    for n_tiles, Bs, kinds in SLICE_CASES:
+        arena = slice_arena(rng, n_tiles, dev)
+        nt = arena["nt"]
+        for kind in kinds:
+            for B in Bs:
+                args = slice_batch(rng, arena, B, kind, dev)
+                _, cnt = ks.fs.fused_serve_torch(*args, mode="reach", kcap=1,
+                                                 nt=nt)
+                mx = int(cnt.max())
+                full = B <= (24 if n_tiles < ARENAS[0][0] else 8)
+                kcaps = sorted({max(1, mx // 2), max(mx, 1), mx + 3}
+                               | ({nt} if full else set()))
+                where = f"slices {kind} nt={nt} B={B}"
+                errs["fused_serve"] = max(errs["fused_serve"], compare_fused(
+                    ks, args, nt, kcaps, where))
+                errs["prune_tiles"] = max(errs["prune_tiles"], compare_prune(
+                    ks, arena["fine"], arena["coarse"], *args[6:], where))
+                cases.append({"slices": kind, "nt": nt, "B": B,
+                              "max_cnt": mx, "kcaps": kcaps})
 
 
 def polygon_arena(rng, n_tiles, B, ne, device):
@@ -691,6 +843,7 @@ def phase_kernels(ks):
                 errs["polygon_scan"] = max(errs["polygon_scan"], e)
                 cases.append({"polygon_nt": d["nt"], "B": B, "ne": ne,
                               "max_cnt": mx, "hits": hits})
+    slice_cases(ks, rng, dev, errs, cases)
     # the full-arena leaf scan: dims 2 and 3, ragged B, P = 0
     for n_tiles, n_trees in ((ARENAS[0][0], ARENAS[0][1]), (3, 2), (0, 1)):
         for dim in (2, 3):
@@ -772,6 +925,7 @@ def check_index(ks, name, g, idx, us, rects):
             f"expected {want} (one per batch plus ratchet re-runs)")
     if passes[1]["fused_reruns"]:
         raise AssertionError(f"{name}: capacity ratchet re-ran in steady state")
+    bad_ids = check_bad_ids(eng, g.n_nodes, us, rects, host_reach, name)
     sample = slice(0, BATCH)
     oracle = rangereach_oracle_batch(g, us[sample], rects[sample])
     if not (oracle == ans[0][sample]).all():
@@ -780,9 +934,31 @@ def check_index(ks, name, g, idx, us, rects):
            "n_tiles": eng.n_tiles, "launches": launches["fused_serve"],
            "qfine_bytes": int(eng._qfine.numel() * 2),
            "kcap": min(eng._kb_hwm, eng.n_tiles), "passes": passes,
-           "hit_rate": float(ans[0].mean()),
+           "hit_rate": float(ans[0].mean()), "bad_ids": bad_ids,
            "stats": {k: int(v) for k, v in eng.stats.items()}}
     return eng, (host_reach, host_cnt, host_ids), ans, rec
+
+
+def check_bad_ids(eng, n, us, rects, host_reach, name):
+    """A batch with a vertex id out of range (n, and -n - 1) raises
+    IndexError on the host, before a gather on the card could fire a
+    device-side assert; the same engine then answers the first batch as
+    the host index does."""
+    import torch
+
+    raised = []
+    for bad in (np.full(3, n), np.array([0, -n - 1, 1])):
+        try:
+            eng.query_batch(bad, rects[:3])
+        except IndexError as e:
+            raised.append(str(e))
+        else:
+            raise AssertionError(f"{name}: vertex ids {bad} were served")
+    torch.cuda.synchronize()
+    if not np.array_equal(eng.query_batch(us[:BATCH], rects[:BATCH]),
+                          host_reach[:BATCH]):
+        raise AssertionError(f"{name}: answers after a bad batch != host")
+    return raised
 
 
 def check_two_phase(ks, name, eng, us, rects, host, fused):
@@ -1450,10 +1626,30 @@ def bound(nbytes, int_cmp, f32_cmp, f32_fma=0, **terms):
              "byte_ms": byte_ms, "op_ms": op_ms, **terms})
 
 
+def span_planes(qs, qe, limit):
+    """The distinct leaf tiles (below ``limit``) and coarse groups inside
+    the batch's slice spans (``layout.slice_tile_spans``): the only part
+    of the pyramid planes a prune needs, since every other tile fails the
+    slice test of every query."""
+    from repro_torch.kernels.range_query.layout import (
+        COARSE_GROUP,
+        slice_tile_spans,
+    )
+
+    cover = np.zeros(limit, bool)
+    for iv in slice_tile_spans(qs.cpu().numpy(), qe.cpu().numpy(), limit):
+        for lo, hi in iv:
+            cover[lo:hi] = True
+    tiles = np.flatnonzero(cover)
+    return len(tiles), len(np.unique(tiles // COARSE_GROUP))
+
+
 def kernel_bound(fs, args, nt, kcap, mode):
-    """K1's least time on these inputs.  Bytes: the pyramid planes, the
-    distinct leaf tiles its worklists scan (2 KB each, +512 B of ids in
-    collect) and the query inputs read once, the outputs written once.
+    """K1's least time on these inputs.  Bytes: the pyramid planes within
+    the batch's slice spans (``span_planes``: 8 bytes of int16 codes per
+    leaf tile, 16 of int32 per coarse group), the distinct leaf tiles its
+    worklists scan (2 KB each, +512 B of ids in collect) and the query
+    inputs read once, the outputs written once.
     Operations: per query, 4 integer compares for each fine tile and for
     each coarse group that its arena slice [qs, qe) overlaps (the slice
     range itself costs O(1)), and 4 float32 compares for each entry of
@@ -1471,39 +1667,45 @@ def kernel_bound(fs, args, nt, kcap, mode):
     tiles, scanned, in_slice = scan_work(cand[:, :k], cnt, qs, qe, kcap)
     tile_b = 4 * TP * 4 + (TP * 4 if mode == "collect" else 0)
     out_b = B * kcap * TP * 4 if mode == "collect" else B * 4
-    fixed = (qf.numel() * 2 + qc.numel() * 4
+    fine_tiles, groups = span_planes(qs, qe, nt)
+    fixed = (fine_tiles * 4 * 2 + groups * 4 * 4
              + B * (4 * 2 + 4 * 4 + 4 * 4 + 4 + 4) + out_b + cnt.numel() * 4)
     int_cmp = 4 * int((slice_spans(qs, qe, TP)
                        + slice_spans(qs, qe, TP * COARSE_GROUP)).sum())
     whole = bound(fixed + tiles * tile_b, int_cmp, 4 * in_slice,
                   distinct_tiles=tiles, scanned_tiles=scanned,
-                  scanned_entries=in_slice)
+                  scanned_entries=in_slice, span_fine_tiles=fine_tiles,
+                  span_coarse_groups=groups)
     if mode != "reach":
         return whole
     tiles, needed, hits = reach_work(cand[:, :k], cnt, ent, rsoa, qs, qe)
     bms, by, work = bound(fixed + tiles * tile_b, int_cmp, 4 * needed,
                           distinct_tiles=tiles, scanned_tiles=scanned,
                           scanned_entries=in_slice, needed_entries=needed,
-                          queries_with_hit=hits)
+                          queries_with_hit=hits, span_fine_tiles=fine_tiles,
+                          span_coarse_groups=groups)
     return bms, by, dict(work, whole_worklists={"bound_ms": whole[0],
                                                 "bound_by": whole[1]})
 
 
 def prune_bound(fine, coarse, rsoa, qs, qe):
     """K2's least time on these inputs.  Bytes: the float32 fine and
-    coarse planes and the query inputs read once, the int32 mask
-    written once.  Operations: per query, 4 float32 compares for each
-    fine tile and each coarse group its slice overlaps (no other tile
-    can pass the slice test)."""
+    coarse planes within the batch's slice spans (``span_planes``: 16
+    bytes per leaf tile and per coarse group) and the query inputs read
+    once, the whole int32 mask written once.  Operations: per query, 4
+    float32 compares for each fine tile and each coarse group its slice
+    overlaps (no other tile can pass the slice test)."""
     from repro_torch.kernels.range_query.layout import COARSE_GROUP, TB, TP
 
     B = rsoa.shape[1]
     ntp = fine.shape[1]
     mask_b = (B // TB) * ntp * 4
-    nbytes = fine.numel() * 4 + coarse.numel() * 4 + B * (16 + 8) + mask_b
+    fine_tiles, groups = span_planes(qs, qe, ntp)
+    nbytes = fine_tiles * 16 + groups * 16 + B * (16 + 8) + mask_b
     f32_cmp = 4 * int((slice_spans(qs, qe, TP)
                        + slice_spans(qs, qe, TP * COARSE_GROUP)).sum())
-    return bound(nbytes, 0, f32_cmp, mask_bytes=mask_b)
+    return bound(nbytes, 0, f32_cmp, mask_bytes=mask_b,
+                 span_fine_tiles=fine_tiles, span_coarse_groups=groups)
 
 
 def scan_bound(ck, cnt, esoa, rsoa, qs, qe, mode):
@@ -1551,10 +1753,21 @@ def e2e_us(eng, us, rects, mode, two_phase=False):
     return (time.perf_counter() - t0) / (3 * len(us)) * 1e6
 
 
-def phase_timing(ks, engines, card):
-    fs, ds = ks.fs, ks.ds
-    name = next(iter(engines))           # the first main-path index
-    eng, us, rects = engines[name]
+def launch_floor_ms():
+    """The launch floor: the profiler's device time of a one-element
+    ``add_``, timed as the kernels are."""
+    import torch
+
+    x = torch.zeros(1, device=DEVICE)
+    return device_ms(lambda: x.add_(1), 50, "launch floor (add_, 1 element)")
+
+
+def time_fused(ks, eng, us, rects, label, e2e=True):
+    """K1 on the engine's first main-path batch at its steady capacity,
+    every mode: device ms, plain ms (the profiler; CUDA events beside
+    them), the bound from these inputs and, with ``e2e``, end-to-end µs
+    per query."""
+    fs = ks.fs
     _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
     args = tuple(a.clone() for a in args)
     kcap = min(eng._kb_hwm, eng.n_tiles)
@@ -1565,19 +1778,35 @@ def phase_timing(ks, engines, card):
             *args, mode=mode, kcap=kcap, nt=nt, device=DEVICE)
         plain = lambda: fs.fused_serve_torch(               # noqa: E731
             *args, mode=mode, kcap=kcap, nt=nt)
-        k_dev = device_ms(kern, 50, f"fused_serve ({mode})")
-        p_dev = device_ms(plain, 10, f"fused_serve_torch ({mode})")
+        k_dev = device_ms(kern, 50, f"fused_serve ({label} {mode})")
+        p_dev = device_ms(plain, 10, f"fused_serve_torch ({label} {mode})")
         k_ev, p_ev = event_ms(kern, 50), event_ms(plain, 10)
         bms, by, work = kernel_bound(fs, args, nt, kcap, mode)
-        batches0, launches0 = eng.stats["batches"], fs.fused_serve.launches
-        e2e = e2e_us(eng, us, rects, mode)
-        per_batch = ((fs.fused_serve.launches - launches0)
-                     / (eng.stats["batches"] - batches0))
         per_mode[mode] = {
             "ms": k_dev, "plain_ms": p_dev,
             "event_ms": k_ev, "plain_event_ms": p_ev,
-            "bound_ms": bms, "bound_by": by, "e2e_us_per_query": e2e,
-            "launches_per_batch": per_batch, **work}
+            "bound_ms": bms, "bound_by": by, "kcap": kcap, **work}
+        if e2e:
+            batches0, launches0 = eng.stats["batches"], fs.fused_serve.launches
+            per_mode[mode]["e2e_us_per_query"] = e2e_us(eng, us, rects, mode)
+            per_mode[mode]["launches_per_batch"] = (
+                (fs.fused_serve.launches - launches0)
+                / (eng.stats["batches"] - batches0))
+    return per_mode, args, kcap
+
+
+def phase_timing(ks, engines, card):
+    from repro_torch.kernels._build import sm_count
+
+    fs, ds = ks.fs, ks.ds
+    name = next(iter(engines))           # the first main-path index
+    eng, us, rects = engines[name]
+    floor = launch_floor_ms()
+    per_mode, args, kcap = time_fused(ks, eng, us, rects, name)
+    nt = eng.n_tiles
+    # the same on the largest index's first batch (yelp x0.5 base)
+    big, (beng, bus, brects) = list(engines.items())[-1]
+    per_mode_big, _, bkcap = time_fused(ks, beng, bus, brects, big, e2e=False)
 
     # the two-phase kernels on the same batch, at the steady K
     arena = arena_of(eng)
@@ -1611,7 +1840,6 @@ def phase_timing(ks, engines, card):
                                                 two_phase=True)
     # the prune's mask write grows with the arena: the same on the
     # largest index's first batch
-    big, (beng, bus, brects) = list(engines.items())[-1]
     _, _, bargs = beng._prepare(bus[:BATCH], brects[:BATCH])
     bprune = (beng._arena.fine, beng._arena.coarse,
               *(a.clone() for a in bargs[6:]))
@@ -1622,7 +1850,12 @@ def phase_timing(ks, engines, card):
                         f"prune_tiles ({big})"),
         "bound_ms": bms, "bound_by": by, **work}
     emit("timing", index=name, B=BATCH, kcap=kcap, K=K, n_tiles=nt,
-         blocks=BATCH // 8, card=card, per_mode=per_mode, two_phase=two,
+         query_tiles=BATCH // 8,
+         fused_cluster=fs.cluster_size(BATCH // 8, sm_count(DEVICE)),
+         card=card, launch_floor_ms=floor, per_mode=per_mode,
+         largest_index={"index": big, "n_tiles": beng.n_tiles,
+                        "kcap": bkcap, "per_mode": per_mode_big},
+         two_phase=two,
          e2e_us_per_query={m: {"fused": per_mode[m]["e2e_us_per_query"],
                                "two_phase": two[SCANS[m]]["e2e_us_per_query"]}
                            for m in MODES})
@@ -1631,7 +1864,7 @@ def phase_timing(ks, engines, card):
             ("two_phase", eng.query_batch_two_phase, two["descent_scan"])):
         phase_profile(query, us, rects, mode_rec["e2e_us_per_query"], path,
                       "reach")
-    return per_mode, two
+    return per_mode, two, floor
 
 
 def phase_timing_slice3(ks, engines, indexes, largest, card):
@@ -2062,6 +2295,31 @@ def segment_bag_timing(sb, ops, offsets_np, B):
             "bound_ms": bms, "bound_by": by, **work}
 
 
+def din_setup():
+    """DIN at its published widths (configs.din.make_config()) with
+    float32 products in full precision (no TF32): the config, the
+    parameters from a torch.Generator seed on the card and on the CPU,
+    and one ``din_batches`` batch per serve shape."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import din_batches
+    from repro_torch.models.recsys import din
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_arch("din").make_config()
+    params = din.init_params(torch.Generator().manual_seed(0), cfg)
+    cpu_params = din.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    batches = {shape: next(din_batches(
+        cfg.n_items, cfg.n_cates, cfg.seq_len,
+        RECSYS_SHAPES[shape]["batch"], seed=seed))
+        for seed, shape in enumerate(("serve_p99", "serve_bulk"))}
+    return cfg, params, cpu_params, batches
+
+
 def phase_recsys(ks, card):
     """DIN at its published widths (configs.din.make_config()) on the
     card, parameters from a torch.Generator seed, batches from
@@ -2072,27 +2330,13 @@ def phase_recsys(ks, card):
     bags.  float32 products in full precision (no TF32)."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import RECSYS_SHAPES
-    from repro_torch.data import din_batches
     from repro_torch.models.nn import count_params, param_bytes
-    from repro_torch.models.recsys import din
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     t0 = time.perf_counter()
     spec = get_arch("din")
-    cfg = spec.make_config()
-    params = din.init_params(torch.Generator().manual_seed(0), cfg)
-    cpu_params = din.init_params(torch.Generator().manual_seed(0), cfg,
-                                 device="cpu")
-    shapes, batches = [], {}
-    for seed, shape in enumerate(("serve_p99", "serve_bulk")):
-        batches[shape] = next(din_batches(
-            cfg.n_items, cfg.n_cates, cfg.seq_len,
-            RECSYS_SHAPES[shape]["batch"], seed=seed))
-        shapes.append(serve_shape(ks, shape, params, cpu_params, cfg,
-                                  batches[shape]))
+    cfg, params, cpu_params, batches = din_setup()
+    shapes = [serve_shape(ks, shape, params, cpu_params, cfg, batch)
+              for shape, batch in batches.items()]
     shapes.append(retrieval_shape(ks, params, cpu_params, cfg))
     bags, per_path, err, timed = [], {}, 0.0, {}
     table = params["item_emb"]["emb"]
@@ -2112,6 +2356,60 @@ def phase_recsys(ks, card):
          segment_bag=timed, tf32=torch.backends.cuda.matmul.allow_tf32,
          seconds=round(time.perf_counter() - t0, 3))
     return per_path, err, timed["serve_bulk"]
+
+
+# --------------------------------------------------------------------------
+# Two checkouts in turns
+# --------------------------------------------------------------------------
+
+def phase_ab(ks, card, src):
+    """``--ab SRC``: K1 in every mode and K2 on the first main-path
+    batch of yelp x1.0 2dreach-comp and yelp x0.5 2dreach at their
+    steady capacity, DIN's serve shapes end to end (``serve_shape``) and
+    the history's item embedding (``din._embed_items``) alone, with the
+    ``repro_torch`` package under ``src``.  The inputs are made
+    the same way by any checkout of the port, so two checkouts can be
+    timed in turns on one card (parent, change, change, parent)."""
+    from repro_torch.core import QueryEngine, build_index
+    from repro_torch.data import get_dataset, workload
+
+    fused, prune, kcaps = {}, {}, {}
+    for ds, scale, method in (CONFIGS[0], CONFIGS[-1]):
+        name = f"{ds}x{scale} {method}"
+        g = get_dataset(ds, scale=scale)
+        us, rects = workload(g, N_QUERIES, extent_ratio=0.05)
+        eng = QueryEngine(build_index(g, method))
+        serve_all(eng, us, rects)              # to the steady capacity
+        _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
+        args = tuple(a.clone() for a in args)
+        kcap = kcaps[name] = min(eng._kb_hwm, eng.n_tiles)
+        nt = eng.n_tiles
+        fused[name] = {}
+        for mode in MODES:
+            fused[name][mode] = device_ms(
+                lambda: ks.fs.fused_serve(*args, mode=mode, kcap=kcap, nt=nt,
+                                          device=DEVICE),
+                50, f"fused_serve ({name} {mode})")
+        pargs = (eng._arena.fine, eng._arena.coarse, *args[6:])
+        prune[name] = device_ms(
+            lambda: ks.ds.prune_tiles(*pargs, device=DEVICE), 50,
+            f"prune_tiles ({name})")
+    import torch
+    from repro_torch.models.recsys import din
+
+    cfg, params, cpu_params, batches = din_setup()
+    serve = {}
+    for shape, batch in batches.items():
+        rec = serve_shape(ks, shape, params, cpu_params, cfg, batch)
+        serve[shape] = {k: rec[k] for k in ("e2e_us_per_batch",
+                                            "device_busy_us_per_batch",
+                                            "device_top", "max_abs_err")}
+        items = torch.as_tensor(batch["hist_items"], device=DEVICE)
+        serve[shape]["embed_history_ms"] = device_ms(
+            lambda: din._embed_items(params, items, cfg), 5,
+            f"_embed_items ({shape} history)")
+    emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
+         prune_tiles=prune, din=serve, timers=TIMERS)
 
 
 # --------------------------------------------------------------------------
@@ -2138,6 +2436,11 @@ def phase_build(_build):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", metavar="SRC",
+                    help="time K1, K2 and DIN's serving with the package "
+                         "under SRC only (phase_ab)")
+    a = ap.parse_args()
     try:
         import torch
     except ImportError as e:
@@ -2147,8 +2450,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs on a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "src"))
+    sys.path.insert(0, os.path.abspath(a.ab) if a.ab else os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
     try:
         from repro_torch.kernels import _build
     except ImportError as e:
@@ -2159,6 +2462,9 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    if a.ab:
+        phase_ab(ks, card, a.ab)
+        return 0
     import scipy
 
     emit("device", card=card, torch=torch.__version__,
@@ -2179,7 +2485,7 @@ def main() -> int:
                  *phase_main_batches(ks, engines, ls_ops).items()):
         errs[k] = max(errs[k], v)
 
-    per_mode, two = phase_timing(ks, engines, card)
+    per_mode, two, floor = phase_timing(ks, engines, card)
     slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest, card)
     for k, v in errs3.items():
         errs[k] = max(errs[k], v)
@@ -2221,7 +2527,9 @@ def main() -> int:
         "max_abs_err": errs[k], "tolerance": TOLERANCE[k],
         "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
         "bound_ms": timed[k]["bound_ms"], "bound_by": timed[k]["bound_by"],
-        "library_ms": timed[k].get("library_ms")} for k in KERNELS]}),
+        "library_ms": timed[k].get("library_ms"),
+        **({"launch_floor_ms": floor} if k in SERVING else {})}
+        for k in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

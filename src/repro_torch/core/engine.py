@@ -191,6 +191,17 @@ class TileArena:
                    entry_off=off, n_tiles=nt)
 
 
+def check_vertex_ids(us: np.ndarray, n_nodes: int) -> None:
+    """Raise ``IndexError`` for a vertex id outside ``[-n_nodes,
+    n_nodes)``, as the host index's NumPy gathers do."""
+    us = np.asarray(us, dtype=np.int64)
+    bad = (us >= n_nodes) | (us < -n_nodes)
+    if bad.any():
+        u = int(us[bad][0])
+        raise IndexError(f"vertex id {u} is out of bounds for a graph of "
+                         f"{n_nodes} vertices")
+
+
 class DevicePadder:
     """Batch padding to the power-of-two bucket on the device.
 
@@ -349,12 +360,21 @@ class QueryEngine:
             inr &= pts[:, a] <= rsoa[self.dim + a]
         return exc & inr
 
+    def _pad(self, us: np.ndarray, rects: np.ndarray):
+        """Check the batch's vertex ids on the host, then pad it onto the
+        device (:meth:`DevicePadder.pad`).  An id outside ``[-n, n)``
+        raises ``IndexError`` before anything is uploaded: gathered on
+        the card it would fire a device-side assert and leave the CUDA
+        context unusable.  Ids in ``[-n, 0)`` wrap, as NumPy's do."""
+        check_vertex_ids(us, len(self._excluded_host))
+        return self._padder.pad(us, rects)
+
     def _prepare(self, us: np.ndarray, rects: np.ndarray):
         """Pad, route and quantize one batch.  Returns ``(Bb, forced,
         args)`` (see :meth:`_serve_args`; the rect and slice tensors live
         in the padder's per-bucket buffers until the next batch of the
         same bucket)."""
-        Bb, us_dev, rsoa = self._padder.pad(us, rects)
+        Bb, us_dev, rsoa = self._pad(us, rects)
         forced, args = self._serve_args(rsoa, *self._route(us_dev))
         return Bb, forced, args
 
@@ -397,7 +417,7 @@ class QueryEngine:
         truncates.  Returns ``(Bb, rsoa, forced, qs, qe, cand_k)`` with
         ``cand_k`` the first ``_kb_hwm`` candidate columns."""
         B = len(us)
-        Bb, us_dev, rsoa = self._padder.pad(us, rects)
+        Bb, us_dev, rsoa = self._pad(us, rects)
         qs, qe, pts, exc = self._route(us_dev)
         mask = prune_tiles(self._arena.fine, self._arena.coarse, rsoa, qs,
                            qe, dim=self.dim, device=self.device)

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``SOURCES`` compiles on first use into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, the hash
-taken over the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  A failed build raises with the compiler's
+taken over the source, the ``.cuh`` headers of its directory (which it
+may include) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once.  A failed build raises with the compiler's
 output; nothing falls back.
 """
 
@@ -57,6 +58,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = _KERNELS / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -101,6 +105,18 @@ def call(name: str, fn: str, argtypes, device: torch.device, *args) -> None:
         err = f(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary: what a
+    kernel's vector loads and ``cp.async`` copies assume."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must start on a {nbytes}-byte boundary")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,

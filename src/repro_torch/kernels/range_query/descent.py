@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor
+from .._build import call, check_aligned, check_tensor, sm_count
 from .layout import COARSE_GROUP, TB, TP, TPT
 
 _PTR = ctypes.c_void_p
@@ -132,6 +132,20 @@ def check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend, dim: int,
     return B, P, K
 
 
+PRUNE_THREADS = 256   # K2's block: 4 leaf tiles per thread and step
+PRUNE_QUAD = 4
+PRUNE_BLOCKS_PER_SM = 4   # resident at K2's register budget
+
+
+def prune_stripes(n_query_tiles: int, ntp: int, n_sms: int) -> int:
+    """Blocks per query tile's mask row in K2's grid: as many as keep the
+    grid to one wave (``PRUNE_BLOCKS_PER_SM`` on every multiprocessor),
+    at least one, and no more than give each thread one step."""
+    steps = -(-(ntp // PRUNE_QUAD) // PRUNE_THREADS)
+    wave = PRUNE_BLOCKS_PER_SM * n_sms // n_query_tiles
+    return max(1, min(steps, wave, 65535))
+
+
 def prune_tiles(
     fine_soa: torch.Tensor,     # (2*dim, NTp) float32, NTp % TPT == 0
     coarse_soa: torch.Tensor,   # (2*dim, NTp // COARSE_GROUP) float32
@@ -161,7 +175,7 @@ def prune_tiles(
     if ntp % TPT or ntp == 0 or B % TB or B == 0:
         raise ValueError(f"NTp={ntp} must be a positive multiple of {TPT}, "
                          f"B={B} a positive multiple of {TB}")
-    if ntp * TP >= 2 ** 31 or nb * (ntp // TPT) >= 2 ** 31:
+    if ntp * TP >= 2 ** 31 or nb >= 2 ** 31:
         raise ValueError(f"NTp={ntp}, B={B} out of range: the slice test "
                          f"g*{TP} and the grid must stay int32")
     check_tensor("fine_soa", fine_soa, torch.float32, (4, ntp), dev)
@@ -170,11 +184,12 @@ def prune_tiles(
     check_tensor("rects_soa", rects_soa, torch.float32, (4, B), dev)
     check_tensor("qstart", qstart, torch.int32, (B,), dev)
     check_tensor("qend", qend, torch.int32, (B,), dev)
+    check_aligned("fine_soa", fine_soa)
     mask = torch.empty((nb, ntp), dtype=torch.int32, device=fine_soa.device)
-    call("prune_tiles", "prune_tiles_launch", [_PTR] * 6 + [_INT] * 2,
+    call("prune_tiles", "prune_tiles_launch", [_PTR] * 6 + [_INT] * 3,
          mask.device, fine_soa.data_ptr(), coarse_soa.data_ptr(),
          rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
-         mask.data_ptr(), ntp, B)
+         mask.data_ptr(), ntp, B, prune_stripes(nb, ntp, sm_count(dev)))
     prune_tiles.launches += 1
     return mask
 

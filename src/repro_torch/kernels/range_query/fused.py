@@ -14,10 +14,11 @@ RangeCollect (``"collect"``):
   (±inf) bounds map to reserved sentinel codes that fail both halves of
   the intersect test.
 * :func:`fused_serve` — the wrapper.  For CUDA tensors it launches the
-  hand-written kernel ``csrc/fused_serve.cu`` (one block per 8-query
-  tile: prune, ballot compaction into an ascending worklist, exact scan
-  of at most ``kcap`` tiles); for CPU tensors it runs
-  :func:`fused_serve_torch`.
+  hand-written kernel ``csrc/fused_serve.cu`` (a cluster of
+  :func:`cluster_size` blocks per 8-query tile: prune of the leaf tiles
+  its slices can reach, ballot compaction into an ascending worklist,
+  exact scan of at most ``kcap`` tiles split over the cluster); for CPU
+  tensors it runs :func:`fused_serve_torch`.
 * :func:`fused_serve_torch` — the plain PyTorch version (a port of
   ``fused_serve_xla``): dense quantized prune, ascending compaction,
   gathered leaf-tile scan.  The kernel is held against it bit for bit.
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor
+from .._build import call, check_aligned, check_tensor, sm_count
 from .descent import take_candidates, tile_hits
 from .layout import COARSE_GROUP, ID_SENTINEL, TB, TP
 
@@ -214,7 +215,19 @@ def fused_serve_torch(
 # --------------------------------------------------------------------------
 
 _MODE_CODE = {"reach": 0, "count": 1, "collect": 2}
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+MAX_CLUSTER = 8
+
+
+def cluster_size(n_query_tiles: int, n_sms: int) -> int:
+    """Blocks per query tile in K1's thread block cluster: the least of
+    1, 2, 4, 8 whose clusters cover the ``n_sms`` multiprocessors (8 at
+    most), so a small batch still fills the card and a large one keeps
+    one block per query tile."""
+    c = 1
+    while c < MAX_CLUSTER and n_query_tiles * c < n_sms:
+        c *= 2
+    return c
 
 
 def fused_serve(
@@ -278,19 +291,20 @@ def fused_serve(
     check_tensor("rects_soa", rects_soa, torch.float32, (4, B), dev)
     check_tensor("qstart", qstart, torch.int32, (B,), dev)
     check_tensor("qend", qend, torch.int32, (B,), dev)
+    check_aligned("entries_soa", entries_soa)     # cp.async, 16 bytes
+    check_aligned("ids_soa", ids_soa)
 
     nb = B // TB
     dev = entries_soa.device
     shape = (B, kcap * TP) if mode == "collect" else (B,)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     cnt = torch.empty(nb, dtype=torch.int32, device=dev)
-    worklist = torch.empty((nb, kcap), dtype=torch.int32, device=dev)
     call("fused_serve", "fused_serve_launch", _ARGS, dev, _MODE_CODE[mode],
          qfine.data_ptr(), qcoarse.data_ptr(), entries_soa.data_ptr(),
          ids_soa.data_ptr(), r16.data_ptr(), r32.data_ptr(),
          rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
-         out.data_ptr(), cnt.data_ptr(), worklist.data_ptr(), ntp, nt, P, B,
-         kcap)
+         out.data_ptr(), cnt.data_ptr(), ntp, nt, P, B, kcap,
+         cluster_size(nb, sm_count(dev)))
     fused_serve.launches += 1
     return out, cnt
 

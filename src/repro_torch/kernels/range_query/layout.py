@@ -94,6 +94,43 @@ def forest_planes(forest, device: torch.device
     return planes
 
 
+def slice_tile_span(qs: int, qe: int, limit: int) -> Tuple[int, int]:
+    """The leaf tiles ``[lo, hi)`` whose entries ``[g*TP, g*TP + TP)``
+    can overlap the arena slice ``[qs, qe)``, read off the prune's own
+    test ``g*TP < qe and g*TP + TP > qs`` and clipped to ``[0, limit)``.
+    A slice with ``qs == qe`` inside a tile still passes that test for
+    the tile, and ``qs = qe = 0`` passes it for none."""
+    lo = max(qs // TP, 0)
+    hi = min(-(-qe // TP), limit) if qe > 0 else 0
+    return lo, max(hi, lo)
+
+
+def slice_tile_spans(qstart, qend, nt: int) -> list:
+    """Per query tile of ``TB`` queries, the union of its queries'
+    :func:`slice_tile_span` as disjoint ascending ``[lo, hi)`` intervals,
+    overlapping and touching spans merged: an ``(n, 2)`` int64 array per
+    query tile, ``n <= TB``.  Every leaf tile outside a query tile's
+    intervals fails the slice test for all of its queries.  The plain
+    rule that ``csrc/slice_span.cuh`` computes inside the prune kernels;
+    nothing on the serving path calls it."""
+    qs = np.asarray(qstart, np.int64).reshape(-1, TB)
+    qe = np.asarray(qend, np.int64).reshape(-1, TB)
+    out = []
+    for row_s, row_e in zip(qs, qe):
+        spans = sorted(slice_tile_span(int(a), int(b), nt)
+                       for a, b in zip(row_s, row_e))
+        merged = []
+        for lo, hi in spans:
+            if lo >= hi:
+                continue
+            if merged and lo <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        out.append(np.asarray(merged, np.int64).reshape(-1, 2))
+    return out
+
+
 def build_tile_pyramid(
     entries_soa: np.ndarray, dim: int
 ) -> Tuple[np.ndarray, np.ndarray, int]:

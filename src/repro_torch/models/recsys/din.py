@@ -72,9 +72,18 @@ def param_shapes(cfg: DINConfig) -> Params:
 
 
 def _embed_items(params: Params, items: torch.Tensor, cfg: DINConfig):
-    """(..., ) item ids -> (..., 2*embed_dim) item||category embedding."""
+    """(..., ) item ids -> (..., 2*embed_dim) item||category embedding.
+
+    An item id outside ``[-V, V)`` embeds as NaN, as the reference's
+    ``jnp.take`` fills it; ids in range wrap.  The ids are clamped, and
+    the gathered rows of those that moved filled in place, on the device,
+    so a bad id neither syncs with the host nor fires a device-side
+    assert."""
     cates = items % cfg.n_cates
-    ie = params["item_emb"]["emb"][items]
+    emb = params["item_emb"]["emb"]
+    V = emb.shape[0]
+    safe = items.clamp(-V, V - 1)
+    ie = emb[safe].masked_fill_((safe != items)[..., None], float("nan"))
     ce = params["cate_emb"]["emb"][cates]
     return torch.cat([ie, ce], dim=-1)
 

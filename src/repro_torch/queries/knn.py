@@ -52,7 +52,7 @@ def _fused_count(engine, us_sub: np.ndarray, rects: np.ndarray,
     first round, ratchet-and-rerun on capacity overflow (the engine's
     monotone high-water mark)."""
     n = len(us_sub)
-    _, us_dev, rsoa = engine._padder.pad(us_sub, rects)
+    _, us_dev, rsoa = engine._pad(us_sub, rects)
     routing = state.get("routing")
     if routing is None:
         routing = state["routing"] = engine._route(us_dev)

@@ -5,7 +5,10 @@ EmbeddingBag) against its plain PyTorch version, the wrappers' input
 checks, the engine on the card (both paths, polygons) against the
 engine on the CPU, the device build on the card against the host build,
 the leaf-scan and wavefront engines on the card against the host
-descent, the boolean sweep closure on the card against its CPU run, and
+descent, the two pyramid prunes (K1, K2) on slices of every kind
+(disjoint, nested, degenerate, one over the whole arena) at B = 8 to
+2048 and on the yelp x0.5 base arena's 77,440 tiles, an out-of-range
+vertex id that must leave the card usable, the boolean sweep closure on the card against its CPU run, and
 DIN (apply, score_candidates) on the card against its CPU run.  Every
 test needs a CUDA device and skips where there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
@@ -168,6 +171,155 @@ def test_prune_kernel_matches_plain(cuda, B):
     assert D.prune_tiles.launches == launches + 1
     assert torch.equal(got, D.prune_tiles_torch(*args))
     assert got.any()
+
+
+# slice kinds of the pyramid-prune cases (K1, K2): per query tile, 8
+# disjoint slices; nested and overlapping ones; degenerate ones (qs == qe
+# inside a tile and on a tile edge, [0, 0)) beside one short slice; one
+# slice over the whole arena beside random ones
+SLICE_KINDS = ("disjoint", "nested", "degenerate", "whole")
+
+
+def _slices(rng, P, B, kind):
+    qs, qe = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for q0 in range(0, B, TB):
+        s = slice(q0, q0 + TB)
+        if kind == "disjoint":
+            cuts = np.sort(rng.choice(P + 1, 2 * TB, replace=False))
+            qs[s], qe[s] = cuts[0::2], cuts[1::2]
+        elif kind == "nested":
+            c = int(rng.integers(0, P))
+            w = np.sort(rng.integers(1, max(2, P // 8), TB))[::-1]
+            qs[s], qe[s] = np.clip(c - w, 0, P), np.clip(c + w, 0, P)
+            qs[q0 + 6] = min(c + w[2] // 2, P)    # overlapping, not nested
+            qe[q0 + 6] = min(c + 2 * w[0], P)
+        elif kind == "degenerate":
+            a = rng.integers(0, P, TB)
+            a[:2] = a[:2] // TP * TP              # on a tile edge
+            a[2] = 0
+            qs[s], qe[s] = a, a
+            qe[q0 + 3] = min(a[3] + 50, P)        # one short real slice
+        else:
+            a = np.sort(rng.integers(0, P + 1, (TB, 2)), axis=1)
+            qs[s], qe[s] = a[:, 0], a[:, 1]
+            qs[q0], qe[q0] = 0, P
+    return qs, qe
+
+
+def slice_case(seed, n_tiles, B, kind, device):
+    """K1's and K2's inputs on ``device`` for slices of one kind: points
+    sorted along x (leaf tiles are x-bands), rects about 0.5-40 tiles
+    wide around an entry of the query's slice (anywhere for an empty
+    one) and tall, so the candidate counts stay moderate.  Returns ``(nt,
+    fused serve args, float32 fine plane, float32 coarse plane)``."""
+    rng = np.random.default_rng(seed)
+    P = n_tiles * TP - 37
+    pts = rng.uniform(0, 100, (P, 2)).astype(np.float32)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    esoa = np.empty((4, n_tiles * TP), np.float32)
+    esoa[:2], esoa[2:] = 1.0, 0.0
+    esoa[:2, :P] = esoa[2:, :P] = pts.T
+    ids = np.full((1, n_tiles * TP), np.iinfo(np.int32).max, np.int32)
+    ids[0, :P] = rng.permutation(P)
+    fine, coarse, nt = build_tile_pyramid(esoa, 2)
+    qs, qe = _slices(rng, P, B, kind)
+    live = qe > qs
+    pick = rng.integers(0, P, B)
+    pick[live] = rng.integers(qs[live], qe[live])
+    c = pts[pick].astype(np.float64)
+    half = np.stack([rng.uniform(0.25, 20, B) * 100 / n_tiles,
+                     rng.uniform(2, 25, B)], 1)
+    rsoa = np.ascontiguousarray(
+        np.concatenate([c - half, c + half], 1).T.astype(np.float32))
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa
+    grid = F.make_quant_grid(np.concatenate([pts.min(0), pts.max(0)]
+                                            ).astype(np.float64), 2, device)
+    r16, r32 = F.quantize_rects(grid, T(rsoa), 2)
+    args = (F.quantize_fine(grid, T(fine), 2),
+            F.quantize_coarse(grid, T(coarse), 2), T(esoa), T(ids), r16, r32,
+            T(rsoa), T(qs.astype(np.int32)), T(qe.astype(np.int32)))
+    return nt, args, T(fine), T(coarse)
+
+
+def _check_prunes(nt, args, fine, coarse, full_kcap):
+    """K1 in every mode at kcap below, at and above the true count (and
+    at nt where ``full_kcap``) and K2, each bit for bit its plain
+    version; returns the largest true count."""
+    _, cnt = F.fused_serve_torch(*args, mode="reach", kcap=1, nt=nt)
+    mx = int(cnt.max())
+    kcaps = {max(1, mx // 2), max(mx, 1), mx + 3} | ({nt} if full_kcap
+                                                     else set())
+    for mode in F.MODES:
+        for kcap in sorted(kcaps):
+            launches = F.fused_serve.launches
+            got = F.fused_serve(*args, mode=mode, kcap=kcap, nt=nt)
+            want = F.fused_serve_torch(*args, mode=mode, kcap=kcap, nt=nt)
+            assert F.fused_serve.launches == launches + 1
+            assert torch.equal(got[1], want[1]), (mode, kcap)
+            assert torch.equal(got[0], want[0]), (mode, kcap)
+    rsoa, qs, qe = args[6:]
+    launches = D.prune_tiles.launches
+    got = D.prune_tiles(fine, coarse, rsoa, qs, qe)
+    assert D.prune_tiles.launches == launches + 1
+    assert torch.equal(got, D.prune_tiles_torch(fine, coarse, rsoa, qs, qe))
+    return mx
+
+
+@pytest.mark.parametrize("B", [TB, 3 * TB, 32 * TB, 256 * TB])
+@pytest.mark.parametrize("kind", SLICE_KINDS)
+def test_prune_kernels_on_slice_kinds(cuda, kind, B):
+    nt, args, fine, coarse = slice_case(B, 3000, B, kind, cuda)
+    mx = _check_prunes(nt, args, fine, coarse, full_kcap=B <= 3 * TB)
+    assert kind == "degenerate" or mx >= 2
+
+
+@pytest.mark.parametrize("B", [TB, 32 * TB])
+@pytest.mark.parametrize("kind", ["disjoint", "whole"])
+def test_prune_kernels_on_the_half_base_arena(cuda, kind, B):
+    """NTp = 77,440, the yelp x0.5 2dreach arena's padded tile count."""
+    nt, args, fine, coarse = slice_case(B + 1, 77390, B, kind, cuda)
+    assert fine.shape[1] == 77440
+    assert _check_prunes(nt, args, fine, coarse, full_kcap=B == TB) >= 2
+
+
+def test_prune_wrappers_reject_misaligned_planes(cuda):
+    """K1 copies the arena with 16-byte cp.async and K2 loads the fine
+    plane as float4: a tensor whose data starts off a 16-byte boundary
+    raises before any launch."""
+    nt, args, fine, coarse = slice_case(0, 4, TB, "disjoint", cuda)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    bad = list(args)
+    bad[2] = shifted(args[2])
+    launches = F.fused_serve.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        F.fused_serve(*bad, mode="reach", kcap=2, nt=nt)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        D.prune_tiles(shifted(fine), coarse, *args[6:])
+    assert F.fused_serve.launches == launches
+
+
+@pytest.mark.parametrize("path", ["fused", "two_phase"])
+def test_bad_vertex_ids_leave_the_card_usable(cuda, path):
+    """An out-of-range vertex id raises IndexError on the host, before a
+    gather on the card could fire a device-side assert; the same engine
+    then serves a good batch equal to the host's."""
+    g = get_dataset("yelp", scale=0.05)
+    idx = build_index(g, "2dreach-comp")
+    eng = QueryEngine(idx, path=path)
+    us, rects = workload(g, 64, extent_ratio=0.05, seed=3)
+    for bad in (np.full(3, g.n_nodes), np.array([0, -g.n_nodes - 1, 1])):
+        with pytest.raises(IndexError, match="out of bounds"):
+            eng.query_batch(bad, rects[:3])
+    torch.cuda.synchronize()
+    assert np.array_equal(eng.query_batch(us, rects), idx.query_batch(us, rects))
+    cpu = QueryEngine(idx, device="cpu", path=path)
+    assert np.array_equal(eng.count_batch(us, rects),
+                          cpu.count_batch(us, rects))
 
 
 @pytest.mark.parametrize("B", [TB, 3 * TB, 32 * TB])

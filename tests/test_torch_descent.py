@@ -24,7 +24,7 @@ from repro.kernels.range_query import descent as RD
 from repro_torch.kernels.range_query import descent as D
 from repro_torch.kernels.range_query import fused as F
 from repro_torch.kernels.range_query.layout import TB, TP, build_tile_pyramid
-from test_torch_fused import _inputs, _t
+from test_torch_fused import _inputs, _quantized, _t
 
 
 def scan_inputs(seed, B, P=40 * TP + 7):
@@ -169,3 +169,92 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert torch.equal(D.descent_scan(*sargs, device="cpu"),
                        D.descent_scan_torch(*sargs))
     assert (D.prune_tiles.launches, D.descent_scan.launches) == before
+
+
+# the slice rule (layout.slice_tile_spans, mirrored by csrc/slice_span.cuh):
+# per case, the TB slices [qs, qe) of one query tile over an arena of
+# P = 40 * TP + 7 entries (nt = 41 leaf tiles, NTp = 128)
+SPAN_P = 40 * TP + 7
+SPAN_NT = -(-SPAN_P // TP)
+SPAN_CASES = {
+    # qs == qe inside a tile still passes that tile; on a tile edge none
+    "degenerate": [(5, 5), (130, 130), (256, 256), (600, 600),
+                   (1000, 1000), (3, 3), (129, 129), (5000, 5000)],
+    "empty": [(0, 0)] * TB,
+    "to_nt": [(SPAN_P - 3, SPAN_P), (SPAN_NT * TP - 1, SPAN_NT * TP),
+              (0, SPAN_P), (SPAN_P, SPAN_P), (4000, SPAN_NT * TP),
+              (40 * TP, 40 * TP + 1), (0, 0), (SPAN_P - 1, SPAN_P)],
+    "overlapping": [(100, 900), (300, 500), (800, 1500), (1400, 1401),
+                    (0, 50), (2000, 3000), (2500, 2600), (2999, 3500)],
+    "disjoint": [(i * 600 + 10, i * 600 + 300) for i in range(TB)],
+}
+
+
+def _span_slices(case):
+    if case != "random":
+        qs, qe = np.asarray(SPAN_CASES[case], np.int32).T
+        return qs.copy(), qe.copy()
+    rng = np.random.default_rng(17)               # four query tiles
+    qs = rng.integers(0, SPAN_P, 4 * TB)
+    qe = np.minimum(qs + rng.integers(0, 700, 4 * TB), SPAN_P)
+    qe[::5] = qs[::5]                             # degenerate ones
+    return qs.astype(np.int32), qe.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [*SPAN_CASES, "random"])
+def test_slice_tile_spans_bound_the_prunes(case):
+    """Every leaf tile outside a query tile's merged spans fails the slice
+    test for all of its queries, so both prunes (the float32
+    ``prune_tiles_torch`` and the quantized ``quantized_prune_mask``)
+    give it 0; the spans are exactly the tiles that pass it, merged into
+    disjoint ascending intervals."""
+    from repro_torch.kernels.range_query.layout import slice_tile_spans
+
+    qs, qe = _span_slices(case)
+    B = len(qs)
+    d = _inputs(len(case), B, SPAN_P)
+    rsoa = d["rsoa"].copy()
+    rsoa[:2, ::TB], rsoa[2:, ::TB] = -1e9, 1e9    # one rect covers all
+    d.update(rsoa=rsoa, qs=qs, qe=qe)
+    ntp = d["fine"].shape[1]
+    nt = d["nt"]
+    assert nt == SPAN_NT and ntp == 128
+    spans = slice_tile_spans(qs, qe, ntp)
+    assert len(spans) == B // TB
+    inside = np.zeros((B // TB, ntp), bool)
+    for i, iv in enumerate(spans):
+        assert iv.shape[1] == 2 and len(iv) <= TB
+        assert (iv[:, 0] < iv[:, 1]).all() and (iv[1:, 0] > iv[:-1, 1]).all()
+        for lo, hi in iv:
+            inside[i, lo:hi] = True
+    g = np.arange(ntp)[None, :] * TP
+    passes = ((g < qe[:, None]) & (g + TP > qs[:, None]))
+    assert np.array_equal(inside, passes.reshape(-1, TB, ntp).any(axis=1))
+    qf, qc, r16, r32 = _quantized(d)
+    masks = (D.prune_tiles_torch(*map(_t, (d["fine"], d["coarse"], rsoa, qs,
+                                           qe))).numpy() > 0,
+             F.quantized_prune_mask(*map(_t, (qf, qc, r16, r32, qs, qe))
+                                    ).numpy())
+    full = passes[::TB, :nt]                      # the covering rect's tiles
+    for mask in masks:
+        assert not mask[~inside].any()
+        assert mask[:, :nt][full].all()
+    if case == "empty":
+        assert not inside.any()
+    else:
+        assert masks[0].any()
+    if case == "degenerate":
+        assert [tuple(r) for r in spans[0]] == [(0, 2), (4, 5), (7, 8),
+                                                (39, 40)]
+    if case == "to_nt":
+        assert spans[0][-1, 1] == nt
+
+
+@pytest.mark.parametrize("nb,ntp,want", [(32, 77440, 16), (1, 77440, 76),
+                                         (32, 12288, 12), (256, 77440, 2),
+                                         (1024, 128, 1)])
+def test_prune_stripes_fill_the_card(nb, ntp, want):
+    """K2's blocks per mask row on a 132-SM card: one wave of 4 blocks of
+    256 threads per multiprocessor, never more than one 4-tile step per
+    thread, at least one block per row."""
+    assert D.prune_stripes(nb, ntp, 132) == want

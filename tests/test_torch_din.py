@@ -154,6 +154,37 @@ def test_apply_and_loss_match_reference(seed, B, fn):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("where", ["target", "history", "below_minus_v",
+                                   "negative_in_range"])
+def test_out_of_range_items_follow_the_reference(where):
+    """The choice for an item id outside [-V, V): follow the reference,
+    whose ``jnp.take`` fills NaN, so that row's embedding and logit are
+    NaN and every other row is unchanged.  The port clamps the ids and
+    masks the rows on the device, so a bad id neither syncs with the host
+    nor fires a device-side assert (which would leave a card's CUDA
+    context unusable); it raises nothing.  Ids in [-V, 0) wrap."""
+    cfg = PC.make_config(reduced=True)
+    ref = _ref_params(5, RC.make_config(reduced=True))
+    batch = _batch(cfg, 8, 5)
+    V = cfg.n_items
+    bad = {"target": V, "history": V, "below_minus_v": -V - 1,
+           "negative_in_range": -1}[where]
+    if where == "history":
+        batch["hist_items"][2, 0] = bad           # a position inside the mask
+        assert batch["hist_mask"][2, 0]
+    else:
+        batch["target_item"][2] = bad
+    got = D.apply(_port_params(ref), _t(batch), cfg).numpy()
+    want = np.asarray(RD.apply(ref, {k: jnp.asarray(v)
+                                     for k, v in batch.items()},
+                               RC.make_config(reduced=True)))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[2]) == (where != "negative_in_range")
+    assert np.isnan(got).sum() == (where != "negative_in_range")
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], **TOL)
+
+
 def test_target_attention_masks_like_reference():
     """Rows with no history pool to zero; masked positions weigh 0."""
     cfg = PC.make_config(reduced=True)

@@ -24,12 +24,14 @@ import torch
 
 import repro.core as R
 import repro.data as RD
+from conftest import random_geosocial, random_queries
 from repro_torch.convert import index_from_arrays, index_to_arrays
 from repro_torch.core import (
     QueryEngine,
     batch_query,
     build_index,
     engine_for,
+    make_graph,
 )
 from repro_torch.core.engine import DevicePadder
 from repro_torch.data import get_dataset, workload
@@ -309,6 +311,79 @@ def test_no_gpu_raises_for_the_new_kernels(monkeypatch):
     idx = build_index(get_dataset("tiny"), "2dreach")
     with pytest.raises(RuntimeError, match="CUDA"):
         QueryEngine(idx, path="two_phase")
+
+
+# --------------------------------------------------------------------------
+# Vertex ids out of range: IndexError on the host, before any upload
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def f1_indexes():
+    rg = random_geosocial(np.random.default_rng(7), 300, 900)
+    g = make_graph(rg.n_nodes, rg.edges, rg.coords, rg.spatial_mask)
+    return g, {v: build_index(g, METHOD[v]) for v in VARIANTS}
+
+
+def _serve(eng, kind, us, rects):
+    """One batch of ``kind`` through ``eng``: reach, count, collect (k=4),
+    kNN (k=3) at the rects' centres, or the rects as 4-gons."""
+    if kind == "reach":
+        return eng.query_batch(us, rects)
+    if kind == "count":
+        return eng.count_batch(us, rects)
+    if kind == "collect":
+        return eng.collect_batch(us, rects, 4).ids
+    if kind == "knn":
+        return eng.knn_batch(us, (rects[:, :2] + rects[:, 2:]) / 2, 3).ids
+    return eng.polygon_batch(us, [np.array(
+        [[r[0], r[1]], [r[2], r[1]], [r[2], r[3]], [r[0], r[3]]], np.float32)
+        for r in rects])
+
+
+@pytest.mark.parametrize("ids", ["n_nodes", "below_minus_n"])
+@pytest.mark.parametrize("kind", ["reach", "count", "collect", "knn",
+                                  "polygon"])
+@pytest.mark.parametrize("path", ["fused", "two_phase"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_out_of_range_vertex_ids_raise(f1_indexes, variant, path, kind, ids):
+    """An id >= n_nodes or < -n_nodes raises IndexError, as the host
+    index's NumPy gathers do (the reference's engine would clamp on its
+    reach and count paths, ROADMAP R8; gathered on a card it would fire a
+    device-side assert); the same engine then answers a good batch as
+    the host index does.  kNN raises from its first host gather, NumPy's
+    own, before its rounds reach the engine's check."""
+    g, idxs = f1_indexes
+    n = g.n_nodes
+    bad = np.array([n] * 3) if ids == "n_nodes" else np.array([0, -n - 1, 5])
+    us, rects = random_queries(np.random.default_rng(7), g, 3)
+    eng = QueryEngine(idxs[variant], device="cpu", path=path)
+    msg = (f"index {bad[1]} is out of bounds for axis 0 with size {n}"
+           if kind == "knn"
+           else f"vertex id {bad[1]} is out of bounds for a graph of {n}")
+    with pytest.raises(IndexError, match=msg):
+        _serve(eng, kind, bad, rects)
+    with pytest.raises(IndexError):               # the host index agrees
+        idxs[variant].query_batch(bad, rects)
+    assert np.array_equal(_serve(eng, kind, us, rects),
+                          _serve(QueryEngine(idxs[variant], device="cpu",
+                                             path=path), kind, us, rects))
+    assert np.array_equal(eng.query_batch(us, rects),
+                          idxs[variant].query_batch(us, rects))
+
+
+@pytest.mark.parametrize("path", ["fused", "two_phase"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_negative_vertex_ids_in_range_wrap(f1_indexes, variant, path):
+    g, idxs = f1_indexes
+    n = g.n_nodes
+    us = np.array([-1, -n, 2, -n + 7])
+    _, rects = random_queries(np.random.default_rng(8), g, len(us))
+    eng = QueryEngine(idxs[variant], device="cpu", path=path)
+    want = idxs[variant].query_batch(us % n, rects)
+    assert np.array_equal(eng.query_batch(us, rects), want)
+    assert np.array_equal(idxs[variant].query_batch(us, rects), want)
+    assert np.array_equal(eng.count_batch(us, rects),
+                          eng.count_batch(us % n, rects))
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -182,3 +182,11 @@ def test_fused_serve_wrapper_on_cpu():
     assert F.fused_serve.launches == before
     with pytest.raises(ValueError, match="mode"):
         F.fused_serve(*args, mode="nope", kcap=3, nt=d["nt"], device="cpu")
+
+
+@pytest.mark.parametrize("nb,want", [(1, 8), (16, 8), (32, 8), (33, 4),
+                                     (66, 2), (128, 2), (132, 1), (256, 1)])
+def test_cluster_size_covers_the_multiprocessors(nb, want):
+    """K1's blocks per query tile on a 132-SM card: B = 256 (32 query
+    tiles) takes clusters of 8; B = 2048 one block per query tile."""
+    assert F.cluster_size(nb, 132) == want
