@@ -24,7 +24,12 @@ not beside this script, it exits with code 2 and prints no result.
            the true count and K = NTp.  The polygon scan on the same
            two arena sizes with 4- and 8-edge buckets (inert padded
            half-planes) and venues planted exactly on polygon vertices
-           and edges; the closure product at the yelp x1.0 level-0 shape
+           and edges.  The count and polygon scans (K4, K6: a thread
+           block cluster per query tile) on a 3,000-tile polygon arena
+           at B = 8, 256 and 2048 (clusters of min(8, K), 8 and 1 CTAs)
+           and K = 1, 2, 3, 16 and 64, a row of padding only and tiles
+           outside the arena; the polygon scan also at 16 and 1024
+           half-planes; the closure product at the yelp x1.0 level-0 shape
            (17,878 x 90 words x 95 words) and at ragged small shapes
            with bit 31 set; the segmented MBR at fan 16, 128 and 8 with
            ragged N and inert slots; the full-arena leaf scan on
@@ -157,10 +162,13 @@ is ``{"ok": true, "device": {...}}``.
 
 runs only phase ``ab``, with the ``repro_torch`` package under ``SRC``
 (for instance a parent commit's ``src``, unpacked with ``git archive``):
-K1 in every mode and K2 on the first batch of yelp x1.0 2dreach-comp
-and of yelp x0.5 2dreach, DIN's serve_p99 and serve_bulk end to end
-and device busy, and the device time of their histories' item
-embedding, on inputs that every checkout of the port makes alike.
+K1 in every mode, K2 and the descent, count and collect scans (K3-K5)
+on the first batch of yelp x1.0 2dreach-comp and of yelp x0.5 2dreach,
+the polygon scan (K6) on the first 6-gon batch of yelp x1.0 comp,
+K4 and K6 also at thread block clusters of 1, 2, 4 and 8 CTAs,
+DIN's serve_p99 and serve_bulk end to end and device busy, and the
+device time of their histories' item embedding, on inputs that every
+checkout of the port makes alike.
 Run it for two checkouts in turns (parent, change, change, parent) in
 one call to compare them on one card.
 """
@@ -209,6 +217,16 @@ KNN_QUERIES = 256
 SCANS = {"reach": "descent_scan", "count": "count_scan",
          "collect": "collect_scan"}
 POLY_EDGES = 6
+# K4 and K6 (a cluster per query tile): (B, Ks) on polygon arenas of
+# CLUSTER_SCAN_TILES tiles; B = 8, 256 and 2048 give clusters of
+# min(8, K), 8 and 1 CTAs on 132 SMs
+CLUSTER_SCAN_CASES = ((8, (1, 2, 3, 16, 64)), (256, (1, 2, 3, 16, 64)),
+                      (2048, (1, 3, 16, 64)))
+CLUSTER_SCAN_TILES = 3000
+# (B, ne): the engine's edge buckets, then past the 128 half-planes K6
+# keeps in shared memory
+CLUSTER_NE = ((256, 4), (256, 8), (256, 16), (8, 512), (8, 1024), (8, 4096))
+SWEEP_CLUSTERS = (1, 2, 4, 8)      # K4's and K6's cluster sizes in --ab
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
            "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr",
@@ -802,6 +820,50 @@ def segment_bag_cases(ks, rng, dev, cases):
                               ks, ops, B, where)})
 
 
+def cluster_scan_cases(ks, rng, dev, errs, cases):
+    """K4 and K6 against their plain versions on ``polygon_arena``
+    inputs (venues on polygon edges and vertices) at each (B, K) of
+    CLUSTER_SCAN_CASES, where B > 8 with the last row all padding (its
+    first tile in every slot) and row 1 holding a negative tile and one
+    past the arena; then K6 at 4, 8 and 16 half-planes (B = 256) and at
+    1024 (B = 8: 96 KB of half-planes in shared memory), K below, at and
+    above the true count, and the dense reference."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.range_query.layout import TB, TP
+
+    an, ds = ks.an, ks.ds
+    n_sms = sm_count(dev)
+    for B, Ks in CLUSTER_SCAN_CASES:
+        d = polygon_arena(rng, CLUSTER_SCAN_TILES, B, 8, dev)
+        mask = ds.prune_tiles_torch(d["fine"], d["coarse"], d["rsoa"],
+                                    d["qs"], d["qe"])
+        cand, cnt = ks.fs.compact_ascending(mask, d["nt"])
+        box = (d["esoa"], d["rsoa"], d["qs"], d["qe"])
+        poly = (d["esoa"], d["rsoa"], d["lines"], d["qs"], d["qe"])
+        for K in Ks:
+            ck = ds.take_candidates(cand, K).clone()
+            if B > TB:
+                ck[-1] = int(ck[-1, 0])
+                ck[1, K // 2] = d["esoa"].shape[1] // TP + 7
+                ck[1, 0] = -1
+            e4 = _diff(an.count_scan(ck, *box, device=DEVICE),
+                       an.count_scan_torch(ck, *box))
+            e6 = _diff(an.polygon_scan(ck, *poly, ne=d["ne"], device=DEVICE),
+                       an.polygon_scan_torch(ck, *poly, ne=d["ne"]))
+            if e4 or e6:
+                raise AssertionError(
+                    f"count_scan ({e4}) / polygon_scan ({e6}) kernel != "
+                    f"plain version (cluster case B={B} K={K})")
+            cases.append({"cluster_scan": [B, K], "max_cnt": int(cnt.max()),
+                          "cluster": an.scan_cluster_size(B // TB, K, n_sms)})
+    for B, ne in CLUSTER_NE:
+        d = polygon_arena(rng, CLUSTER_SCAN_TILES, B, ne, dev)
+        e, mx, hits = compare_polygon(ks, d, f"polygon ne={ne} B={B}")
+        errs["polygon_scan"] = max(errs["polygon_scan"], e)
+        cases.append({"polygon_nt": d["nt"], "B": B, "ne": d["ne"],
+                      "max_cnt": mx, "hits": hits})
+
+
 def phase_kernels(ks):
     import torch
 
@@ -843,6 +905,7 @@ def phase_kernels(ks):
                 errs["polygon_scan"] = max(errs["polygon_scan"], e)
                 cases.append({"polygon_nt": d["nt"], "B": B, "ne": ne,
                               "max_cnt": mx, "hits": hits})
+    cluster_scan_cases(ks, rng, dev, errs, cases)
     slice_cases(ks, rng, dev, errs, cases)
     # the full-arena leaf scan: dims 2 and 3, ragged B, P = 0
     for n_tiles, n_trees in ((ARENAS[0][0], ARENAS[0][1]), (3, 2), (0, 1)):
@@ -1836,6 +1899,9 @@ def phase_timing(ks, engines, card):
             "plain_ms": device_ms(lambda: ks.plain[kname](*a), 10,
                                   f"{kname} plain"),
             "bound_ms": bms, "bound_by": by, "K": K, **work}
+        if kname == "count_scan":      # CTAs per query tile
+            two[kname]["cluster"] = ks.an.scan_cluster_size(
+                BATCH // 8, K, sm_count(DEVICE))
         two[kname]["e2e_us_per_query"] = e2e_us(eng, us, rects, mode,
                                                 two_phase=True)
     # the prune's mask write grows with the arena: the same on the
@@ -1877,6 +1943,7 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
     polygon query."""
     import torch
     from repro_torch.core import engine as core_engine
+    from repro_torch.kernels._build import sm_count
 
     ds, an, fs, bm, fb = ks.ds, ks.an, ks.fs, ks.bm, ks.fb
     timed, errs = {}, {}
@@ -1917,6 +1984,7 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
         "plain_ms": device_ms(lambda: an.polygon_scan_torch(*a6, ne=neb), 10,
                               "polygon_scan_torch"),
         "library_ms": None, "bound_ms": bms, "bound_by": by, "K": K,
+        "cluster": an.scan_cluster_size(B // 8, K, sm_count(DEVICE)),
         "e2e_us_per_query": e2e, **work}
 
     a, r = largest[name][0]
@@ -2362,18 +2430,42 @@ def phase_recsys(ks, card):
 # Two checkouts in turns
 # --------------------------------------------------------------------------
 
-def phase_ab(ks, card, src):
-    """``--ab SRC``: K1 in every mode and K2 on the first main-path
-    batch of yelp x1.0 2dreach-comp and yelp x0.5 2dreach at their
-    steady capacity, DIN's serve shapes end to end (``serve_shape``) and
-    the history's item embedding (``din._embed_items``) alone, with the
-    ``repro_torch`` package under ``src``.  The inputs are made
-    the same way by any checkout of the port, so two checkouts can be
-    timed in turns on one card (parent, change, change, parent)."""
-    from repro_torch.core import QueryEngine, build_index
-    from repro_torch.data import get_dataset, workload
+def cluster_sweep(ks, fn, K, what):
+    """{C: ms} of ``fn``, a K4 or K6 call, with its thread block
+    cluster set to each C of SWEEP_CLUSTERS up to K, in place of
+    ``scan_cluster_size``'s choice; {} for a package without that
+    choice (one from before the clustered scans)."""
+    pick = getattr(ks.an, "scan_cluster_size", None)
+    if pick is None:
+        return {}
+    out = {}
+    try:
+        for C in SWEEP_CLUSTERS:
+            if C <= K:
+                ks.an.scan_cluster_size = lambda *_, C=C: C
+                out[C] = device_ms(fn, 50, f"{what} C={C}")
+    finally:
+        ks.an.scan_cluster_size = pick
+    return out
 
-    fused, prune, kcaps = {}, {}, {}
+
+def phase_ab(ks, card, src):
+    """``--ab SRC``: on the first main-path batch of yelp x1.0
+    2dreach-comp and yelp x0.5 2dreach at their steady capacity, K1 in
+    every mode, K2, and the descent, count and collect scans (K3-K5) on
+    ``phase_timing``'s operands; K6 on the first 6-gon batch of yelp
+    x1.0 comp (``phase_timing_slice3``'s operands); DIN's serve shapes
+    end to end (``serve_shape``) and the history's item embedding
+    (``din._embed_items``) alone, with the ``repro_torch`` package under
+    ``src``.  The inputs are made the same way by any checkout of the
+    port, so two checkouts can be timed in turns on one card (parent,
+    change, change, parent).  K4 and K6 are also timed at each cluster
+    size of SWEEP_CLUSTERS (``cluster_sweep``)."""
+    from repro_torch.core import QueryEngine, build_index
+    from repro_torch.core import engine as core_engine
+    from repro_torch.data import get_dataset, polygon_workload, workload
+
+    fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
     for ds, scale, method in (CONFIGS[0], CONFIGS[-1]):
         name = f"{ds}x{scale} {method}"
         g = get_dataset(ds, scale=scale)
@@ -2394,6 +2486,48 @@ def phase_ab(ks, card, src):
         prune[name] = device_ms(
             lambda: ks.ds.prune_tiles(*pargs, device=DEVICE), 50,
             f"prune_tiles ({name})")
+        # the scans on the plain prune's candidates at the two-phase
+        # path's steady K
+        serve_all(eng, us, rects, two_phase=True)
+        arena = arena_of(eng)
+        rsoa, qs, qe = args[6:]
+        K = eng._kb_hwm
+        cand, _ = ks.fs.compact_ascending(ks.ds.prune_tiles_torch(*pargs), nt)
+        ck = ks.ds.take_candidates(cand, K)
+        scans[name] = {"K": K}
+        for mode in MODES:
+            kname = SCANS[mode]
+            a = ((ck, arena["esoa"], arena["ids"], rsoa, qs, qe)
+                 if mode == "collect" else (ck, arena["esoa"], rsoa, qs, qe))
+            scans[name][kname] = device_ms(
+                lambda: ks.wrap[kname](*a, device=DEVICE), 50,
+                f"{kname} ({name})")
+        a = (ck, arena["esoa"], rsoa, qs, qe)
+        scans[name]["count_scan_by_cluster"] = cluster_sweep(
+            ks, lambda: ks.an.count_scan(*a, device=DEVICE), K,
+            f"count_scan ({name})")
+        if polygon:
+            continue
+        # K6: the main path's polygon batches, then the first one's
+        # operands as the engine assembles them
+        pus, ppolys = polygon_workload(g, N_QUERIES, n_edges=POLY_EDGES,
+                                       extent_ratio=0.05, seed=0)
+        batches = [(pus[s:s + BATCH], ppolys[s:s + BATCH])
+                   for s in range(0, len(pus), BATCH)]
+        batches += [mixed_polygons(g, lo, hi, 10 * i)
+                     for i, (lo, hi) in enumerate(POLY_MIXED)]
+        for u, p in batches:
+            eng.polygon_batch(u, p)
+        with Capture(core_engine, "polygon_scan",
+                     lambda c, *a: c.numel()) as k6:
+            eng.polygon_batch(*batches[0])
+        _, a6, kw = k6.best
+        a6 = tuple(t.clone() for t in a6)
+        run6 = lambda: ks.an.polygon_scan(*a6, ne=kw["ne"], device=DEVICE)
+        polygon = {"index": name, "K": a6[0].shape[1], "ne": kw["ne"],
+                   "ms": device_ms(run6, 50, f"polygon_scan ({name})"),
+                   "by_cluster": cluster_sweep(ks, run6, a6[0].shape[1],
+                                               f"polygon_scan ({name})")}
     import torch
     from repro_torch.models.recsys import din
 
@@ -2409,7 +2543,8 @@ def phase_ab(ks, card, src):
             lambda: din._embed_items(params, items, cfg), 5,
             f"_embed_items ({shape} history)")
     emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
-         prune_tiles=prune, din=serve, timers=TIMERS)
+         prune_tiles=prune, scans=scans, polygon_scan=polygon, din=serve,
+         timers=TIMERS)
 
 
 # --------------------------------------------------------------------------
@@ -2438,7 +2573,7 @@ def phase_build(_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="SRC",
-                    help="time K1, K2 and DIN's serving with the package "
+                    help="time K1-K6 and DIN's serving with the package "
                          "under SRC only (phase_ab)")
     a = ap.parse_args()
     try:

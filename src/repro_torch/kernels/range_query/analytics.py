@@ -9,8 +9,9 @@ tile repeated, so a slot whose tile is not above the previous slot's
 nothing (:func:`dup_slots`, the reference's ``_dup_slot``).
 
 * :func:`count_scan` — (B,) int32 exact hit counts.  On a CUDA tensor
-  it launches ``csrc/leaf_scan.cu`` (K4); on a CPU tensor it runs
-  :func:`count_scan_torch`.
+  it launches ``csrc/leaf_scan.cu`` (K4, a thread block cluster of
+  :func:`scan_cluster_size` CTAs per 8-query tile); on a CPU tensor it
+  runs :func:`count_scan_torch`.
 * :func:`collect_scan` — (B, K*TP) int32: the payload id of every hit
   entry, ``ID_SENTINEL`` everywhere else.  On a CUDA tensor it launches
   ``csrc/leaf_scan.cu`` (K5); on a CPU tensor it runs
@@ -21,8 +22,8 @@ nothing (:func:`dup_slots`, the reference's ``_dup_slot``).
   = 0, C = +inf``), tested on each entry point inside the leaf scan.
   Each product and the sum round on their own (no fused multiply-add),
   as ``core.polygon.points_in_polygon_region`` computes them.  On a CUDA
-  tensor it launches ``csrc/leaf_scan.cu`` (K6); on a CPU tensor it
-  runs :func:`polygon_scan_torch`.
+  tensor it launches ``csrc/leaf_scan.cu`` (K6, clustered as K4); on a
+  CPU tensor it runs :func:`polygon_scan_torch`.
 * :func:`count_scan_ref` / :func:`collect_scan_ref` /
   :func:`polygon_scan_ref` — dense versions over the whole arena, the
   oracles of the tests.
@@ -35,12 +36,22 @@ import ctypes
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor
+from .._build import call, check_tensor, sm_count
 from .descent import check_scan_inputs, tile_hits
+from .fused import cluster_size
 from .layout import ID_SENTINEL, TB, TP
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+
+
+def scan_cluster_size(n_query_tiles: int, K: int, n_sms: int) -> int:
+    """CTAs per query tile in K4's and K6's thread block cluster: K1's
+    choice (:func:`.fused.cluster_size`, 8 at 32 query tiles on 132
+    multiprocessors, 1 from 132 up), capped at the K candidate slots,
+    which the cluster's CTAs share round robin, so that no CTA is left
+    without a slot."""
+    return min(cluster_size(n_query_tiles, n_sms), K)
 
 
 def dup_slots(cand: torch.Tensor) -> torch.Tensor:
@@ -172,10 +183,11 @@ def count_scan(
     B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
                                 dim, dev)
     out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
-    call("leaf_scan", "count_scan_launch", [_PTR] * 6 + [_INT] * 3,
+    call("leaf_scan", "count_scan_launch", [_PTR] * 6 + [_INT] * 4,
          out.device, cand.data_ptr(), entries_soa.data_ptr(),
          rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
-         out.data_ptr(), K, P, B)
+         out.data_ptr(), K, P, B,
+         scan_cluster_size(B // TB, K, sm_count(out.device)))
     count_scan.launches += 1
     return out
 
@@ -251,10 +263,11 @@ def polygon_scan(
         raise ValueError(f"polygon scan needs ne >= 1, got {ne}")
     check_tensor("lines_soa", lines_soa, torch.float32, (3 * ne, B), dev)
     out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
-    call("leaf_scan", "polygon_scan_launch", [_PTR] * 7 + [_INT] * 4,
+    call("leaf_scan", "polygon_scan_launch", [_PTR] * 7 + [_INT] * 5,
          out.device, cand.data_ptr(), entries_soa.data_ptr(),
          rects_soa.data_ptr(), lines_soa.data_ptr(), qstart.data_ptr(),
-         qend.data_ptr(), out.data_ptr(), K, P, B, ne)
+         qend.data_ptr(), out.data_ptr(), K, P, B, ne,
+         scan_cluster_size(B // TB, K, sm_count(out.device)))
     polygon_scan.launches += 1
     return out
 

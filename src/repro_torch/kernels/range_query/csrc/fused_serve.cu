@@ -41,9 +41,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_cluster.cuh"
 #include "slice_span.cuh"
 
 namespace cg = cooperative_groups;
+using namespace async_cluster;
 
 namespace {
 
@@ -57,30 +59,6 @@ constexpr int MAX_CLUSTER = 8;
 constexpr int32_t ID_SENTINEL = 0x7fffffff;
 
 enum Mode { REACH = 0, COUNT = 1, COLLECT = 2 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// the two halves of cluster.sync(): arrive (release), then wait (acquire)
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)

@@ -80,17 +80,22 @@ def tile_hits(cand, entries_soa, rects_soa, qstart, qend, *, dim: int = 2
     ``cand`` (NB, K) holds leaf-tile ids.  Returns ``(hit (NB, TB,
     K*TP) bool, g (NB, K*TP) int32)``: ``g`` the global entry index of
     each lane of each candidate tile, ``hit`` whether query ``q`` of the
-    query tile holds that entry in its arena slice and its rect."""
+    query tile holds that entry in its arena slice and its rect.  A
+    tile outside ``[0, P // TP)`` is a miss, as the kernels never read
+    it: its entries lie outside every arena slice (``0 <= qstart``,
+    ``qend <= P``), and its ``g`` is clamped into the arena for the
+    gathers."""
     nb, k = cand.shape
     dev = entries_soa.device
     g = (cand[:, :, None] * TP
          + torch.arange(TP, dtype=torch.int32, device=dev)[None, None, :]
          ).reshape(nb, k * TP)
-    tiles = entries_soa[:, g.long()]                    # (2*dim, nb, K*TP)
     qs = qstart.reshape(nb, TB)[:, :, None]
     qe = qend.reshape(nb, TB)[:, :, None]
     q = rects_soa.reshape(2 * dim, nb, TB)
     hit = (g[:, None, :] >= qs) & (g[:, None, :] < qe)  # (nb, TB, K*TP)
+    g = g.clamp(0, entries_soa.shape[1] - 1)
+    tiles = entries_soa[:, g.long()]                    # (2*dim, nb, K*TP)
     for a in range(dim):
         hit &= tiles[a][:, None, :] <= q[dim + a][:, :, None]
         hit &= tiles[dim + a][:, None, :] >= q[a][:, :, None]

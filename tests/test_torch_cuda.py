@@ -1,5 +1,7 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
-descent / count / collect / polygon scans, the packed closure product,
+descent / count / collect / polygon scans (K4 and K6 also at K = 1 to
+64, B = 8 to 2048, rows of padding only, tiles outside the arena, 4, 8
+and 16 half-planes), the packed closure product,
 the segmented-MBR reduction, the full-arena leaf scan, the fused
 EmbeddingBag) against its plain PyTorch version, the wrappers' input
 checks, the engine on the card (both paths, polygons) against the
@@ -468,6 +470,76 @@ def test_polygon_kernel_matches_plain(cuda, B, ne):
     assert 0 < int(got.sum()) < B
 
 
+def _cluster_scan_case(seed, B, K, ne, device):
+    """K4's and K6's inputs: ``polygon_case`` (venues on polygon edges
+    and vertices, 300 tiles) on ``device``, its plain prune's compacted
+    candidates cut at K and, where B > 8, the last row all padding (its
+    first tile in every slot) and a tile past the arena and a negative
+    one in row 1 (misses that the kernels never read)."""
+    d = polygon_case(seed, B, 300, ne)
+    T = {k: torch.as_tensor(v, device=device) for k, v in d.items()
+         if isinstance(v, np.ndarray)}
+    mask = D.prune_tiles_torch(T["fine"], T["coarse"], T["rsoa"], T["qs"],
+                               T["qe"])
+    cand, _ = F.compact_ascending(mask, d["nt"])
+    ck = D.take_candidates(cand, K).clone()
+    if B > TB:
+        ck[-1] = int(ck[-1, 0])
+        ck[1, K // 2] = T["esoa"].shape[1] // TP + 7
+        ck[1, 0] = -1
+    return d, T, ck
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 16, 64])
+@pytest.mark.parametrize("B", [TB, 32 * TB, 256 * TB])
+def test_cluster_scans_match_plain(cuda, B, K):
+    """K4 and K6 bit for bit against their plain versions: one query
+    tile (a cluster of min(8, K) CTAs, most with one slot), 32 (the
+    serving batch: 8 CTAs a cluster) and 256 (one CTA a query tile, K
+    slots through its cp.async ring); K not a multiple of the cluster,
+    and 64 (several ring turns)."""
+    d, T, ck = _cluster_scan_case(B + K, B, K, 8, cuda)
+    box = (T["esoa"], T["rsoa"], T["qs"], T["qe"])
+    poly = (T["esoa"], T["rsoa"], T["lines"], T["qs"], T["qe"])
+    for kernel, plain, args, kw in (
+            (A.count_scan, A.count_scan_torch, box, {}),
+            (A.polygon_scan, A.polygon_scan_torch, poly, {"ne": d["ne"]})):
+        launches = kernel.launches
+        got = kernel(ck, *args, **kw)
+        assert kernel.launches == launches + 1
+        assert torch.equal(got, plain(ck, *args, **kw)), kernel.__name__
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert A.scan_cluster_size(B // TB, K, n_sms) == (
+        min(8, K) if B < 256 * TB else 1)
+
+
+@pytest.mark.parametrize("B,ne", [(TB, 4), (TB, 8), (TB, 16), (32 * TB, 4),
+                                  (32 * TB, 8), (32 * TB, 16), (TB, 512),
+                                  (TB, 1024), (TB, 4096)])
+def test_polygon_kernel_on_edges_at_each_edge_bucket(cuda, B, ne):
+    """K6 with 4, 8 and 16 half-planes a query (the engine's edge
+    buckets) and 512, 1024 and 4096 (past the 128 the kernel keeps in
+    shared memory: the rest come from global memory), venues exactly on
+    the polygons' edges and vertices: equal to its plain version with K
+    below and at the true count, and to the dense reference where K
+    covers every candidate."""
+    d = polygon_case(3 * B + ne, B, 300, ne)
+    assert d["ne"] == ne
+    T = {k: torch.as_tensor(v, device=cuda) for k, v in d.items()
+         if isinstance(v, np.ndarray)}
+    mask = D.prune_tiles_torch(T["fine"], T["coarse"], T["rsoa"], T["qs"],
+                               T["qe"])
+    cand, cnt = F.compact_ascending(mask, d["nt"])
+    mx = int(cnt.max())
+    args = (T["esoa"], T["rsoa"], T["lines"], T["qs"], T["qe"])
+    for K in (max(1, mx // 2), mx):
+        ck = D.take_candidates(cand, K)
+        got = A.polygon_scan(ck, *args, ne=ne)
+        assert torch.equal(got, A.polygon_scan_torch(ck, *args, ne=ne)), K
+    assert torch.equal(got, A.polygon_scan_ref(*args, ne=ne))
+    assert int(got.sum()) > 0
+
+
 @pytest.mark.parametrize("f,m,W", [(1, 1, 1), (37, 64, 3), (300, 33, 70),
                                    (1000, 900, 40)])
 def test_bitset_mm_kernel_matches_plain(cuda, f, m, W):
@@ -524,6 +596,9 @@ def test_build_wrappers_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="shape"):
         A.polygon_scan(ck, T["esoa"], T["rsoa"], T["lines"], T["qs"],
                        T["qe"], ne=8)
+    with pytest.raises(ValueError, match="ne"):
+        A.polygon_scan(ck[:, :1].contiguous(), T["esoa"], T["rsoa"],
+                       T["lines"], T["qs"], T["qe"], ne=0)
 
 
 @pytest.mark.parametrize("method", ["2dreach", "2dreach-comp",

@@ -31,12 +31,10 @@ from repro_torch.core import oracle as PO
 from repro_torch.core import polygon as PP
 from repro_torch.data import polygon_workload
 from repro_torch.kernels.range_query import analytics as A
-from repro_torch.kernels.range_query.descent import (
-    prune_tiles_torch,
-    take_candidates,
-)
+from repro_torch.kernels.range_query.descent import prune_tiles_torch
 from repro_torch.kernels.range_query.fused import compact_ascending
 from repro_torch.queries import QueryProgram, polygon_reach_host
+from test_torch_analytics import KINDS, cut
 from test_torch_cuda import polygon_case
 
 VARIANTS = ("base", "comp", "pointer")
@@ -141,14 +139,12 @@ def _scan_case(B, ne, kind, plant):
     mask = prune_tiles_torch(T["fine"], T["coarse"], T["rsoa"], T["qs"],
                              T["qe"])
     cand, cnt = compact_ascending(mask, d["nt"])
-    mx = int(cnt.max())
-    K = {"below": max(1, mx // 2), "at": mx, "above": mx + 3}[kind]
     names = ("esoa", "rsoa", "lines", "qs", "qe")
-    return d, take_candidates(cand, K), [T[k] for k in names], \
+    return d, cut(cand, int(cnt.max()), kind), [T[k] for k in names], \
         [jnp.asarray(d[k]) for k in names]
 
 
-@pytest.mark.parametrize("kind", ["below", "at", "above"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("B,ne", [(8, 4), (24, 8), (24, 12)])
 def test_polygon_scan_matches_reference(B, ne, kind):
     """Venues off the polygons' edges: the plain version equals the
@@ -165,11 +161,11 @@ def test_polygon_scan_matches_reference(B, ne, kind):
                           np.asarray(RA.polygon_scan_ref(*jargs, ne=d["ne"])))
     assert np.array_equal(dense.numpy(), _region_truth(d, None))
     assert 0 < int(dense.sum()) < B
-    if kind != "below":
+    if kind in ("at", "above"):
         assert torch.equal(got, dense)
 
 
-@pytest.mark.parametrize("kind", ["below", "at", "above"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("B,ne", [(8, 4), (24, 8), (24, 12)])
 def test_polygon_scan_on_edges_matches_region_test(B, ne, kind):
     """Venues planted on polygon vertices and edges: the plain version
