@@ -31,12 +31,21 @@ not beside this script, it exits with code 2 and prints no result.
            outside the arena; the polygon scan also at 16 and 1024
            half-planes; the closure product at the yelp x1.0 level-0 shape
            (17,878 x 90 words x 95 words) and at ragged small shapes
-           with bit 31 set; the segmented MBR at fan 16, 128 and 8 with
-           ragged N and inert slots; the full-arena leaf scan on
+           with bit 31 set, and on BITSET_EDGE (f = 1, 7, 9, 4,099; Wm
+           = 1, 3, 90, 200; W = 1 to 300) with dense rows, rows without
+           a bit and bits at columns >= m; the segmented MBR at fan 16,
+           128 and 8 with ragged N and inert slots; the full-arena leaf
+           scan on
            random arenas of 12,204, 3 and 0 tiles (P = 0 padded to one
            inert tile) at dims 2 and 3 and B = 8, 24 and 33 (ragged),
            with tree ids of -1 and slices that start and end inside
-           128-entry tiles; the fused EmbeddingBag (K10) at D = 18, 32
+           128-entry tiles, and on planes of P = 0, 1,001 (unaligned)
+           and 40,000 entries at B = 1 to 2048 with slices of every
+           start residue mod 4 and length 0 to 5,000, clipped, empty
+           and reversed ones, hits planted at a slice's first or last
+           entry or nowhere (``slice_edge_case``), each also on a copy
+           of the planes at a misaligned base (the scalar
+           instantiation); the fused EmbeddingBag (K10) at D = 18, 32
            and 128, tables of 10 to 1,000,000 rows in float32 and bf16,
            ragged bag counts, empty bags, an all-padding tail and L = 0
            (one inert tile), within 1e-5 of its plain version on the
@@ -79,7 +88,8 @@ not beside this script, it exits with code 2 and prints no result.
            adoption, no upload), its reach answers to the main-path
            batches equal the host-built engine's; host and device build
            seconds (closure, forest) and the closure-product and
-           segmented-MBR launches per index
+           segmented-MBR launches per index; each closure-product
+           launch's (f, Wm, m, W) and set bits of A
   legacy   the leaf-scan engine (``range_query_forest``) serving the
            main workload of each index in batches of 256, for the host
            build and the device build: equal to the host index on every
@@ -120,14 +130,18 @@ not beside this script, it exits with code 2 and prints no result.
            device build (its R-tree leaf level, the node count padded
            to a power of two), each with its library
            yardstick where one exists, and end-to-end microseconds per
-           polygon query
+           polygon query; the closure product also summed over every
+           launch of the three device builds (each distinct shape timed
+           once), per index, against the sum of the launches' bounds
   timing_slice4  K9 on the first leaf-scan batch of yelp x1.0 comp and
            of yelp x0.5 base, and on a random arena of 12,204 tiles
            whose 256 queries probe distinct slices (dims 2 and 3):
            device ms, plain ms, the bound from these inputs (a query
-           needs its slice up to its first hit); end-to-end µs per
-           query of the leaf-scan, wavefront and fused engines on every
-           index
+           needs its slice up to its first hit); K9 summed over its 48
+           main-path launches (each distinct set of operands timed
+           once), per path, against the sum of their bounds; end-to-end
+           µs per query of the leaf-scan, wavefront and fused engines on
+           every index
   recsys   DIN at its published widths (1M items, d = 18, S = 100,
            attention MLP 80-40, MLP 200-80), parameters from a
            torch.Generator seed, batches from ``din_batches``, float32
@@ -166,9 +180,14 @@ K1 in every mode, K2 and the descent, count and collect scans (K3-K5)
 on the first batch of yelp x1.0 2dreach-comp and of yelp x0.5 2dreach,
 the polygon scan (K6) on the first 6-gon batch of yelp x1.0 comp,
 K4 and K6 also at thread block clusters of 1, 2, 4 and 8 CTAs,
-DIN's serve_p99 and serve_bulk end to end and device busy, and the
-device time of their histories' item embedding, on inputs that every
-checkout of the port makes alike.
+DIN's serve_p99 and serve_bulk end to end and device busy, the
+device time of their histories' item embedding, the closure product
+(K7) on every launch of the three device builds (summed per index,
+with each index's largest launch), the leaf-scan probe (K9) on the
+first leaf-scan batch of yelp x1.0 comp and x0.5 base and on the
+random arena at dims 2 and 3, and summed over its 48 launches, with
+the launch floor, on inputs that every checkout of the port makes
+alike; phase ``build`` first, for the checkout's ``ptxas`` lines.
 Run it for two checkouts in turns (parent, change, change, parent) in
 one call to compare them on one card.
 """
@@ -228,6 +247,15 @@ CLUSTER_SCAN_TILES = 3000
 CLUSTER_NE = ((256, 4), (256, 8), (256, 16), (8, 512), (8, 1024), (8, 4096))
 SWEEP_CLUSTERS = (1, 2, 4, 8)      # K4's and K6's cluster sizes in --ab
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
+# K7's edge cases (f rows, m = 32*Wm - 3 columns so that A's last word
+# holds bits at columns >= m, W words of out) and K9's (slice lengths,
+# plane widths P, batches B), as in tests/test_torch_cuda.py
+BITSET_EDGE = tuple((f, 32 * wm - 3, W) for f in (1, 7, 9, 4099)
+                    for wm in (1, 3, 90, 200)
+                    for W in (1, 31, 32, 33, 95, 128, 129, 300))
+SLICE_LENGTHS = (0, 1, 3, 4, 5, 127, 128, 129, 1800, 5000)
+EDGE_P = (0, 1001, 40000)
+EDGE_B = (1, 8, 33, 256, 2048)
 KERNELS = ("fused_serve", "prune_tiles", "descent_scan", "count_scan",
            "collect_scan", "polygon_scan", "bitset_mm", "seg_mbr",
            "range_query", "segment_bag")
@@ -683,6 +711,28 @@ def bitset_operands(rng, f, m, W, device, bits_per_row=3):
     return uint32_bits(a, device), uint32_bits(r, device)
 
 
+def bitset_edge_operands(rng, f, m, W, device):
+    """K7's edge operands: random sparse rows, every fourth row from row
+    1 fully dense and every fourth from row 2 without a bit below column
+    m; the last column set in row 0; every row's bits at columns >= m
+    set (the kernel must mask them); bit 31 in R's first and last
+    column."""
+    from repro_torch.kernels.bitset_mm import uint32_bits
+
+    Wm = (m + 31) // 32
+    a = rng.integers(0, 2 ** 32, (f, Wm), dtype=np.uint64).astype(np.uint32)
+    a[rng.random((f, Wm)) < 0.7] = 0
+    a[1::4] = 0xFFFFFFFF
+    a[2::4] = 0
+    a[0, -1] |= np.uint32(1 << ((m - 1) % 32))
+    if m % 32:
+        a[:, -1] |= np.uint32(0xFFFFFFFF << (m % 32) & 0xFFFFFFFF)
+    r = rng.integers(0, 2 ** 32, (m, W), dtype=np.uint64).astype(np.uint32)
+    r[:, 0] |= np.uint32(1 << 31)
+    r[:, -1] |= np.uint32(1 << 31)
+    return uint32_bits(a, device), uint32_bits(r, device)
+
+
 def compare_bitset(ks, a, r, where):
     got = ks.bm.bitset_mm(a, r, device=DEVICE)
     e = _diff(got, ks.bm.bitset_mm_torch(a, r))
@@ -742,6 +792,53 @@ def leafscan_case(rng, n_tiles, n_trees, dim, B, device):
                                      device=device)
     return (T(esoa, np.float32), T(rsoa, np.float32), T(qs, np.int32),
             T(qe, np.int32))
+
+
+def slice_edge_case(rng, dim, B, P, device):
+    """K9's edge inputs on planes exactly P entries wide (P % 4 != 0
+    leaves them unaligned): query b's slice has length
+    SLICE_LENGTHS[(b + 8) % 10] and starts at b % 4 mod 4; every seventh
+    query's slice starts below 0, ends past P, or is empty or reversed,
+    in turn.  Entry p sits alone at (1000 + p, ...), so query b's rect
+    hits exactly the first entry of its clipped slice, exactly the last,
+    or nothing, as b % 3 is 0, 1, 2.  Returns the operands and the
+    answers they must give."""
+    import torch
+
+    lo = rng.uniform(0, 100, (P, dim)).astype(np.float32)
+    hi = lo + (0 if dim == 2 else rng.uniform(0, 3, (P, dim)).astype(
+        np.float32))
+    qs = np.zeros(B, np.int64)
+    qe = np.zeros(B, np.int64)
+    target = np.full(B, -1)
+    for b in range(B):
+        n = SLICE_LENGTHS[(b + 8) % 10]
+        s = b % 4 + 4 * int(rng.integers(0, max(1, (P - n) // 4)))
+        s, e = [(s, s + n), (-3, n - 3), (P - 2, P + 50), (s, s),
+                (s + 5, s)][1 + (b // 7) % 4 if b % 7 == 6 else 0]
+        qs[b], qe[b] = s, e
+        cs, ce = max(s, 0), min(e, P)
+        if ce > cs and b % 3 < 2:
+            target[b] = cs if b % 3 == 0 else ce - 1
+    hit = target >= 0
+    lo[target[hit]] = hi[target[hit]] = 1000 + target[hit, None]
+    c = np.broadcast_to(np.where(hit, 1000 + target, -500.0)[:, None],
+                        (B, dim))
+    rsoa = np.concatenate([c - 0.25, c + 0.25], 1).T
+    esoa = np.concatenate([lo.T, hi.T]).reshape(2 * dim, P)
+    T = lambda a, d: torch.as_tensor(np.ascontiguousarray(a, d),  # noqa: E731
+                                     device=device)
+    return (T(esoa, np.float32), T(rsoa, np.float32), T(qs, np.int32),
+            T(qe, np.int32)), hit.astype(np.int32)
+
+
+def shifted(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a
+    16-byte boundary: K9 must take its scalar instantiation."""
+    import torch
+
+    spare = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return spare[1:].view(t.shape).copy_(t)
 
 
 def compare_range_query(ks, args, dim, where):
@@ -917,6 +1014,25 @@ def phase_kernels(ks):
                 errs["range_query"] = max(errs["range_query"], e)
                 cases.append({"range_query": [n_tiles, dim, B],
                               "hits": hits})
+    # unaligned, clipped and empty slices, hits at a slice's first and
+    # last entry; at P = 1001 and on a shifted copy of the planes the
+    # scalar instantiation, elsewhere the float4 one
+    for dim in (2, 3):
+        for P in EDGE_P:
+            for B in EDGE_B:
+                args, want = slice_edge_case(rng, dim, B, P, dev)
+                for esoa in (args[0], shifted(args[0])):
+                    a9 = (esoa, *args[1:])
+                    where = f"edges dim={dim} P={P} B={B}"
+                    e, hits = compare_range_query(ks, a9, dim, where)
+                    if not np.array_equal(ks.ls.range_query_torch(
+                            *a9, dim=dim).cpu().numpy(), want):
+                        raise AssertionError(f"range_query != the planted "
+                                             f"answers ({where})")
+                    errs["range_query"] = max(errs["range_query"], e)
+                    cases.append({"range_query_edges": [dim, P, B],
+                                  "vector": ks.ls.vector_planes(esoa),
+                                  "hits": hits})
     # the closure product: the yelp x1.0 comp level-0 shape, ragged ones
     for f, m, W in ((17878, 2880, 95), (1, 1, 1), (37, 64, 3),
                     (300, 33, 70)):
@@ -924,6 +1040,24 @@ def phase_kernels(ks):
         errs["bitset_mm"] = max(errs["bitset_mm"], compare_bitset(
             ks, a, r, f"f={f} m={m} W={W}"))
         cases.append({"bitset_mm": [f, m, W]})
+    # dense rows, rows without a bit, bits at columns >= m, 1 to 3
+    # blocks' spans of 128 output words; the launcher's instantiation,
+    # then ROWWISE (0) and SPREAD at clusters of 1, 2 and 8 CTAs
+    from repro_torch.kernels.bitset_mm import ops
+
+    pick = ops.cluster_size
+    try:
+        for f, m, W in BITSET_EDGE:
+            a, r = bitset_edge_operands(rng, f, m, W, dev)
+            for C in (None, 0, 1, 2, 8):
+                ops.cluster_size = pick if C is None else (
+                    lambda *_, C=C: C)
+                errs["bitset_mm"] = max(errs["bitset_mm"], compare_bitset(
+                    ks, a, r, f"edges f={f} m={m} W={W} C={C}"))
+    finally:
+        ops.cluster_size = pick
+    cases.append({"bitset_mm_edges": len(BITSET_EDGE),
+                  "instantiations": ["launcher's", 0, 1, 2, 8]})
     # the segmented MBR: R-tree levels (16), fine (128) and coarse (8)
     for fan, n in ((16, 1000), (16, 1), (128, 12204), (8, 77)):
         errs["seg_mbr"] = max(errs["seg_mbr"], compare_seg_mbr(
@@ -1238,7 +1372,7 @@ def check_leafscan(ks, name, idx, us, rects, host_reach, adopt, planes):
     no upload and no adoption of the entry planes, which are ``planes``,
     the copy that ``QueryEngine`` uploaded (host build) or adopted
     (device build) for this forest.  Returns the record and K9's
-    operands of the first batch."""
+    operands of every batch."""
     import torch
     from repro_torch.kernels.range_query.layout import (
         UPLOAD_COUNTERS,
@@ -1247,7 +1381,7 @@ def check_leafscan(ks, name, idx, us, rects, host_reach, adopt, planes):
 
     ls = ks.ls
     before = dict(UPLOAD_COUNTERS)
-    with Capture(ls, "range_query", lambda *a: 0) as k9:   # the first call
+    with Capture(ls, "range_query", lambda *a: 0) as k9:
         ks.reset()
         t0 = time.perf_counter()
         got = leafscan_pass(ls, idx, us, rects)
@@ -1265,14 +1399,13 @@ def check_leafscan(ks, name, idx, us, rects, host_reach, adopt, planes):
     exc = idx.excluded[us]
     if not np.array_equal(got[~exc], host_reach[~exc]):
         raise AssertionError(f"{name}: leaf-scan answers != host index")
-    _, args, kw = k9.best
     return ({"index": name, "built_on": "device" if adopt else "host",
              "queries": len(us), "excluded": int(exc.sum()),
              "batches": batches, "launches": launches["range_query"],
              "planes": moved, "planes_shared_with_engine": shared,
              "seconds": round(dt, 3),
              "hit_rate": float(got.mean())},
-            (tuple(a.clone() for a in args), kw["dim"]))
+            [(a, k["dim"]) for a, k in k9.calls])
 
 
 def check_wavefront(ks, name, idx, us, rects, host_reach):
@@ -1360,19 +1493,22 @@ def phase_legacy(ks, indexes, built, results, engines):
     """The leaf-scan engine on each main-path index, host-built and
     device-built; the wavefront engine on each host-built index; the
     three baselines at yelp x1.0; index sizes of all six methods there.
-    Returns the leaf-scan records, K9's first-batch operands per index
-    and K9's largest difference from its plain version."""
+    Returns the leaf-scan records, K9's first-batch operands per index,
+    K9's operands of every launch per leaf-scan path and K9's largest
+    difference from its plain version."""
     from repro_torch.core import build_index, index_nbytes
 
-    leafscan, wavefront, ops = [], [], {}
+    leafscan, wavefront, ops, calls = [], [], {}, {}
     for name, (g, method, idx, host_reach, _) in indexes.items():
         eng, us, rects = engines[name]
-        rec, ops[name] = check_leafscan(ks, name, idx, us, rects, host_reach,
-                                        False, eng._arena.entries)
+        rec, calls[f"{name} host-built"] = check_leafscan(
+            ks, name, idx, us, rects, host_reach, False, eng._arena.entries)
+        ops[name] = calls[f"{name} host-built"][0]
         leafscan.append(rec)
         dev = built[name]
-        rec, _ = check_leafscan(ks, name, dev, us, rects, host_reach, True,
-                                dev.forest.device.entries)
+        rec, calls[f"{name} device-built"] = check_leafscan(
+            ks, name, dev, us, rects, host_reach, True,
+            dev.forest.device.entries)
         leafscan.append(rec)
         wavefront.append(check_wavefront(ks, name, idx, us, rects,
                                          host_reach))
@@ -1397,7 +1533,7 @@ def phase_legacy(ks, indexes, built, results, engines):
              **{m: sizes[m] for m in ("2dreach", "2dreach-comp",
                                       "2dreach-pointer", *BASELINES)}},
          max_abs_err=errs)
-    return leafscan, ops, errs
+    return leafscan, ops, calls, errs
 
 
 def arena_of(eng):
@@ -1412,7 +1548,8 @@ def arena_of(eng):
 class Capture:
     """Within ``with``, ``module.name`` is this object: it keeps the
     arguments ``(size, args, kwargs)`` of the call with the largest
-    ``size(*args)`` (the first of equals) and hands
+    ``size(*args)`` (the first of equals) as ``best`` and ``(args,
+    kwargs)`` of every call in order as ``calls``, and hands
     every call on to the kernel wrapper it replaced.  The wrapper counts
     its own launches; ``launches`` reads and writes the wrapper's count,
     so a wrapper that finds this object under its own name counts as
@@ -1422,8 +1559,10 @@ class Capture:
         self.module, self.name, self.size = module, name, size
         self.fn = getattr(module, name)
         self.best = None
+        self.calls = []
 
     def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
         n = self.size(*args)
         if self.best is None or n > self.best[0]:
             self.best = (n, args, kw)
@@ -1467,15 +1606,17 @@ def phase_device_build(ks, indexes, engines):
     build, the forest adopted by the engine, the same reach answers; the
     closure-product and segmented-MBR launches per index (one per
     condensation level with edges; one per R-tree level plus the two
-    pyramid planes), and the largest launch of each for the timing.
-    Returns the records, those launches and the device-built indexes."""
+    pyramid planes), and the largest launch of each for the timing;
+    each closure-product launch's (f, Wm, m, W) and set bits of A.
+    Returns the records, those largest launches, the device-built
+    indexes and every closure-product launch's operands per index."""
     import torch
     from repro_torch.core import QueryEngine, build_index
     from repro_torch.core import reachability
     from repro_torch.core.engine import UPLOAD_COUNTERS
     from repro_torch.kernels.forest_build import ops as fb_ops
 
-    recs, largest, built = [], {}, {}
+    recs, largest, built, k7_calls = [], {}, {}, {}
     for name, (g, method, idx, host_reach, _) in indexes.items():
         eng, us, rects = engines[name]
         cond = idx.cond
@@ -1515,6 +1656,7 @@ def phase_device_build(ks, indexes, engines):
             raise AssertionError(f"{name}: device-built engine answers != "
                                  f"host-built engine")
         largest[name] = (k7.best[1], k8.best[1])
+        k7_calls[name] = [args for args, _ in k7.calls]
         hs, ds_ = idx.stats, dev.stats
         recs.append({
             "index": name, "launches": launches, "adoption": adopted,
@@ -1524,6 +1666,9 @@ def phase_device_build(ks, indexes, engines):
             "largest_bitset_mm": list(k7.best[1][0].shape)
             + [int(k7.best[1][1].shape[1])],
             "largest_seg_mbr": list(k8.best[1][0].shape),
+            "bitset_mm_f_wm_m_w_set_bits": [
+                [*a.shape, *r.shape, set_bits(ks.bm, a, r)]
+                for a, r in k7_calls[name]],
             "host_seconds": {"closure": hs["t_closure"],
                              "forest": hs["t_forest"],
                              "total": hs["t_total"]},
@@ -1534,23 +1679,37 @@ def phase_device_build(ks, indexes, engines):
         built[name] = dev
         del deng
     emit("device_build", ok=True, indexes=recs)
-    return recs, largest, built
+    return recs, largest, built, k7_calls
+
+
+def set_bits(bm, a, r):
+    """Set bits of A at its first ``m`` columns, the ones K7 reads."""
+    return int(bm.unpack_bits(a, r.shape[0]).sum())
 
 
 # --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
+# device cycles (about 20 ms) that the stream spins before an event-timed
+# window, so that the host queues the window's calls ahead of the device
+QUEUE_SPIN_CYCLES = 40_000_000
+
+
 def event_ms(fn, iters):
     """Milliseconds per call between CUDA events around back-to-back
-    calls: the device's time when the host keeps ahead of it, the host's
-    launch rate when it does not."""
+    calls, queued behind a spin of the stream (``torch.cuda._sleep``):
+    the device's time for the calls and the gaps between them while the
+    host keeps ahead, the host's launch rate where the calls take longer
+    to queue than the spin lasts."""
     import torch
 
     for _ in range(3):
         fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     a.record()
     for _ in range(iters):
         fn()
@@ -1933,9 +2092,11 @@ def phase_timing(ks, engines, card):
     return per_mode, two, floor
 
 
-def phase_timing_slice3(ks, engines, indexes, largest, card):
+def phase_timing_slice3(ks, engines, indexes, largest, k7_calls, card):
     """K6 on the first polygon batch of the first index, K7 on the
-    largest closure-product launch of that index's device build, K8 on
+    largest closure-product launch of that index's device build and
+    summed over every launch of the three device builds
+    (``bitset_launch_sums``), K8 on
     the largest segmented-MBR launch of the last index's device build:
     device ms, plain ms, library ms where one PyTorch call computes the
     same function, the bound from these inputs; each kernel also held
@@ -1993,10 +2154,7 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
                               bm.bitset_mm_torch(a, r))
     ab = bm.unpack_bits(a, m).to(torch.bfloat16)
     rb = bm.unpack_bits(r, W * 32).to(torch.bfloat16)
-    set_bits = int(bm.unpack_bits(a, m).sum())
-    nbytes = (a.numel() + r.numel() + a.shape[0] * W) * 4
-    bms, by, work = bound(nbytes, set_bits * W, 0, set_bits_of_a=set_bits,
-                          shape_f_wm_w=[a.shape[0], a.shape[1], W])
+    bms, by, work = bitset_bound(bm, a, r)
     timed["bitset_mm"] = {
         "ms": device_ms(lambda: bm.bitset_mm(a, r, device=DEVICE), 50,
                         "bitset_mm"),
@@ -2006,7 +2164,8 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
                                 "torch.matmul bf16"),
         "library_note": "torch.matmul of the unpacked bf16 operands, "
                         "excluding unpack and pack",
-        "bound_ms": bms, "bound_by": by, "index": name, **work}
+        "bound_ms": bms, "bound_by": by, "index": name, **work,
+        "launch_sums": bitset_launch_sums(bm, k7_calls)}
 
     last = list(engines)[-1]
     (c,) = largest[last][1]
@@ -2035,6 +2194,80 @@ def phase_timing_slice3(ks, engines, indexes, largest, card):
          polygon_e2e_us_per_query=e2e, max_abs_err=errs)
     phase_profile(eng.polygon_batch, pus, ppolys, e2e, "two_phase", "polygon")
     return timed, errs
+
+
+def bitset_bound(bm, a, r):
+    """K7's least time on these operands: the bytes of A, R and out,
+    against one integer OR per set bit of A and output word."""
+    f, Wm = a.shape
+    m, W = r.shape
+    bits = set_bits(bm, a, r)
+    nbytes = (a.numel() + r.numel() + f * W) * 4
+    return bound(nbytes, bits * W, 0, set_bits_of_a=bits,
+                 shape_f_wm_m_w=[f, Wm, m, W])
+
+
+def bitset_launch_sums(bm, calls):
+    """K7 summed over its launches, per index and in all: each distinct
+    (f, Wm, m, W) timed once, on its first launch's operands; each
+    launch's bound from its own operands.  Also the largest launch
+    (f * W) of each index."""
+    ms, rec = {}, {}
+    for name, launches in calls.items():
+        rows = []
+        for a, r in launches:
+            key = (*a.shape, *r.shape)
+            if key not in ms:
+                ms[key] = device_ms(
+                    lambda a=a, r=r: bm.bitset_mm(a, r, device=DEVICE), 20,
+                    f"bitset_mm {list(key)}")
+            bms, _, work = bitset_bound(bm, a, r)
+            rows.append([*key, work["set_bits_of_a"], ms[key], bms])
+        big = max(rows, key=lambda x: x[0] * x[3]) if rows else None
+        rec[name] = {"launches": len(rows),
+                     "ms": sum(x[5] for x in rows),
+                     "bound_ms": sum(x[6] for x in rows),
+                     "largest_f_wm_m_w_bits_ms_bound": big,
+                     "f_wm_m_w_bits_ms_bound": rows}
+    rec["all"] = {k: sum(v[k] for v in rec.values())
+                  for k in ("launches", "ms", "bound_ms")}
+    rec["all"]["distinct_shapes"] = len(ms)
+    return rec
+
+
+def same_operands(a, b):
+    """The same operands, value for value: slices and rects compared
+    first, the planes last."""
+    return all(x.shape == y.shape and bool((x == y).all())
+               for x, y in zip(a[::-1], b[::-1]))
+
+
+def range_query_launch_sums(ls, calls):
+    """K9 summed over its launches, per leaf-scan path and in all: a
+    launch whose operands equal an earlier one's (a device-built
+    index's batch and the host-built index's) is timed once; each
+    distinct one's bound from its own operands."""
+    timed, rec = [], {}
+    for path, launches in calls.items():
+        tot = [0.0, 0.0]
+        for args, dim in launches:
+            one = next((t for t in timed
+                        if t[1] == dim and same_operands(t[0], args)), None)
+            if one is None:
+                ms = device_ms(
+                    lambda args=args, dim=dim: ls.range_query(
+                        *args, dim=dim, device=DEVICE), 20,
+                    f"range_query ({path}, launch {len(timed)})")
+                one = (args, dim, ms, range_query_bound(args, dim)[0])
+                timed.append(one)
+            tot[0] += one[2]
+            tot[1] += one[3]
+        rec[path] = {"launches": len(launches), "ms": tot[0],
+                     "bound_ms": tot[1]}
+    rec["all"] = {k: sum(v[k] for v in rec.values())
+                  for k in ("launches", "ms", "bound_ms")}
+    rec["all"]["distinct_operands"] = len(timed)
+    return rec
 
 
 def range_query_bound(args, dim):
@@ -2085,28 +2318,27 @@ def passes_us(fn, n):
     return (time.perf_counter() - t0) / (3 * n) * 1e6
 
 
-def phase_timing_slice4(ks, engines, indexes, ops, card):
-    """K9 on the first leaf-scan batch of yelp x1.0 comp and of yelp x0.5
-    base, and on a random arena of the comp arena's size with distinct
-    slices (dims 2 and 3): device ms, plain ms, the bound from these
-    inputs (no single PyTorch call computes a masked segmented any);
-    each also held against its plain version.  End-to-end µs per query of the
-    leaf-scan, wavefront and fused engines on every main-path index, and
-    the device's busy share of a leaf-scan and a wavefront pass."""
-    from repro_torch.core import query_wavefront
-
+def range_query_cases(ops):
+    """K9's four timed operand sets: the first leaf-scan batch of the
+    first and the last index (``ops``: yelp x1.0 comp and x0.5 base),
+    and a random arena of the comp arena's size (seed 4) whose 256
+    queries probe distinct, mostly missed slices, at dims 2 and 3."""
     import torch
 
-    ls = ks.ls
-    first, last = next(iter(engines)), list(engines)[-1]
-    # the main path's batches share one tree's slice; the random arena
-    # at the yelp x1.0 comp size gives distinct slices, mostly missed
+    first, last = next(iter(ops)), list(ops)[-1]
     rng = np.random.default_rng(4)
     cases = {name: ops[name] for name in (first, last)}
     for dim in (2, 3):
         cases[f"random {ARENAS[0][0]} tiles dim {dim}"] = (leafscan_case(
             rng, ARENAS[0][0], ARENAS[0][1], dim, BATCH,
             torch.device(DEVICE)), dim)
+    return cases
+
+
+def time_range_query(ks, cases):
+    """K9 on each case, held against its plain version first: device
+    ms, the plain version's ms and the bound from these inputs."""
+    ls = ks.ls
     timed = {}
     for name, (args, dim) in cases.items():
         compare_range_query(ks, args, dim, f"{name} timing operands")
@@ -2120,6 +2352,23 @@ def phase_timing_slice4(ks, engines, indexes, ops, card):
                                   f"range_query_torch ({name})"),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
             "operands": name, "dim": dim, **work}
+    return timed
+
+
+def phase_timing_slice4(ks, engines, indexes, ops, k9_calls, card):
+    """K9 on ``range_query_cases``: device ms, plain ms, the bound from
+    these inputs (no single PyTorch call computes a masked segmented
+    any); each also held against its plain version.  K9 summed over
+    every launch of the leaf-scan engine's main paths
+    (``range_query_launch_sums``).  End-to-end µs per query of the
+    leaf-scan, wavefront and fused engines on every main-path index, and
+    the device's busy share of a leaf-scan and a wavefront pass."""
+    from repro_torch.core import query_wavefront
+
+    ls = ks.ls
+    first = next(iter(engines))
+    timed = time_range_query(ks, range_query_cases(ops))
+    sums = range_query_launch_sums(ls, k9_calls)
     e2e = {}
     for name, (g, method, idx, _, _) in indexes.items():
         eng, us, rects = engines[name]
@@ -2130,7 +2379,7 @@ def phase_timing_slice4(ks, engines, indexes, ops, card):
             "wavefront": passes_us(lambda: wavefront_pass(idx, us, rects),
                                    len(us))}
     emit("timing_slice4", card=card, B=BATCH, range_query=timed,
-         e2e_us_per_query=e2e)
+         launch_sums=sums, e2e_us_per_query=e2e)
     idx = indexes[first][2]
     _, us, rects = engines[first]
     phase_profile(lambda u, r: ls.range_query_forest(
@@ -2139,7 +2388,7 @@ def phase_timing_slice4(ks, engines, indexes, ops, card):
     phase_profile(lambda u, r: query_wavefront(
         idx.forest, idx.lookup_tree(u), r, capacity=WAVEFRONT_CAPACITY),
         us, rects, e2e[first]["wavefront"], "wavefront", "reach")
-    return timed
+    return timed, sums
 
 
 def phase_profile(query, us, regions, e2e_us_per_query, path, mode):
@@ -2460,17 +2709,29 @@ def phase_ab(ks, card, src):
     ``src``.  The inputs are made the same way by any checkout of the
     port, so two checkouts can be timed in turns on one card (parent,
     change, change, parent).  K4 and K6 are also timed at each cluster
-    size of SWEEP_CLUSTERS (``cluster_sweep``)."""
+    size of SWEEP_CLUSTERS (``cluster_sweep``).  Before all of these,
+    ``ab_build_scan``: K7 and K9 per launch and summed, beside the
+    launch floor."""
     from repro_torch.core import QueryEngine, build_index
     from repro_torch.core import engine as core_engine
     from repro_torch.data import get_dataset, polygon_workload, workload
 
-    fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
-    for ds, scale, method in (CONFIGS[0], CONFIGS[-1]):
-        name = f"{ds}x{scale} {method}"
+    indexes = {}
+    for ds, scale, method in CONFIGS:
         g = get_dataset(ds, scale=scale)
         us, rects = workload(g, N_QUERIES, extent_ratio=0.05)
-        eng = QueryEngine(build_index(g, method))
+        indexes[f"{ds}x{scale} {method}"] = (g, method, build_index(
+            g, method), us, rects)
+    # K7 and K9 first, as in the full run, where every kernel has run
+    # before the first profiled window: in a run that first launched
+    # them after K1-K6's windows, the profiler kept no device event of
+    # most of their windows
+    bitset, range_query = ab_build_scan(ks, indexes)
+    floor = launch_floor_ms()
+    fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
+    for name in (next(iter(indexes)), list(indexes)[-1]):
+        g, method, idx, us, rects = indexes[name]
+        eng = QueryEngine(idx)
         serve_all(eng, us, rects)              # to the steady capacity
         _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
         args = tuple(a.clone() for a in args)
@@ -2544,7 +2805,38 @@ def phase_ab(ks, card, src):
             f"_embed_items ({shape} history)")
     emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
          prune_tiles=prune, scans=scans, polygon_scan=polygon, din=serve,
+         bitset_mm=bitset, range_query=range_query, launch_floor_ms=floor,
          timers=TIMERS)
+
+
+def ab_build_scan(ks, indexes):
+    """``--ab``'s K7 and K9: each index built again with
+    ``backend="device"``, every closure-product launch captured
+    (``Capture``, as ``phase_device_build`` does) and summed
+    (``bitset_launch_sums``, with each index's largest launch); the
+    leaf-scan engine over each index's workload, host- and device-built,
+    every K9 launch captured and summed (``range_query_launch_sums``),
+    and K9 on ``range_query_cases`` (the first batch of yelp x1.0 comp
+    and x0.5 base, the random arena at dims 2 and 3)."""
+    from repro_torch.core import build_index
+    from repro_torch.core import reachability
+
+    k7_calls, k9_calls, ops = {}, {}, {}
+    for name, (g, method, idx, us, rects) in indexes.items():
+        with Capture(reachability, "bitset_mm",
+                     lambda a, r: a.shape[0] * r.shape[1]) as k7:
+            dev = build_index(g, method, backend="device")
+        k7_calls[name] = [args for args, _ in k7.calls]
+        for built_on, ix in (("host", idx), ("device", dev)):
+            with Capture(ks.ls, "range_query", lambda *a: 0) as k9:
+                leafscan_pass(ks.ls, ix, us, rects)
+            k9_calls[f"{name} {built_on}-built"] = [
+                (a, k["dim"]) for a, k in k9.calls]
+        ops[name] = k9_calls[f"{name} host-built"][0]
+    bitset = bitset_launch_sums(ks.bm, k7_calls)
+    range_query = {"cases": time_range_query(ks, range_query_cases(ops)),
+                   "launch_sums": range_query_launch_sums(ks.ls, k9_calls)}
+    return bitset, range_query
 
 
 # --------------------------------------------------------------------------
@@ -2573,8 +2865,8 @@ def phase_build(_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="SRC",
-                    help="time K1-K6 and DIN's serving with the package "
-                         "under SRC only (phase_ab)")
+                    help="time K1-K7, K9 and DIN's serving with the "
+                         "package under SRC only (phase_ab)")
     a = ap.parse_args()
     try:
         import torch
@@ -2598,6 +2890,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     if a.ab:
+        phase_build(_build)
         phase_ab(ks, card, a.ab)
         return 0
     import scipy
@@ -2612,19 +2905,22 @@ def main() -> int:
     results, two_phase, knn, polygons, engines, indexes = phase_main(ks)
     emit("main", launches={r["index"]: r["launches"] for r in results},
          indexes=results, two_phase=two_phase, knn=knn, polygons=polygons)
-    builds, largest, built = phase_device_build(ks, indexes, engines)
-    leafscan, ls_ops, errs4 = phase_legacy(ks, indexes, built, results,
-                                           engines)
+    builds, largest, built, k7_calls = phase_device_build(ks, indexes,
+                                                          engines)
+    leafscan, ls_ops, k9_calls, errs4 = phase_legacy(ks, indexes, built,
+                                                     results, engines)
     del built
     for k, v in (*errs4.items(),
                  *phase_main_batches(ks, engines, ls_ops).items()):
         errs[k] = max(errs[k], v)
 
     per_mode, two, floor = phase_timing(ks, engines, card)
-    slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest, card)
+    slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest,
+                                        k7_calls, card)
     for k, v in errs3.items():
         errs[k] = max(errs[k], v)
-    slice4 = phase_timing_slice4(ks, engines, indexes, ls_ops, card)
+    slice4, k9_sums = phase_timing_slice4(ks, engines, indexes, ls_ops,
+                                          k9_calls, card)
     bag_paths, bag_err, bag_timed = phase_recsys(ks, card)
     errs["segment_bag"] = max(errs["segment_bag"], bag_err)
     # launches on the main path, per path: each index's fused serving,
@@ -2652,7 +2948,8 @@ def main() -> int:
     per_path["segment_bag"] = bag_paths
     emit("timers", **TIMERS)
     timed = {"fused_serve": per_mode["reach"], **two, **slice3,
-             "range_query": slice4[next(iter(engines))],
+             "range_query": {**slice4[next(iter(engines))],
+                             "launch_sums": k9_sums},
              "segment_bag": bag_timed}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": CSRC + RECORD[k][0],
@@ -2663,7 +2960,9 @@ def main() -> int:
         "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
         "bound_ms": timed[k]["bound_ms"], "bound_by": timed[k]["bound_by"],
         "library_ms": timed[k].get("library_ms"),
-        **({"launch_floor_ms": floor} if k in SERVING else {})}
+        **({"launch_floor_ms": floor} if k in SERVING else {}),
+        **({"launch_sums": timed[k]["launch_sums"]["all"]}
+           if "launch_sums" in timed[k] else {})}
         for k in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,11 +67,12 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Tuple[Path, str]:
     """Compile kernel ``name`` unless it is built already.  Returns its
-    library path and the compiler's output (``""`` where the library was
-    already built)."""
+    library path and the compiler's output, kept beside the library
+    (``<library>.log``) for a library built earlier."""
     path = library_path(name)
+    log = path.with_suffix(".log")
     if path.exists():
-        return path, ""
+        return path, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(
@@ -80,6 +81,7 @@ def build(name: str) -> Tuple[Path, str]:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed for {name} (exit {proc.returncode}):\n{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, path)                # atomic: a racing build is harmless
     return path, proc.stdout
 

@@ -15,8 +15,10 @@ them as ``uint32_t``.  :func:`uint32_bits` turns NumPy ``uint32`` masks
 into such tensors.
 
 * :func:`bitset_mm` — on a CUDA tensor it launches
-  ``csrc/bitset_mm.cu`` (K7); on a CPU tensor it runs
-  :func:`bitset_mm_torch`.
+  ``csrc/bitset_mm.cu`` (K7), in the instantiation
+  :func:`cluster_size` picks (a warp per row of A, or a hub row's set
+  columns spread over a block or a thread block cluster); on a CPU
+  tensor it runs :func:`bitset_mm_torch`.
 * :func:`bitset_mm_torch` — the plain version, a port of
   ``bitset_mm_ref``: unpack, float32 matrix product, threshold, pack.
 """
@@ -29,10 +31,13 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor
+from .._build import call, check_tensor, sm_count
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+ROWS = 8            # rows of A per CTA of K7
+MAX_CLUSTER = 8     # CTAs per thread block cluster of K7
+HUB = 64            # set columns per row of A from which K7 spreads a row
 
 
 def uint32_bits(x: np.ndarray, device) -> torch.Tensor:
@@ -71,6 +76,26 @@ def bitset_mm_torch(a_bits: torch.Tensor, r_bits: torch.Tensor
     return pack_bits((a.to(torch.float32) @ r.to(torch.float32)) > 0)
 
 
+def cluster_size(f: int, m: int, n_sms: int) -> int:
+    """K7's instantiation for ``f`` rows of A over ``m`` columns: 0
+    (ROWWISE, a warp per row) unless the rows average at least ``HUB``
+    set columns; then SPREAD, the set columns of each 8 rows shared by
+    a thread block cluster of the least of 1, 2, 4, 8 CTAs whose
+    clusters cover the ``n_sms`` multiprocessors.  In the closure every
+    column is set in some row (the columns are the level's distinct
+    destinations), so ``m / f`` is a lower bound on a row's average: a
+    hub of the condensation, a single row with hundreds of out-edges,
+    is spread over several multiprocessors, and every other level keeps
+    a warp per row."""
+    if m < HUB * f:
+        return 0
+    blocks = (f + ROWS - 1) // ROWS
+    c = 1
+    while c < MAX_CLUSTER and blocks * c < n_sms:
+        c *= 2
+    return c
+
+
 def bitset_mm(
     a_bits: torch.Tensor,   # (f, Wm) int32 packed adjacency rows
     r_bits: torch.Tensor,   # (m, W) int32 packed set rows, m <= 32*Wm
@@ -93,14 +118,14 @@ def bitset_mm(
         return bitset_mm_torch(a_bits, r_bits)
     check_tensor("a_bits", a_bits, torch.int32, (f, Wm), dev)
     check_tensor("r_bits", r_bits, torch.int32, (m, W), dev)
-    if (W + 31) // 32 > 65535:
+    if (W + 127) // 128 > 65535:
         raise ValueError(f"W={W} words out of range for the kernel's grid")
     out = torch.empty((f, W), dtype=torch.int32, device=a_bits.device)
     if f == 0 or W == 0:
         return out
-    call("bitset_mm", "bitset_mm_launch", [_PTR] * 3 + [_INT] * 4,
+    call("bitset_mm", "bitset_mm_launch", [_PTR] * 3 + [_INT] * 5,
          out.device, a_bits.data_ptr(), r_bits.data_ptr(), out.data_ptr(),
-         f, Wm, m, W)
+         f, Wm, m, W, cluster_size(f, m, sm_count(out.device)))
     bitset_mm.launches += 1
     return out
 

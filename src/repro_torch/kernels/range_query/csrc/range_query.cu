@@ -19,87 +19,168 @@
 // rects and slices read once and the output written once, against
 // 2*dim float32 compares per slice entry per query.  Compares only, with
 // no arithmetic, so the kernel equals its plain PyTorch version exactly.
+// On the main path every query of a batch reads one tree's slice of
+// about 1,800 entries, which sits in L2: the time is the launch and the
+// dependent round trips, not bytes.
 //
-// Design: one warp per query, 8 warps (256 threads) per block.  The lanes
-// stride the slice over the coalesced SoA planes, four 32-entry steps per
-// iteration so that four loads per plane are in flight; after each
-// iteration __any_sync tells the warp whether a lane hit, and the warp
-// leaves at its first hit.  An empty slice (tree id -1, a padded query)
-// writes 0 without reading an entry.  Nothing carries across warps or
-// blocks; the ragged batch (B not a multiple of 8) is masked here.
+// Design: one 256-thread block per query, so a batch of 256 is 256
+// blocks on the card's 132 SMs.  A round covers 2,048 entries of the
+// slice: each thread issues all its loads of the round (two 16-byte
+// loads of each plane in the VEC instantiation, eight 4-byte loads in
+// the scalar one) before it compares any, so a slice of up to 2,048
+// entries costs one round trip after the slice bounds.  The VEC
+// instantiation reads the aligned middle of the slice as float4s and
+// the up to 3 entries before its first 4-entry boundary (the head) and
+// after its last (the tail) as scalars in the first round; the launcher
+// chooses it where every plane starts on a 16-byte boundary (P % 4 == 0
+// and an aligned base: the engines pad P to a multiple of 128), and the
+// scalar instantiation elsewhere.  After each round __syncthreads_or
+// ORs the block's hits and the block leaves at its first hit, so a
+// longer slice (a large tree, the whole arena) stops early.  An empty or
+// clipped-away slice (tree id -1, a padded query) writes 0 without
+// reading an entry.  Nothing carries across blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;     // queries per block
-constexpr int UNROLL = 4;    // 32-entry steps per iteration
+constexpr int THREADS = 256;                 // one block per query
+constexpr int GROUPS = 2;                    // float4 groups a thread a round
+constexpr int ROUND = THREADS * GROUPS * 4;  // entries a round: 2,048
 
 template <int DIM>
-__global__ void __launch_bounds__(WARPS * 32)
+__device__ __forceinline__ bool box_hit(const float (&e)[2 * DIM],
+                                        const float (&rlo)[DIM],
+                                        const float (&rhi)[DIM]) {
+  bool ok = true;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+    ok &= e[a] <= rhi[a];
+    ok &= e[DIM + a] >= rlo[a];
+  }
+  return ok;
+}
+
+template <int DIM, bool VEC>
+__global__ void __launch_bounds__(THREADS)
 range_query_kernel(const float* __restrict__ entries,   // (2*DIM, P)
                    const float* __restrict__ rects,     // (2*DIM, B)
                    const int32_t* __restrict__ qstart,  // (B,)
                    const int32_t* __restrict__ qend,    // (B,)
                    int32_t* __restrict__ out,           // (B,)
                    int P, int B) {
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (q >= B) return;
-  const int lo = max(qstart[q], 0);
-  const int hi = min(qend[q], P);
+  const int q = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lo = max(__ldg(qstart + q), 0);
+  const int hi = min(__ldg(qend + q), P);
   float rlo[DIM], rhi[DIM];
 #pragma unroll
   for (int a = 0; a < DIM; ++a) {
-    rlo[a] = rects[(size_t)a * B + q];
-    rhi[a] = rects[(size_t)(DIM + a) * B + q];
+    rlo[a] = __ldg(rects + (size_t)a * B + q);
+    rhi[a] = __ldg(rects + (size_t)(DIM + a) * B + q);
+  }
+  if (hi <= lo) {                            // block-uniform
+    if (t == 0) out[q] = 0;
+    return;
   }
   bool found = false;
-  for (int base = lo; base < hi && !found; base += 32 * UNROLL) {
-    bool hit = false;
+  if (VEC) {
+    // [lo, a0) head, [a0, a1) float4 groups, [a1, hi) tail
+    const int a0 = min((lo + 3) & ~3, hi);
+    const int a1 = max(hi & ~3, a0);
+    // the head's and the tail's entries, one a thread, in the first round
+    const int hg = t < 3 ? lo + t : a1 + t - 3;
+    const bool hlive = t < 3 ? hg < a0 : (t < 6 && hg < hi);
+    float he[2 * DIM];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int g = base + u * 32 + lane;
-      if (g < hi) {
-        bool ok = true;
+    for (int p = 0; p < 2 * DIM; ++p)
+      he[p] = hlive ? __ldg(entries + (size_t)p * P + hg) : 0.f;
+    bool hit = hlive && box_hit<DIM>(he, rlo, rhi);
+    for (int base = a0;; base += ROUND) {
+      float4 v[GROUPS][2 * DIM];
+      bool live[GROUPS];
 #pragma unroll
-        for (int a = 0; a < DIM; ++a) {
-          ok &= entries[(size_t)a * P + g] <= rhi[a];
-          ok &= entries[(size_t)(DIM + a) * P + g] >= rlo[a];
-        }
-        hit |= ok;
+      for (int u = 0; u < GROUPS; ++u) {
+        const int g = base + 4 * (t + THREADS * u);
+        live[u] = g < a1;
+#pragma unroll
+        for (int p = 0; p < 2 * DIM; ++p)
+          v[u][p] = live[u] ? __ldg(reinterpret_cast<const float4*>(
+                                  entries + (size_t)p * P + g))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
       }
+#pragma unroll
+      for (int u = 0; u < GROUPS; ++u) {
+        if (!live[u]) continue;
+        float e[4][2 * DIM];
+#pragma unroll
+        for (int p = 0; p < 2 * DIM; ++p) {
+          e[0][p] = v[u][p].x;
+          e[1][p] = v[u][p].y;
+          e[2][p] = v[u][p].z;
+          e[3][p] = v[u][p].w;
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) hit |= box_hit<DIM>(e[s], rlo, rhi);
+      }
+      found = __syncthreads_or(hit);
+      if (found || base + ROUND >= a1) break;
     }
-    found = __any_sync(0xffffffffu, hit);
+  } else {
+    for (int base = lo;; base += ROUND) {
+      float e[GROUPS * 4][2 * DIM];
+      bool live[GROUPS * 4];
+#pragma unroll
+      for (int u = 0; u < GROUPS * 4; ++u) {
+        const int g = base + t + THREADS * u;
+        live[u] = g < hi;
+#pragma unroll
+        for (int p = 0; p < 2 * DIM; ++p)
+          e[u][p] = live[u] ? __ldg(entries + (size_t)p * P + g) : 0.f;
+      }
+      bool hit = false;
+#pragma unroll
+      for (int u = 0; u < GROUPS * 4; ++u)
+        hit |= live[u] && box_hit<DIM>(e[u], rlo, rhi);
+      found = __syncthreads_or(hit);
+      if (found || base + ROUND >= hi) break;
+    }
   }
-  if (lane == 0) out[q] = found ? 1 : 0;
+  if (t == 0) out[q] = found ? 1 : 0;
 }
 
 template <int DIM>
 int launch(const void* entries, const void* rects, const void* qstart,
-           const void* qend, void* out, int P, int B, void* stream) {
-  const int blocks = (B + WARPS - 1) / WARPS;
-  range_query_kernel<DIM><<<blocks, WARPS * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(entries), static_cast<const float*>(rects),
-      static_cast<const int32_t*>(qstart), static_cast<const int32_t*>(qend),
-      static_cast<int32_t*>(out), P, B);
+           const void* qend, void* out, int P, int B, int vec, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto e = static_cast<const float*>(entries);
+  const auto r = static_cast<const float*>(rects);
+  const auto qs = static_cast<const int32_t*>(qstart);
+  const auto qe = static_cast<const int32_t*>(qend);
+  const auto o = static_cast<int32_t*>(out);
+  if (vec)
+    range_query_kernel<DIM, true><<<B, THREADS, 0, s>>>(e, r, qs, qe, o, P, B);
+  else
+    range_query_kernel<DIM, false><<<B, THREADS, 0, s>>>(e, r, qs, qe, o, P,
+                                                         B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  Launches on `stream`, never synchronises, and
-// returns cudaGetLastError() so a refused launch is reported to the caller;
-// a dim other than 2 or 3 returns cudaErrorInvalidValue without a launch.
+// Plain C entry for ctypes.  `vec` != 0 takes the float4 instantiation,
+// which needs every plane on a 16-byte boundary (the wrapper checks).
+// Launches on `stream`, never synchronises, and returns cudaGetLastError()
+// so a refused launch is reported to the caller; a dim other than 2 or 3
+// returns cudaErrorInvalidValue without a launch.
 extern "C" int range_query_launch(const void* entries, const void* rects,
                                   const void* qstart, const void* qend,
-                                  void* out, int P, int B, int dim,
+                                  void* out, int P, int B, int dim, int vec,
                                   void* stream) {
   if (dim == 2)
-    return launch<2>(entries, rects, qstart, qend, out, P, B, stream);
+    return launch<2>(entries, rects, qstart, qend, out, P, B, vec, stream);
   if (dim == 3)
-    return launch<3>(entries, rects, qstart, qend, out, P, B, stream);
+    return launch<3>(entries, rects, qstart, qend, out, P, B, vec, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

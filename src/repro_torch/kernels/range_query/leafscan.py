@@ -47,6 +47,15 @@ def range_query_torch(entries_soa, rects_soa, qstart, qend, *,
     return ok.any(dim=1).to(torch.int32)
 
 
+def vector_planes(entries_soa: torch.Tensor) -> bool:
+    """Whether K9 reads the planes of ``entries_soa`` (``(2*dim, P)``,
+    contiguous) as 16-byte vectors: every plane must start on a 16-byte
+    boundary, so ``P % 4 == 0`` and an aligned base.  The engines' planes
+    are padded to a multiple of 128 entries and take it; other planes
+    take the kernel's scalar instantiation."""
+    return entries_soa.shape[1] % 4 == 0 and entries_soa.data_ptr() % 16 == 0
+
+
 def range_query(
     entries_soa: torch.Tensor,   # (2*dim, P) float32
     rects_soa: torch.Tensor,     # (2*dim, B) float32
@@ -60,7 +69,8 @@ def range_query(
     query's rect.  ``device`` (``None``: the GPU) must be where the
     tensors lie: on a CUDA device the K9 kernel runs (``dim`` 2 or 3,
     any ``B`` >= 1; a slice is clipped to ``[0, P)``, as the plain
-    version's index test clips it), and a build or launch failure
+    version's index test clips it; :func:`vector_planes` picks its
+    instantiation), and a build or launch failure
     raises; on the CPU the plain version runs."""
     dev = resolve_device(device)
     if not same_device(entries_soa.device, dev):
@@ -82,9 +92,10 @@ def range_query(
     check_tensor("qstart", qstart, torch.int32, (B,), dev)
     check_tensor("qend", qend, torch.int32, (B,), dev)
     out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
-    call("range_query", "range_query_launch", [_PTR] * 5 + [_INT] * 3,
+    call("range_query", "range_query_launch", [_PTR] * 5 + [_INT] * 4,
          out.device, entries_soa.data_ptr(), rects_soa.data_ptr(),
-         qstart.data_ptr(), qend.data_ptr(), out.data_ptr(), P, B, dim)
+         qstart.data_ptr(), qend.data_ptr(), out.data_ptr(), P, B, dim,
+         int(vector_planes(entries_soa)))
     range_query.launches += 1
     return out
 

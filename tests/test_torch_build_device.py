@@ -45,6 +45,7 @@ from repro_torch.core.reachability import closure_bitset_mm, closure_np
 from repro_torch.core.rtree import build_forest, build_forest_device
 from repro_torch.data import get_dataset, workload
 from repro_torch.kernels import bitset_mm as BM
+from repro_torch.kernels.bitset_mm import ops as BMO
 from repro_torch.kernels import forest_build as FB
 from repro_torch.kernels.range_query.layout import (
     COARSE_GROUP,
@@ -91,20 +92,23 @@ def _same_index(a, b):
 
 # ------------------------------------------------------------------- K7
 @pytest.mark.parametrize("f,m,W", [(1, 1, 1), (5, 32, 1), (13, 33, 3),
-                                   (40, 100, 130), (64, 64, 5)])
+                                   (40, 100, 130), (64, 64, 5),
+                                   (9, 61, 1), (7, 93, 33), (4, 200, 129)])
 def test_bitset_mm_matches_reference(f, m, W):
     rng = np.random.default_rng(f * m + W)
     Wm = (m + 31) // 32
     a = _words(rng, (f, Wm))
-    if m % 32:
-        a[:, -1] &= np.uint32((1 << (m % 32)) - 1)   # no columns past m
+    a[1::4] = 0xFFFFFFFF                      # dense rows
+    if m % 32:                                # bits at columns >= m
+        a[:, -1] |= np.uint32(0xFFFFFFFF << (m % 32) & 0xFFFFFFFF)
     a[0, 0] |= np.uint32(1)                   # row 0 reaches column 0 ...
     r = _words(rng, (m, W), p_zero=0.3)
     r[0] |= np.uint32(1 << 31)                # ... whose bit 31 is set
     got = BM.bitset_mm_torch(BM.uint32_bits(a, CPU), BM.uint32_bits(r, CPU))
     assert got.dtype == torch.int32 and tuple(got.shape) == (f, W)
     got = got.numpy().view(np.uint32)
-    # the reference pads to its tile, as its closure does
+    # the reference pads to its tile, as its closure does: its zero
+    # rows at and past m stand for the columns the port masks
     r_pad = np.zeros((32 * Wm, W), np.uint32)
     r_pad[:m] = r
     want_ref = np.asarray(RBR.bitset_mm_ref(jnp.asarray(a),
@@ -112,6 +116,8 @@ def test_bitset_mm_matches_reference(f, m, W):
     want_kernel = RBO.bitset_mm(a, r, interpret=True)
     assert np.array_equal(got, want_ref) and np.array_equal(got, want_kernel)
     assert (got[0] >> 31).all() and (f < 13 or (got == 0).any())
+    if f > 1:                                 # a dense row ORs all of R
+        assert np.array_equal(got[1], np.bitwise_or.reduce(r, axis=0))
     # the wrapper on a CPU tensor runs the plain version, uncounted
     before = BM.bitset_mm.launches
     assert np.array_equal(BM.bitset_mm(
@@ -122,6 +128,36 @@ def test_bitset_mm_matches_reference(f, m, W):
         BM.bitset_mm(BM.uint32_bits(a, CPU),
                      BM.uint32_bits(np.zeros((32 * Wm + 1, W)), CPU),
                      device="cpu")
+
+
+@pytest.mark.parametrize("f,m,want", [
+    (1, 1, 0), (1, 63, 0), (1, 64, 8), (1, 977, 8), (8, 512, 8),
+    (9, 576, 8), (264, 16896, 4), (528, 33792, 2), (1048, 67072, 2),
+    (1056, 67584, 1), (2000, 128000, 1), (2000, 127999, 0),
+    (8436, 2383, 0), (17878, 2875, 0)])
+def test_bitset_mm_cluster_size(f, m, want):
+    """K7's instantiation on 132 multiprocessors: ROWWISE (0) unless the
+    f rows average at least HUB = 64 of the m columns; then SPREAD with
+    the least of 1, 2, 4, 8 CTAs per 8 rows whose clusters cover the
+    multiprocessors."""
+    assert BMO.HUB == 64
+    assert BMO.cluster_size(f, m, 132) == want
+
+
+def test_build_keeps_the_compiler_log(tmp_path, monkeypatch):
+    """A kernel library built earlier reports its compiler's output
+    (the ptxas register lines) again, from the log beside it."""
+    from repro_torch.kernels import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info : Used 32 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    path, log = _build.build("bitset_mm")
+    assert path.exists() and "Used 32 registers" in log
+    assert _build.build("bitset_mm") == (path, log)
 
 
 def test_pack_unpack_match_reference():

@@ -1,8 +1,13 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
 descent / count / collect / polygon scans (K4 and K6 also at K = 1 to
 64, B = 8 to 2048, rows of padding only, tiles outside the arena, 4, 8
-and 16 half-planes), the packed closure product,
-the segmented-MBR reduction, the full-arena leaf scan, the fused
+and 16 half-planes), the packed closure product (also at f = 1 to
+4,099, Wm = 1 to 200, W = 1 to 300, with dense rows, rows without a bit
+and bits at columns >= m), the segmented-MBR reduction, the full-arena
+leaf scan (also on P = 0, 1,001 and 40,000 at B = 1 to 2048, slices of
+every start residue mod 4 and length 0 to 5,000, clipped, empty and
+reversed, hits at a slice's first or last entry, planes at a misaligned
+base), the fused
 EmbeddingBag) against its plain PyTorch version, the wrappers' input
 checks, the engine on the card (both paths, polygons) against the
 engine on the CPU, the device build on the card against the host build,
@@ -40,6 +45,7 @@ from repro_torch.data import (
     workload,
 )
 from repro_torch.kernels import bitset_mm as BM
+from repro_torch.kernels.bitset_mm import ops as BMO
 from repro_torch.kernels import forest_build as FB
 from repro_torch.kernels import segment_bag as SB
 from repro_torch.kernels.range_query import analytics as A
@@ -540,24 +546,54 @@ def test_polygon_kernel_on_edges_at_each_edge_bucket(cuda, B, ne):
     assert int(got.sum()) > 0
 
 
-@pytest.mark.parametrize("f,m,W", [(1, 1, 1), (37, 64, 3), (300, 33, 70),
-                                   (1000, 900, 40)])
-def test_bitset_mm_kernel_matches_plain(cuda, f, m, W):
-    rng = np.random.default_rng(f + m + W)
+# K7's cases: f rows; Wm words of A (m = 32*Wm - 3 columns, so the last
+# word holds bits at columns >= m); W words of out (one to three warps'
+# spans of 128 words)
+BITSET_CASES = [(1, 1, 1), (37, 64, 3), (300, 33, 70), (1000, 900, 40)] + [
+    (f, 32 * wm - 3, W) for f in (1, 7, 9, 4099) for wm in (1, 3, 90, 200)
+    for W in (1, 31, 32, 33, 95, 128, 129, 300)]
+
+
+def bitset_case(seed, f, m, W):
+    """K7's operands as uint32 words: random sparse rows, every fourth
+    row from row 1 fully dense and every fourth from row 2 without a bit
+    below column m; the last column set in row 0; every row's bits at
+    columns >= m set (the kernel must mask them); bit 31 in R's first
+    and last column."""
+    rng = np.random.default_rng(seed)
     Wm = (m + 31) // 32
     a = rng.integers(0, 2 ** 32, (f, Wm), dtype=np.uint64).astype(np.uint32)
     a[rng.random((f, Wm)) < 0.7] = 0             # many zero words
-    a[:, -1] &= np.uint32((1 << (m - 32 * (Wm - 1))) - 1 if m % 32 else
-                          0xFFFFFFFF)            # no bits past m ...
-    a[0, -1] |= np.uint32(1 << ((m - 1) % 32))   # ... but the last column
+    a[1::4] = 0xFFFFFFFF                         # dense rows
+    a[2::4] = 0                                  # rows with no bit below m
+    a[0, -1] |= np.uint32(1 << ((m - 1) % 32))   # the last column
+    if m % 32:
+        a[:, -1] |= np.uint32(0xFFFFFFFF << (m % 32) & 0xFFFFFFFF)
     r = rng.integers(0, 2 ** 32, (m, W), dtype=np.uint64).astype(np.uint32)
-    r[:, 0] |= np.uint32(1 << 31)                 # bit 31 everywhere
+    r[:, 0] |= np.uint32(1 << 31)
+    r[:, -1] |= np.uint32(1 << 31)
+    return a, r
+
+
+@pytest.mark.parametrize("f,m,W", BITSET_CASES + [(1056, 67584, 1)])
+def test_bitset_mm_kernel_matches_plain(cuda, monkeypatch, f, m, W):
+    a, r = bitset_case(f + m + W, f, m, W)
     A_, R_ = BM.uint32_bits(a, cuda), BM.uint32_bits(r, cuda)
     launches = BM.bitset_mm.launches
     got = BM.bitset_mm(A_, R_)
     assert BM.bitset_mm.launches == launches + 1
-    assert torch.equal(got, BM.bitset_mm_torch(A_, R_))
+    want = BM.bitset_mm_torch(A_, R_)
+    assert torch.equal(got, want)
     assert (got < 0).any()                        # bit 31 came through
+    assert not got[2::4].any()                    # bits past m add nothing
+    if f > 1:                                     # a dense row ORs all of R
+        dense = np.bitwise_or.reduce(r, axis=0).view(np.int32)
+        assert np.array_equal(got[1].cpu().numpy(), dense)
+    # ROWWISE (0) and SPREAD at clusters of 1, 2 and 8 CTAs, whichever
+    # the launcher would pick
+    for C in (0, 1, 2, 8):
+        monkeypatch.setattr(BMO, "cluster_size", lambda *_, C=C: C)
+        assert torch.equal(BM.bitset_mm(A_, R_), want), C
 
 
 @pytest.mark.parametrize("fan,n", [(16, 1), (16, 1000), (128, 301),
@@ -670,18 +706,73 @@ def _leafscan_case(seed, dim, B, P):
     return [np.ascontiguousarray(a) for a in (esoa, rsoa, qs, qe)]
 
 
-@pytest.mark.parametrize("P", [0, 1000, 40000])
-@pytest.mark.parametrize("B", [TB, 3 * TB, 33])
+# K9's slice lengths; query b's slice starts at residue b % 4
+SLICE_LENGTHS = (0, 1, 3, 4, 5, 127, 128, 129, 1800, 5000)
+
+
+def slice_edge_case(seed, dim, B, P):
+    """K9 inputs on planes exactly P entries wide (P % 4 != 0 leaves them
+    unaligned): query b's slice has length SLICE_LENGTHS[(b + 8) % 10] and
+    starts at b % 4 mod 4; every seventh query's slice starts below 0,
+    ends past P, or is empty or reversed, in turn.  Entry p sits alone at
+    (1000 + p, ...), so query b's rect hits exactly the first entry of
+    its clipped slice, exactly the last, or nothing, as b % 3 is 0, 1,
+    2; the other entries lie in [0, 103]."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0, 100, (P, dim)).astype(np.float32)
+    hi = lo + (0 if dim == 2 else rng.uniform(0, 3, (P, dim)).astype(
+        np.float32))
+    qs = np.zeros(B, np.int64)
+    qe = np.zeros(B, np.int64)
+    target = np.full(B, -1)
+    for b in range(B):
+        n = SLICE_LENGTHS[(b + 8) % 10]
+        s = b % 4 + 4 * int(rng.integers(0, max(1, (P - n) // 4)))
+        s, e = [(s, s + n), (-3, n - 3), (P - 2, P + 50), (s, s),
+                (s + 5, s)][1 + (b // 7) % 4 if b % 7 == 6 else 0]
+        qs[b], qe[b] = s, e
+        cs, ce = max(s, 0), min(e, P)
+        if ce > cs and b % 3 < 2:
+            target[b] = cs if b % 3 == 0 else ce - 1
+    hit = target >= 0
+    lo[target[hit]] = hi[target[hit]] = 1000 + target[hit, None]
+    c = np.broadcast_to(np.where(hit, 1000 + target, -500.0)[:, None],
+                        (B, dim))
+    rsoa = np.concatenate([c - 0.25, c + 0.25], 1).T.astype(np.float32)
+    esoa = np.concatenate([lo.T, hi.T]).astype(np.float32).reshape(
+        2 * dim, P)
+    return [np.ascontiguousarray(a) for a in (
+        esoa, rsoa, qs.astype(np.int32), qe.astype(np.int32))], hit
+
+
+@pytest.mark.parametrize("P", [0, 1000, 1001, 40000])
+@pytest.mark.parametrize("B", [1, TB, 3 * TB, 33, 256, 2048])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_range_query_kernel_matches_plain(cuda, dim, B, P):
-    args = [torch.as_tensor(a, device=cuda)
-            for a in _leafscan_case(dim * 1000 + B + P, dim, B, P)]
-    launches = L.range_query.launches
-    got = L.range_query(*args, dim=dim)
-    assert L.range_query.launches == launches + 1
-    assert torch.equal(got, L.range_query_torch(*args, dim=dim))
-    if P:
-        assert 0 < int(got.sum()) < B
+    seed = dim * 1000 + B + P
+    if B > 1:                                  # query 1 hits
+        args = [torch.as_tensor(a, device=cuda)
+                for a in _leafscan_case(seed, dim, B, P)]
+        launches = L.range_query.launches
+        got = L.range_query(*args, dim=dim)
+        assert L.range_query.launches == launches + 1
+        assert torch.equal(got, L.range_query_torch(*args, dim=dim))
+        if P:
+            assert 0 < int(got.sum()) < B
+    # unaligned, clipped and empty slices, hits at the first and the
+    # last entry; on planes with a misaligned base too
+    arrays, hit = slice_edge_case(seed, dim, B, P)
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    spare = torch.empty(args[0].numel() + 1, device=cuda)[1:]
+    shifted = spare.view(args[0].shape).copy_(args[0])
+    assert L.vector_planes(args[0]) == (P % 4 == 0)
+    assert not L.vector_planes(shifted) or not P
+    for esoa in (args[0], shifted):
+        launches = L.range_query.launches
+        got = L.range_query(esoa, *args[1:], dim=dim)
+        assert L.range_query.launches == launches + 1
+        assert torch.equal(got, L.range_query_torch(*args, dim=dim))
+        assert np.array_equal(got.cpu().numpy(), hit.astype(np.int32))
 
 
 def test_range_query_rejects_what_it_does_not_take(cuda):

@@ -36,7 +36,7 @@ from repro_torch.data import get_dataset, workload
 from repro_torch.kernels.range_query import layout
 from repro_torch.kernels.range_query import leafscan as L
 
-SWEEP = [(0, 1, 8), (7, 1, 3), (130, 4, 33), (513, 7, 64)]
+SWEEP = [(0, 1, 8), (7, 1, 3), (130, 4, 33), (513, 7, 64), (1001, 5, 40)]
 
 
 def _sweep_case(dim, P, T, B):
@@ -55,6 +55,33 @@ def _sweep_case(dim, P, T, B):
     c = rng.random((B, dim)).astype(np.float32) * 10
     r = rng.random((B, dim)).astype(np.float32) * 3
     return forest, ref, tids, np.concatenate([c - r, c + r], axis=1)
+
+
+def _edge_slices(rng, P, Bp):
+    """(qs, qe) of Bp queries over P entries: starts at every residue
+    mod 4, lengths 0 to past P, every fifth slice starting below 0,
+    ending past P, empty or reversed in turn."""
+    n = rng.choice([0, 1, 3, 4, 5, 127, 128, 129], Bp)
+    qs = np.arange(Bp) % 4 + 4 * rng.integers(0, max(1, P // 4), Bp)
+    qe = qs + n
+    kind = np.where(np.arange(Bp) % 5 == 4, np.arange(Bp) // 5 % 4, -1)
+    qs[kind == 0] -= qs[kind == 0] + 3
+    qe[kind == 1] = P + 9
+    qe[kind == 2] = qs[kind == 2]
+    qe[kind == 3] = qs[kind == 3] - 2
+    return qs.astype(np.int32), qe.astype(np.int32)
+
+
+@pytest.mark.parametrize("P,offset,vector", [
+    (0, 0, True), (1000, 0, True), (1024, 0, True), (1001, 0, False),
+    (40000, 0, True), (1000, 1, False), (1000, 2, False), (1000, 4, True)])
+def test_vector_planes(P, offset, vector):
+    """K9's instantiation: float4 loads only where every plane starts on
+    a 16-byte boundary (P % 4 == 0 and an aligned base)."""
+    buf = torch.zeros(4 * P + 8)
+    planes = buf[offset:offset + 4 * P].view(4, P)
+    assert buf.data_ptr() % 64 == 0
+    assert L.vector_planes(planes) == vector
 
 
 def _slices(off, tids, Bp):
@@ -91,6 +118,23 @@ def test_plain_scan_matches_ref_and_pallas(dim, P, T, B):
                             torch.as_tensor(qs), torch.as_tensor(qe),
                             dim=dim, device="cpu")
     assert torch.equal(wrapped, got) and L.range_query.launches == n
+    # slices with unaligned starts and ends, clipped and empty ones
+    rng = np.random.default_rng(P + B)
+    qs, qe = _edge_slices(rng, esoa.shape[1], rsoa.shape[1])
+    rsoa = rsoa.copy()
+    rsoa[:, : len(rects)] = rects.T
+    rsoa[:, 1::2] = np.concatenate([np.full((dim, 1), -1e9, np.float32),
+                                    np.full((dim, 1), 1e9, np.float32)])
+    got = L.range_query_torch(torch.as_tensor(esoa), torch.as_tensor(rsoa),
+                              torch.as_tensor(qs), torch.as_tensor(qe),
+                              dim=dim)
+    args = [jnp.asarray(a) for a in (esoa, rsoa, qs, qe)]
+    want = np.asarray(range_query_ref(*args, dim=dim))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, np.asarray(
+        range_query_pallas(*args, dim=dim, interpret=True)))
+    live = np.minimum(qe, esoa.shape[1]) > np.maximum(qs, 0)
+    assert np.array_equal(want[1::2], live[1::2])    # rects over everything
 
 
 @pytest.mark.parametrize("P,T,B", SWEEP)
