@@ -24,13 +24,15 @@ not beside this script, it exits with code 2 and prints no result.
            the true count and K = NTp.  The polygon scan on the same
            two arena sizes with 4- and 8-edge buckets (inert padded
            half-planes) and venues planted exactly on polygon vertices
-           and edges.  The count and polygon scans (K4, K6: a thread
-           block cluster per query tile) on a 3,000-tile polygon arena
-           at B = 8, 256 and 2048 (clusters of min(8, K), 8 and 1 CTAs)
-           and K = 1, 2, 3, 16 and 64, a row of padding only and tiles
-           outside the arena; the polygon scan also at 16 and 1024
-           half-planes; the closure product at the yelp x1.0 level-0 shape
-           (17,878 x 90 words x 95 words) and at ragged small shapes
+           and edges.  The descent, count and polygon scans (K3, K4,
+           K6: a thread block cluster per query tile) and the collect
+           scan (K5: a warp per query tile and slot) on a 3,000-tile
+           polygon arena at B = 8, 256 and 2048 (clusters of min(8, K),
+           8 and 1 CTAs) and K = 1, 2, 3, 16 and 64, a row of padding
+           only and tiles outside the arena; the polygon scan also at
+           16 and 1024 half-planes; the closure product at the yelp
+           x1.0 level-0 shape (17,878 x 90 words x 95 words) and at
+           ragged small shapes
            with bit 31 set, and on BITSET_EDGE (f = 1, 7, 9, 4,099; Wm
            = 1, 3, 90, 200; W = 1 to 300) with dense rows, rows without
            a bit and bits at columns >= m; the segmented MBR at fan 16,
@@ -179,7 +181,10 @@ runs only phase ``ab``, with the ``repro_torch`` package under ``SRC``
 K1 in every mode, K2 and the descent, count and collect scans (K3-K5)
 on the first batch of yelp x1.0 2dreach-comp and of yelp x0.5 2dreach,
 the polygon scan (K6) on the first 6-gon batch of yelp x1.0 comp,
-K4 and K6 also at thread block clusters of 1, 2, 4 and 8 CTAs,
+K3, K4 and K6 also at thread block clusters of 1, 2, 4 and 8 CTAs and
+K5 at 1, 2, 4 and 8 warps a CTA, K3 and K5 summed over their main-path
+launches (each index's two-phase serving, twice, and the two-phase
+kNN),
 DIN's serve_p99 and serve_bulk end to end and device busy, the
 device time of their histories' item embedding, the closure product
 (K7) on every launch of the three device builds (summed per index,
@@ -236,16 +241,18 @@ KNN_QUERIES = 256
 SCANS = {"reach": "descent_scan", "count": "count_scan",
          "collect": "collect_scan"}
 POLY_EDGES = 6
-# K4 and K6 (a cluster per query tile): (B, Ks) on polygon arenas of
-# CLUSTER_SCAN_TILES tiles; B = 8, 256 and 2048 give clusters of
-# min(8, K), 8 and 1 CTAs on 132 SMs
+# K3, K4 and K6 (a cluster per query tile) and K5 (a warp per query
+# tile and slot): (B, Ks) on polygon arenas of CLUSTER_SCAN_TILES tiles;
+# B = 8, 256 and 2048 give clusters of min(8, K), 8 and 1 CTAs on 132
+# SMs
 CLUSTER_SCAN_CASES = ((8, (1, 2, 3, 16, 64)), (256, (1, 2, 3, 16, 64)),
                       (2048, (1, 3, 16, 64)))
 CLUSTER_SCAN_TILES = 3000
 # (B, ne): the engine's edge buckets, then past the 128 half-planes K6
 # keeps in shared memory
 CLUSTER_NE = ((256, 4), (256, 8), (256, 16), (8, 512), (8, 1024), (8, 4096))
-SWEEP_CLUSTERS = (1, 2, 4, 8)      # K4's and K6's cluster sizes in --ab
+SWEEP_CLUSTERS = (1, 2, 4, 8)      # K3's, K4's and K6's clusters in --ab
+SWEEP_WARPS = (1, 2, 4, 8)         # K5's warps per CTA in --ab
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 # K7's edge cases (f rows, m = 32*Wm - 3 columns so that A's last word
 # holds bits at columns >= m, W words of out) and K9's (slice lengths,
@@ -918,13 +925,15 @@ def segment_bag_cases(ks, rng, dev, cases):
 
 
 def cluster_scan_cases(ks, rng, dev, errs, cases):
-    """K4 and K6 against their plain versions on ``polygon_arena``
-    inputs (venues on polygon edges and vertices) at each (B, K) of
-    CLUSTER_SCAN_CASES, where B > 8 with the last row all padding (its
-    first tile in every slot) and row 1 holding a negative tile and one
-    past the arena; then K6 at 4, 8 and 16 half-planes (B = 256) and at
-    1024 (B = 8: 96 KB of half-planes in shared memory), K below, at and
-    above the true count, and the dense reference."""
+    """K3-K6 against their plain versions on ``polygon_arena`` inputs
+    (venues on polygon edges and vertices; K5 with a permutation of
+    payload ids) at each (B, K) of CLUSTER_SCAN_CASES, where B > 8 with
+    the last row all padding (its first tile in every slot) and row 1
+    holding a negative tile and one past the arena; then K6 at 4, 8 and
+    16 half-planes (B = 256) and at 1024 (B = 8: 96 KB of half-planes in
+    shared memory), K below, at and above the true count, and the dense
+    reference."""
+    import torch
     from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.range_query.layout import TB, TP
 
@@ -935,24 +944,38 @@ def cluster_scan_cases(ks, rng, dev, errs, cases):
         mask = ds.prune_tiles_torch(d["fine"], d["coarse"], d["rsoa"],
                                     d["qs"], d["qe"])
         cand, cnt = ks.fs.compact_ascending(mask, d["nt"])
+        P = d["esoa"].shape[1]
+        ids = torch.as_tensor(rng.permutation(P).astype(np.int32)[None],
+                              device=dev)
         box = (d["esoa"], d["rsoa"], d["qs"], d["qe"])
+        col = (d["esoa"], ids, d["rsoa"], d["qs"], d["qe"])
         poly = (d["esoa"], d["rsoa"], d["lines"], d["qs"], d["qe"])
         for K in Ks:
             ck = ds.take_candidates(cand, K).clone()
             if B > TB:
                 ck[-1] = int(ck[-1, 0])
-                ck[1, K // 2] = d["esoa"].shape[1] // TP + 7
+                ck[1, K // 2] = P // TP + 7
                 ck[1, 0] = -1
-            e4 = _diff(an.count_scan(ck, *box, device=DEVICE),
-                       an.count_scan_torch(ck, *box))
-            e6 = _diff(an.polygon_scan(ck, *poly, ne=d["ne"], device=DEVICE),
-                       an.polygon_scan_torch(ck, *poly, ne=d["ne"]))
-            if e4 or e6:
-                raise AssertionError(
-                    f"count_scan ({e4}) / polygon_scan ({e6}) kernel != "
-                    f"plain version (cluster case B={B} K={K})")
+            e = {"descent_scan": _diff(ds.descent_scan(ck, *box,
+                                                       device=DEVICE),
+                                       ds.descent_scan_torch(ck, *box)),
+                 "count_scan": _diff(an.count_scan(ck, *box, device=DEVICE),
+                                     an.count_scan_torch(ck, *box)),
+                 "collect_scan": _diff(an.collect_scan(ck, *col,
+                                                       device=DEVICE),
+                                       an.collect_scan_torch(ck, *col)),
+                 "polygon_scan": _diff(
+                     an.polygon_scan(ck, *poly, ne=d["ne"], device=DEVICE),
+                     an.polygon_scan_torch(ck, *poly, ne=d["ne"]))}
+            if any(e.values()):
+                raise AssertionError(f"kernel != plain version (cluster "
+                                     f"case B={B} K={K}): {e}")
+            for k, v in e.items():
+                errs[k] = max(errs[k], v)
             cases.append({"cluster_scan": [B, K], "max_cnt": int(cnt.max()),
-                          "cluster": an.scan_cluster_size(B // TB, K, n_sms)})
+                          "cluster": ds.scan_cluster_size(B // TB, K, n_sms),
+                          "collect_warps": an.collect_warps(B // TB, K,
+                                                            n_sms)})
     for B, ne in CLUSTER_NE:
         d = polygon_arena(rng, CLUSTER_SCAN_TILES, B, ne, dev)
         e, mx, hits = compare_polygon(ks, d, f"polygon ne={ne} B={B}")
@@ -2058,8 +2081,11 @@ def phase_timing(ks, engines, card):
             "plain_ms": device_ms(lambda: ks.plain[kname](*a), 10,
                                   f"{kname} plain"),
             "bound_ms": bms, "bound_by": by, "K": K, **work}
-        if kname == "count_scan":      # CTAs per query tile
-            two[kname]["cluster"] = ks.an.scan_cluster_size(
+        if kname == "collect_scan":    # warps per CTA
+            two[kname]["warps"] = ks.an.collect_warps(
+                BATCH // 8, K, sm_count(DEVICE))
+        else:                          # CTAs per query tile
+            two[kname]["cluster"] = ks.ds.scan_cluster_size(
                 BATCH // 8, K, sm_count(DEVICE))
         two[kname]["e2e_us_per_query"] = e2e_us(eng, us, rects, mode,
                                                 two_phase=True)
@@ -2679,22 +2705,22 @@ def phase_recsys(ks, card):
 # Two checkouts in turns
 # --------------------------------------------------------------------------
 
-def cluster_sweep(ks, fn, K, what):
-    """{C: ms} of ``fn``, a K4 or K6 call, with its thread block
-    cluster set to each C of SWEEP_CLUSTERS up to K, in place of
-    ``scan_cluster_size``'s choice; {} for a package without that
-    choice (one from before the clustered scans)."""
-    pick = getattr(ks.an, "scan_cluster_size", None)
+def cluster_sweep(module, choice, sizes, fn, K, what):
+    """{C: ms} of ``fn``, a call of a kernel whose launch shape
+    ``module.choice`` picks (K3's, K4's or K6's cluster, K5's warps per
+    CTA), with that choice set to each C of ``sizes`` up to K; {} for a
+    package without that choice (one from before the redesign)."""
+    pick = getattr(module, choice, None)
     if pick is None:
         return {}
     out = {}
     try:
-        for C in SWEEP_CLUSTERS:
+        for C in sizes:
             if C <= K:
-                ks.an.scan_cluster_size = lambda *_, C=C: C
+                setattr(module, choice, lambda *_, C=C: C)
                 out[C] = device_ms(fn, 50, f"{what} C={C}")
     finally:
-        ks.an.scan_cluster_size = pick
+        setattr(module, choice, pick)
     return out
 
 
@@ -2728,6 +2754,7 @@ def phase_ab(ks, card, src):
     # most of their windows
     bitset, range_query = ab_build_scan(ks, indexes)
     floor = launch_floor_ms()
+    scan_sums = scan_launch_sums(ks, indexes)
     fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
     for name in (next(iter(indexes)), list(indexes)[-1]):
         g, method, idx, us, rects = indexes[name]
@@ -2764,9 +2791,19 @@ def phase_ab(ks, card, src):
                 lambda: ks.wrap[kname](*a, device=DEVICE), 50,
                 f"{kname} ({name})")
         a = (ck, arena["esoa"], rsoa, qs, qe)
+        a5 = (ck, arena["esoa"], arena["ids"], rsoa, qs, qe)
         scans[name]["count_scan_by_cluster"] = cluster_sweep(
-            ks, lambda: ks.an.count_scan(*a, device=DEVICE), K,
+            ks.an, "scan_cluster_size", SWEEP_CLUSTERS,
+            lambda: ks.an.count_scan(*a, device=DEVICE), K,
             f"count_scan ({name})")
+        scans[name]["descent_scan_by_cluster"] = cluster_sweep(
+            ks.ds, "scan_cluster_size", SWEEP_CLUSTERS,
+            lambda: ks.ds.descent_scan(*a, device=DEVICE), K,
+            f"descent_scan ({name})")
+        scans[name]["collect_scan_by_warps"] = cluster_sweep(
+            ks.an, "collect_warps", SWEEP_WARPS,
+            lambda: ks.an.collect_scan(*a5, device=DEVICE), K,
+            f"collect_scan ({name})")
         if polygon:
             continue
         # K6: the main path's polygon batches, then the first one's
@@ -2787,8 +2824,9 @@ def phase_ab(ks, card, src):
         run6 = lambda: ks.an.polygon_scan(*a6, ne=kw["ne"], device=DEVICE)
         polygon = {"index": name, "K": a6[0].shape[1], "ne": kw["ne"],
                    "ms": device_ms(run6, 50, f"polygon_scan ({name})"),
-                   "by_cluster": cluster_sweep(ks, run6, a6[0].shape[1],
-                                               f"polygon_scan ({name})")}
+                   "by_cluster": cluster_sweep(
+                       ks.an, "scan_cluster_size", SWEEP_CLUSTERS, run6,
+                       a6[0].shape[1], f"polygon_scan ({name})")}
     import torch
     from repro_torch.models.recsys import din
 
@@ -2804,9 +2842,60 @@ def phase_ab(ks, card, src):
             lambda: din._embed_items(params, items, cfg), 5,
             f"_embed_items ({shape} history)")
     emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
-         prune_tiles=prune, scans=scans, polygon_scan=polygon, din=serve,
+         prune_tiles=prune, scans=scans, scan_sums=scan_sums,
+         polygon_scan=polygon, din=serve,
          bitset_mm=bitset, range_query=range_query, launch_floor_ms=floor,
          timers=TIMERS)
+
+
+def scan_launch_sums(ks, indexes):
+    """``--ab``'s K3 and K5 summed over their main-path launches: each
+    index's two-phase serving of the workload, twice, after two fused
+    passes, and the two-phase kNN on the first index, as phase main
+    serves them; every launch captured (``Capture``), then all of a
+    kernel's launches run again in order in one profiled window, whose
+    device time is their sum.  Each launch's bound from its own
+    operands (the true candidate counts from the plain prune), summed
+    beside it."""
+    from repro_torch.core import QueryEngine
+    from repro_torch.core import engine as core_engine
+
+    modes = {"descent_scan": "reach", "collect_scan": "collect"}
+    calls = {k: [] for k in modes}
+    for i, (name, (g, method, idx, us, rects)) in enumerate(
+            indexes.items()):
+        eng = QueryEngine(idx)
+        for _ in range(2):
+            serve_all(eng, us, rects)
+        with Capture(core_engine, "descent_scan", lambda *a: 0) as k3, \
+                Capture(core_engine, "collect_scan", lambda *a: 0) as k5:
+            for _ in range(2):
+                serve_all(eng, us, rects, two_phase=True)
+            if i == 0:
+                u, r = us[:KNN_QUERIES], rects[:KNN_QUERIES]
+                pts = ((r[:, :2] + r[:, 2:]) / 2).astype(np.float32)
+                QueryEngine(idx, path="two_phase").knn_batch(u, pts, KNN_K)
+        for kname, cap in (("descent_scan", k3), ("collect_scan", k5)):
+            calls[kname] += [(eng, a, kw) for a, kw in cap.calls]
+    rec = {}
+    for kname, launches in calls.items():
+        fn = ks.wrap[kname]
+        bms = 0.0
+        for eng, a, _ in launches:
+            ck, (rsoa, qs, qe) = a[0], a[-3:]
+            _, cnt = ks.fs.compact_ascending(ks.ds.prune_tiles_torch(
+                eng._arena.fine, eng._arena.coarse, rsoa, qs, qe),
+                eng.n_tiles)
+            bms += scan_bound(ck, cnt, eng._arena.entries, rsoa, qs, qe,
+                              modes[kname])[0]
+        rec[kname] = {
+            "launches": len(launches),
+            "ms": device_ms(lambda fn=fn, launches=launches: [
+                fn(*a, **kw) for _, a, kw in launches], 5,
+                f"{kname} (main-path launches)"),
+            "bound_ms": bms, "K": sorted({a[0].shape[1]
+                                          for _, a, _ in launches})}
+    return rec
 
 
 def ab_build_scan(ks, indexes):

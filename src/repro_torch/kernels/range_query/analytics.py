@@ -10,12 +10,13 @@ nothing (:func:`dup_slots`, the reference's ``_dup_slot``).
 
 * :func:`count_scan` — (B,) int32 exact hit counts.  On a CUDA tensor
   it launches ``csrc/leaf_scan.cu`` (K4, a thread block cluster of
-  :func:`scan_cluster_size` CTAs per 8-query tile); on a CPU tensor it
-  runs :func:`count_scan_torch`.
+  :func:`~.descent.scan_cluster_size` CTAs per 8-query tile); on a CPU
+  tensor it runs :func:`count_scan_torch`.
 * :func:`collect_scan` — (B, K*TP) int32: the payload id of every hit
   entry, ``ID_SENTINEL`` everywhere else.  On a CUDA tensor it launches
-  ``csrc/leaf_scan.cu`` (K5); on a CPU tensor it runs
-  :func:`collect_scan_torch`.
+  ``csrc/leaf_scan.cu`` (K5, a warp per query tile and slot,
+  :func:`collect_warps` of them a CTA, float4 loads and int4 stores); on
+  a CPU tensor it runs :func:`collect_scan_torch`.
 * :func:`polygon_scan` — (B,) int32 0/1: boolean RangeReach where the
   query rect is a convex polygon's bbox and each query also carries
   ``ne`` half-planes ``A*x + B*y <= C`` (float32, inert padding ``A = B
@@ -36,22 +37,35 @@ import ctypes
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor, sm_count
-from .descent import check_scan_inputs, tile_hits
-from .fused import cluster_size
+from .._build import call, check_aligned, check_tensor, sm_count
+from .descent import check_scan_inputs, scan_cluster_size, tile_hits
 from .layout import ID_SENTINEL, TB, TP
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def scan_cluster_size(n_query_tiles: int, K: int, n_sms: int) -> int:
-    """CTAs per query tile in K4's and K6's thread block cluster: K1's
-    choice (:func:`.fused.cluster_size`, 8 at 32 query tiles on 132
-    multiprocessors, 1 from 132 up), capped at the K candidate slots,
-    which the cluster's CTAs share round robin, so that no CTA is left
-    without a slot."""
-    return min(cluster_size(n_query_tiles, n_sms), K)
+COLLECT_MAX_WARPS = 8   # K5: slots (warps) per CTA
+
+
+def collect_warps(n_query_tiles: int, K: int, n_sms: int) -> int:
+    """Warps per CTA of K5, one candidate slot each, on ``n_query_tiles
+    * ceil(K / w)`` CTAs: of 1, 2, 4 and 8 (at most K), the one whose
+    grid comes nearest to one CTA per multiprocessor (by ratio; a tie
+    goes to the wider CTA).  Every warp does the same work, two dependent
+    memory round trips and eight 512-byte row stores, and each CTA costs
+    the block scheduler and a prologue, so fewer and wider CTAs are
+    cheaper as long as they still reach every multiprocessor.  On 132
+    multiprocessors at K = 16: B/8 = 1 takes 1 (16 CTAs), 32 (the
+    serving batch) takes 4 (128 CTAs; ``chip_smoke.py --ab`` on an H100
+    times 2 and 1 a little slower, and 8, on 64 multiprocessors,
+    slowest), 256 takes 8 (512 CTAs, the fewest it can have)."""
+    def off(w):
+        grid = n_query_tiles * -(-K // w)
+        return max(grid / n_sms, n_sms / grid)
+
+    widths = [w for w in (8, 4, 2, 1) if w <= min(K, COLLECT_MAX_WARPS)]
+    return min(widths, key=off)
 
 
 def dup_slots(cand: torch.Tensor) -> torch.Tensor:
@@ -209,7 +223,10 @@ def collect_scan(
     """(B, K*TP) int32 — the hit payload ids of each query, every other
     slot ``ID_SENTINEL``.  Sort rows and keep the prefix for the K
     smallest ids; count non-sentinels for the exact total.  On a CUDA
-    device the K5 kernel runs; on the CPU the plain version runs."""
+    device the K5 kernel runs: it loads the planes and ids as float4 and
+    int4, so ``entries_soa`` and ``ids_soa`` must start on a 16-byte
+    boundary (a ``ValueError`` otherwise); on the CPU the plain version
+    runs."""
     dev = resolve_device(device)
     if not same_device(entries_soa.device, dev):
         raise ValueError(f"entries_soa lies on {entries_soa.device}, "
@@ -220,12 +237,16 @@ def collect_scan(
     B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
                                 dim, dev)
     check_tensor("ids_soa", ids_soa, torch.int32, (1, P), dev)
+    check_aligned("entries_soa", entries_soa)
+    check_aligned("ids_soa", ids_soa)
     out = torch.empty((B, K * TP), dtype=torch.int32,
                       device=entries_soa.device)
-    call("leaf_scan", "collect_scan_launch", [_PTR] * 7 + [_INT] * 3,
+    check_aligned("out", out)
+    call("leaf_scan", "collect_scan_launch", [_PTR] * 7 + [_INT] * 4,
          out.device, cand.data_ptr(), entries_soa.data_ptr(),
          ids_soa.data_ptr(), rects_soa.data_ptr(), qstart.data_ptr(),
-         qend.data_ptr(), out.data_ptr(), K, P, B)
+         qend.data_ptr(), out.data_ptr(), K, P, B,
+         collect_warps(B // TB, K, sm_count(out.device)))
     collect_scan.launches += 1
     return out
 

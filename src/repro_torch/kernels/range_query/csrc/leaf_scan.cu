@@ -23,11 +23,12 @@
 // padding (the reference's _dup_slot): compacted lists hold the active
 // tiles strictly ascending, then the last one repeated.  REACH and POLYGON
 // skip a slot that repeats slot k-1's tile (an idempotent OR).  The test
-// is taken from cand alone, the same for every thread of the block.  Every
-// test is a float32 or int32 compare with no arithmetic (POLYGON's
-// arithmetic rounds as its plain version's separate tensor operations
-// do), so the kernels equal their plain PyTorch versions exactly.  A tile
-// outside [0, P/128) is never read: the slot counts as a miss.
+// is taken from cand alone, the same for every thread that reads the
+// slot.  Every test is a float32 or int32 compare with no arithmetic
+// (POLYGON's arithmetic rounds as its plain version's separate tensor
+// operations do), so the kernels equal their plain PyTorch versions
+// exactly.  A tile outside [0, P/128) is never read: the slot counts as a
+// miss (COLLECT writes its row as sentinels).
 //
 // Bound: bytes, those of the distinct leaf tiles the lists name (2 KB of
 // entries each, 512 B more of ids for COLLECT) plus, for COLLECT, the
@@ -37,41 +38,50 @@
 // trips set the time, not the bytes.
 //
 // Two designs.
-// * REACH and COLLECT (leaf_scan_kernel): one block of 128 threads per
-//   8-query tile; a loop over the K slots inside the block takes the
-//   place of the TPU's sequential grid axis.  Each thread owns one lane
-//   of the tile: it loads the lane's four float32 planes (coalesced) and
-//   tests the 8 queries, whose rects and slices sit in shared memory.
-//   REACH ORs bits and reduces with a warp intrinsic, then a shared
-//   atomic; COLLECT writes one coalesced 512-byte row per query and slot.
-// * COUNT and POLYGON (leaf_scan_cluster_kernel): a thread block cluster
-//   of C CTAs of 128 threads per query tile (C from the host, so that
-//   (B/8)*C covers the SMs at small batches, and at most K), CTA r taking
-//   slots k = r (mod C).  The prologue loads, behind one __syncthreads(),
-//   the query tile's candidate row (in chunks of CHUNK slots, with slot
-//   c0-1 before each, so the padding rule compares slot k with slot k-1
-//   and not with the CTA's own previous slot), its 8 rects and slices
-//   and, for POLYGON, its (3*ne, 8) half-plane block where ne <= NE_SMEM
-//   (a larger polygon's instantiation, LINES = GLOBAL, reads them by
-//   broadcast loads from global memory).  Then each thread stages its
-//   own lane of every slot it owns, four 4-byte cp.async per slot, in a
-//   ring of STAGES slots: a CTA owning at most STAGES slots (2 at K = 16,
-//   C = 8) issues all its plane loads before it tests any, one memory
-//   round trip.  Each thread reads back only what it copied, so the ring
-//   needs no block barrier.  POLYGON tests the `ne` half-planes in a loop
-//   the whole warp takes, for each query that some lane's box test hit
-//   and that no lane of the warp has answered yet: the answer is an OR
-//   over entries, so a query once hit stays hit, and the AND over all
-//   `ne` half-planes has no trip count that hangs on a global load.  Each
-//   warp reduces its counts (or hit bits) by warp intrinsics and writes
-//   them once into its own row of rank 0's shared memory through
-//   distributed shared memory: no atomics, so nothing is zeroed first,
-//   and the cluster barrier is split around the scan (a relaxed arrival
-//   after the prologue, the wait before the writes: every CTA has
-//   started).  Then every CTA arrives (release) and only rank 0 waits:
-//   one warp of it reads the C*4 rows, a lane each, sums (ORs) them by
-//   warp reductions and writes the 8 outputs.  An integer sum and an OR
-//   do not depend on the order.
+// * REACH, COUNT and POLYGON (leaf_scan_cluster_kernel): a thread block
+//   cluster of C CTAs of 128 threads per query tile (C from the host, so
+//   that (B/8)*C covers the SMs at small batches, and at most K), CTA r
+//   taking slots k = r (mod C).  The prologue loads, behind one
+//   __syncthreads(), the query tile's candidate row (in chunks of CHUNK
+//   slots, with slot c0-1 before each, so the padding rule compares slot
+//   k with slot k-1 and not with the CTA's own previous slot), its 8
+//   rects and slices and, for POLYGON, its (3*ne, 8) half-plane block
+//   where ne <= NE_SMEM (a larger polygon's instantiation, LINES =
+//   GLOBAL, reads them by broadcast loads from global memory).  Then each
+//   thread stages its own lane of every slot it owns, four 4-byte
+//   cp.async per slot, in a ring of STAGES slots: a CTA owning at most
+//   STAGES slots (2 at K = 16, C = 8) issues all its plane loads before
+//   it tests any, one memory round trip.  Each thread reads back only
+//   what it copied, so the ring needs no block barrier.  POLYGON tests
+//   the `ne` half-planes in a loop the whole warp takes, for each query
+//   that some lane's box test hit and that no lane of the warp has
+//   answered yet: the answer is an OR over entries, so a query once hit
+//   stays hit, and the AND over all `ne` half-planes has no trip count
+//   that hangs on a global load.  Each warp reduces its counts (or hit
+//   bits) by warp intrinsics and writes them once into its own row of
+//   rank 0's shared memory through distributed shared memory: no
+//   atomics, so nothing is zeroed first, and the cluster barrier is split
+//   around the scan (a relaxed arrival after the prologue, the wait
+//   before the writes: every CTA has started).  Then every CTA arrives
+//   (release) and only rank 0 waits: one warp of it reads the C*4 rows, a
+//   lane each, sums (ORs) them by warp reductions and writes the 8
+//   outputs.  An integer sum and an OR do not depend on the order.
+//   REACH does not stop early once its 8 queries have hit: a CTA issues
+//   the plane loads of all its slots (up to STAGES) before it tests any,
+//   so at the serving batch there is nothing left to skip.
+// * COLLECT (collect_scan_kernel): each (query, slot) row of 512 bytes
+//   has one writer, so no combine and no cluster: a warp per (query
+//   tile, slot), W warps a CTA on W consecutive slots of one query tile
+//   (W from the host), (B/8) * ceil(K/W) CTAs.  Warp 0 loads the 8 rects
+//   and slices and the CTA's W slots with the slot before them, two
+//   independent loads a lane, behind one __syncthreads().  Then lane l
+//   owns entries 4l .. 4l+3 of its warp's tile: one float4 of each plane
+//   and one int4 of ids, all issued before any compare (the second and
+//   last round trip), and one int4 store into each of the 8 query rows,
+//   a coalesced 512-byte row per query.  A padding slot or a tile
+//   outside the arena loads nothing and stores sentinels.  The planes,
+//   the ids and the output start on 16-byte boundaries (the wrapper
+//   checks; P % 128 == 0 keeps every tile and row aligned).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,98 +105,12 @@ constexpr int MAX_CLUSTER = 8;
 // takes without opting in to more.
 constexpr int NE_SMEM = 128;
 constexpr int WARPS = TP / 32;
+constexpr int COLLECT_MAX_WARPS = 8;  // COLLECT: slots (warps) per CTA
 
-enum Mode { REACH = 0, COUNT = 1, COLLECT = 2, POLYGON = 3 };
+enum Mode { REACH = 0, COUNT = 1, POLYGON = 3 };
 enum Lines { SHARED = 0, GLOBAL = 1 };  // where POLYGON reads half-planes
 
-// ---- REACH (K3) and COLLECT (K5): one block per query tile -------------
-
-template <int MODE>
-__global__ void __launch_bounds__(TP)
-leaf_scan_kernel(const int32_t* __restrict__ cand,     // (B / TB, K)
-                 const float* __restrict__ entries,    // (4, P)
-                 const int32_t* __restrict__ ids,      // (P,), COLLECT only
-                 const float* __restrict__ rects,      // (4, B)
-                 const int32_t* __restrict__ qstart,   // (B,)
-                 const int32_t* __restrict__ qend,     // (B,)
-                 int32_t* __restrict__ out,            // (B,) | (B, K*TP)
-                 int K, int P, int B) {
-  __shared__ float s_rect[4][TB];
-  __shared__ int s_qs[TB], s_qe[TB];
-  __shared__ unsigned s_or;
-
-  const int i = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int q0 = i * TB;
-  if (lane < 4 * TB) {
-    const int a = lane / TB, q = lane % TB;
-    s_rect[a][q] = rects[a * B + q0 + q];
-  }
-  if (lane < TB) {
-    s_qs[lane] = qstart[q0 + lane];
-    s_qe[lane] = qend[q0 + lane];
-  }
-  if (lane == 0) s_or = 0u;
-  __syncthreads();
-
-  const int32_t* c = cand + (size_t)i * K;
-  const int ntiles = P / TP;
-  const size_t row = (size_t)K * TP;
-  unsigned bits = 0u;
-
-  int prev = 0;
-  for (int k = 0; k < K; ++k) {
-    const int tile = c[k];
-    const bool repeat = (k > 0) && (tile == prev);
-    const bool dup = (k > 0) && (tile <= prev);
-    prev = tile;
-    const bool valid = (unsigned)tile < (unsigned)ntiles;
-    const bool scan = valid && !(MODE == REACH ? repeat : dup);
-
-    int32_t v[TB];
-#pragma unroll
-    for (int q = 0; q < TB; ++q) v[q] = ID_SENTINEL;
-    if (scan) {
-      const int g = tile * TP + lane;
-      const float e0 = entries[g], e1 = entries[P + g];
-      const float e2 = entries[2 * P + g], e3 = entries[3 * P + g];
-      const int32_t id = (MODE == COLLECT) ? ids[g] : 0;
-#pragma unroll
-      for (int q = 0; q < TB; ++q) {
-        const bool hit = (g >= s_qs[q]) & (g < s_qe[q])
-                         & (e0 <= s_rect[2][q]) & (e1 <= s_rect[3][q])
-                         & (e2 >= s_rect[0][q]) & (e3 >= s_rect[1][q]);
-        if (MODE == REACH) bits |= (unsigned)hit << q;
-        else v[q] = hit ? id : ID_SENTINEL;
-      }
-    }
-    if (MODE == COLLECT) {
-#pragma unroll
-      for (int q = 0; q < TB; ++q)
-        out[(size_t)(q0 + q) * row + (size_t)k * TP + lane] = v[q];
-    }
-  }
-  if (MODE == COLLECT) return;
-
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((lane & 31) == 0 && bits) atomicOr(&s_or, bits);
-  __syncthreads();
-  if (lane < TB) out[q0 + lane] = (int)((s_or >> lane) & 1u);
-}
-
-template <int MODE>
-int launch(const void* cand, const void* entries, const void* ids,
-           const void* rects, const void* qstart, const void* qend,
-           void* out, int K, int P, int B, void* stream) {
-  leaf_scan_kernel<MODE><<<B / TB, TP, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cand), static_cast<const float*>(entries),
-      static_cast<const int32_t*>(ids), static_cast<const float*>(rects),
-      static_cast<const int32_t*>(qstart), static_cast<const int32_t*>(qend),
-      static_cast<int32_t*>(out), K, P, B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- COUNT (K4) and POLYGON (K6): a cluster per query tile -------------
+// ---- REACH (K3), COUNT (K4) and POLYGON (K6): a cluster per query tile
 
 template <int MODE, int LINES>
 __global__ void __launch_bounds__(TP)
@@ -201,7 +125,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
   __shared__ float s_rect[4][TB];
   __shared__ int s_qs[TB], s_qe[TB];
   // rank 0's: one partial per warp of the cluster, each written once by
-  // its warp (COUNT: 8 sums; POLYGON: the hit bits in s_part[w][0])
+  // its warp (COUNT: 8 sums; REACH, POLYGON: the hit bits in s_part[w][0])
   __shared__ __align__(16) int s_part[MAX_CLUSTER * WARPS][TB];
   __shared__ int s_cand[CHUNK + 1];  // slot c0-1 (0 at c0 = 0), then
                                      // slots [c0, c0 + CHUNK)
@@ -242,7 +166,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
   __syncthreads();
 
   const int ntiles = P / TP;
-  unsigned bits = 0u;   // POLYGON: this thread's hit bits
+  unsigned bits = 0u;   // REACH, POLYGON: this thread's hit bits
   unsigned wbits = 0u;  // POLYGON: its warp's, the same in every lane
   int cnt[TB];          // COUNT: this thread's hits
 #pragma unroll
@@ -259,7 +183,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
     const int k0 = c0 + ((rank - c0 % C) + C) % C;
     const int nown = k0 < ce ? (ce - 1 - k0) / C + 1 : 0;
     // the tile of owned slot j, or -1 where it is not scanned: out of
-    // range, or padding (COUNT) / a repeat (POLYGON) of slot k-1
+    // range, or padding (COUNT) / a repeat (REACH, POLYGON) of slot k-1
     auto tile_of = [&](int j) -> int {
       const int k = k0 + j * C;
       const int t = s_cand[k - c0 + 1], prev = s_cand[k - c0];
@@ -300,6 +224,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
           if (MODE == COUNT) cnt[q] += hit;
           box |= (unsigned)hit << q;
         }
+        if (MODE == REACH) bits |= box;
         if (MODE == POLYGON) {
           // the half-planes of each query that some lane's box test hit
           // and no lane of the warp has answered yet (an OR: a query
@@ -339,7 +264,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
   int(*part0)[TB] = reinterpret_cast<int(*)[TB]>(
       cluster.map_shared_rank(&s_part[0][0], 0));
   int mine = 0;  // lane q: the warp's sum for query q; lane 0: its bits
-  if (MODE == POLYGON) {
+  if (MODE != COUNT) {
     mine = static_cast<int>(__reduce_or_sync(0xffffffffu, bits));
   } else {
 #pragma unroll
@@ -349,7 +274,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
     }
   }
   cluster_wait();
-  if (wl < (MODE == POLYGON ? 1 : TB)) part0[w][wl] = mine;
+  if (wl < (MODE == COUNT ? TB : 1)) part0[w][wl] = mine;
   // the writes are visible to rank 0 once its wait returns; no other
   // CTA's shared memory is read, so the others leave after arriving
   cluster_arrive();
@@ -357,7 +282,7 @@ leaf_scan_cluster_kernel(const int32_t* __restrict__ cand,    // (B / TB, K)
   cluster_wait();
   if (lane < 32) {  // warp 0: lane v reads row v, then one reduction
     const bool row = lane < C * WARPS;
-    if (MODE == POLYGON) {
+    if (MODE != COUNT) {
       const unsigned all = __reduce_or_sync(
           0xffffffffu, row ? static_cast<unsigned>(s_part[lane][0]) : 0u);
       if (lane < TB) out[q0 + lane] = static_cast<int>((all >> lane) & 1u);
@@ -410,20 +335,109 @@ int launch_cluster(const void* cand, const void* entries, const void* rects,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- COLLECT (K5): a warp per (query tile, slot) ------------------------
+
+__global__ void __launch_bounds__(COLLECT_MAX_WARPS * 32)
+collect_scan_kernel(const int32_t* __restrict__ cand,     // (B / TB, K)
+                    const float* __restrict__ entries,    // (4, P)
+                    const int32_t* __restrict__ ids,      // (P,)
+                    const float* __restrict__ rects,      // (4, B)
+                    const int32_t* __restrict__ qstart,   // (B,)
+                    const int32_t* __restrict__ qend,     // (B,)
+                    int32_t* __restrict__ out,            // (B, K*TP)
+                    int K, int P, int B, int groups) {
+  __shared__ float s_rect[4][TB];
+  __shared__ int s_qs[TB], s_qe[TB];
+  __shared__ int s_cand[COLLECT_MAX_WARPS + 1];  // slot k0-1, then k0 ..
+
+  const int W = static_cast<int>(blockDim.x) / 32;
+  const int blk = blockIdx.x / groups;       // query tile
+  const int k0 = (blockIdx.x % groups) * W;  // the CTA's first slot
+  const int t = threadIdx.x;
+  const int q0 = blk * TB;
+
+  // the prologue, in warp 0: a rect word and one of a slice bound or a
+  // candidate slot per lane, independent loads, one round trip
+  if (t < 32) {
+    const float r = rects[(t / TB) * B + q0 + t % TB];
+    const int j = t - 2 * TB;  // s_cand[j] holds slot k0 + j - 1
+    int v = 0;
+    if (t < TB) {
+      v = qstart[q0 + t];
+    } else if (t < 2 * TB) {
+      v = qend[q0 + t - TB];
+    } else if (j <= W) {
+      const int k = k0 + j - 1;
+      if (k >= 0 && k < K) v = cand[(size_t)blk * K + k];
+    }
+    s_rect[t / TB][t % TB] = r;
+    if (t < TB) s_qs[t] = v;
+    else if (t < 2 * TB) s_qe[t - TB] = v;
+    else if (j <= W) s_cand[j] = v;
+  }
+  __syncthreads();
+
+  const int w = t >> 5, lane = t & 31;
+  const int k = k0 + w;
+  if (k >= K) return;
+  const int tile = s_cand[w + 1], prev = s_cand[w];
+  const bool scan = (unsigned)tile < (unsigned)(P / TP)
+                    && !(k > 0 && tile <= prev);
+  // lane l's int4 of slot k in query q0's row; the next query's is
+  // K*TP/4 int4s further
+  const size_t qstride = (size_t)K * (TP / 4);
+  int4* dst = reinterpret_cast<int4*>(out) + (size_t)q0 * qstride
+              + (size_t)k * (TP / 4) + lane;
+  if (!scan) {
+    const int4 none = make_int4(ID_SENTINEL, ID_SENTINEL, ID_SENTINEL,
+                                ID_SENTINEL);
+#pragma unroll
+    for (int q = 0; q < TB; ++q) dst[q * qstride] = none;
+    return;
+  }
+  const int g = tile * TP + 4 * lane;
+  const float4 e0 = __ldg(reinterpret_cast<const float4*>(entries + g));
+  const float4 e1 =
+      __ldg(reinterpret_cast<const float4*>(entries + (size_t)P + g));
+  const float4 e2 =
+      __ldg(reinterpret_cast<const float4*>(entries + 2 * (size_t)P + g));
+  const float4 e3 =
+      __ldg(reinterpret_cast<const float4*>(entries + 3 * (size_t)P + g));
+  const int4 id = __ldg(reinterpret_cast<const int4*>(ids + g));
+#pragma unroll
+  for (int q = 0; q < TB; ++q) {
+    const int qs = s_qs[q], qe = s_qe[q];
+    const float x0 = s_rect[0][q], y0 = s_rect[1][q];
+    const float x1 = s_rect[2][q], y1 = s_rect[3][q];
+    auto pick = [&](int i, float a, float b, float c, float d, int v) {
+      const bool hit = (g + i >= qs) & (g + i < qe) & (a <= x1) & (b <= y1)
+                       & (c >= x0) & (d >= y0);
+      return hit ? v : ID_SENTINEL;
+    };
+    dst[q * qstride] = make_int4(pick(0, e0.x, e1.x, e2.x, e3.x, id.x),
+                                 pick(1, e0.y, e1.y, e2.y, e3.y, id.y),
+                                 pick(2, e0.z, e1.z, e2.z, e3.z, id.z),
+                                 pick(3, e0.w, e1.w, e2.w, e3.w, id.w));
+  }
+}
+
 }  // namespace
 
 // Plain C entries for ctypes, one per kernel.  Each launches on `stream`,
 // never synchronises, and returns the launch's error or
 // cudaGetLastError(), so a refused launch is reported to the caller.
-// count_scan_launch and polygon_scan_launch launch (B / 8) clusters of
-// `cluster` CTAs (1 to 8); polygon_scan_launch keeps the half-planes in
-// shared memory up to NE_SMEM of them.
+// descent_scan_launch, count_scan_launch and polygon_scan_launch launch
+// (B / 8) clusters of `cluster` CTAs (1 to 8); polygon_scan_launch keeps
+// the half-planes in shared memory up to NE_SMEM of them.
+// collect_scan_launch launches (B / 8) * ceil(K / warps) CTAs of `warps`
+// warps (1 to 8), one slot a warp.
 extern "C" int descent_scan_launch(const void* cand, const void* entries,
                                    const void* rects, const void* qstart,
                                    const void* qend, void* out, int K, int P,
-                                   int B, void* stream) {
-  return launch<REACH>(cand, entries, nullptr, rects, qstart, qend, out, K,
-                       P, B, stream);
+                                   int B, int cluster, void* stream) {
+  return launch_cluster<REACH, SHARED>(cand, entries, rects, nullptr, qstart,
+                                       qend, out, K, P, B, 0, cluster,
+                                       stream);
 }
 
 extern "C" int count_scan_launch(const void* cand, const void* entries,
@@ -438,10 +452,21 @@ extern "C" int count_scan_launch(const void* cand, const void* entries,
 extern "C" int collect_scan_launch(const void* cand, const void* entries,
                                    const void* ids, const void* rects,
                                    const void* qstart, const void* qend,
-                                   void* out, int K, int P, int B,
+                                   void* out, int K, int P, int B, int warps,
                                    void* stream) {
-  return launch<COLLECT>(cand, entries, ids, rects, qstart, qend, out, K, P,
-                         B, stream);
+  if (warps < 1 || warps > COLLECT_MAX_WARPS || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (K + warps - 1) / warps;
+  const long long grid = (long long)(B / TB) * groups;
+  if (grid < 1 || grid > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  collect_scan_kernel<<<static_cast<unsigned>(grid), 32 * warps, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(cand), static_cast<const float*>(entries),
+      static_cast<const int32_t*>(ids), static_cast<const float*>(rects),
+      static_cast<const int32_t*>(qstart), static_cast<const int32_t*>(qend),
+      static_cast<int32_t*>(out), K, P, B, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int polygon_scan_launch(const void* cand, const void* entries,

@@ -14,8 +14,10 @@ The port of ``repro.kernels.range_query.descent``:
 * :func:`descent_scan` — phase 2 for RangeReach: OR over the ``K``
   candidate tiles of each query tile of the exact slice and box test,
   ``(B,)`` int32 0/1.  On a CUDA tensor it launches
-  ``csrc/leaf_scan.cu`` (K3); on a CPU tensor it runs
-  :func:`descent_scan_torch`, a gathered scan with the same contract.
+  ``csrc/leaf_scan.cu`` (K3, a thread block cluster of
+  :func:`scan_cluster_size` CTAs per 8-query tile, as K4 and K6); on a
+  CPU tensor it runs :func:`descent_scan_torch`, a gathered scan with
+  the same contract.
 
 Exactness never rests on the mask: the scan re-tests every entry by
 arena slice and exact box, so a superfluous candidate tile adds nothing
@@ -31,7 +33,7 @@ import torch
 
 from ...device import DeviceLike, resolve_device, same_device
 from .._build import call, check_aligned, check_tensor, sm_count
-from .layout import COARSE_GROUP, TB, TP, TPT
+from .layout import COARSE_GROUP, TB, TP, TPT, cluster_size
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -137,6 +139,15 @@ def check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend, dim: int,
     return B, P, K
 
 
+def scan_cluster_size(n_query_tiles: int, K: int, n_sms: int) -> int:
+    """CTAs per query tile in the thread block cluster of K3, K4 and K6:
+    K1's choice (:func:`.layout.cluster_size`, 8 at 32 query tiles on 132
+    multiprocessors, 1 from 132 up), capped at the K candidate slots,
+    which the cluster's CTAs share round robin, so that no CTA is left
+    without a slot."""
+    return min(cluster_size(n_query_tiles, n_sms), K)
+
+
 PRUNE_THREADS = 256   # K2's block: 4 leaf tiles per thread and step
 PRUNE_QUAD = 4
 PRUNE_BLOCKS_PER_SM = 4   # resident at K2's register budget
@@ -213,10 +224,13 @@ def descent_scan(
     device: DeviceLike = None,
 ) -> torch.Tensor:
     """(B,) int32 0/1 — OR over the K candidate tiles of each query tile
-    of the exact slice and box test.  Duplicate candidates are harmless.
-    On a CUDA device the K3 kernel runs (a candidate outside
-    ``[0, P // TP)`` is the caller's error: the kernel skips it, the
-    plain version raises); on the CPU the plain version runs."""
+    of the exact slice and box test.  Duplicate candidates are harmless,
+    and a candidate outside ``[0, P // TP)`` is a miss: the kernel never
+    reads it, and the plain version's :func:`tile_hits` counts it as one
+    (held by ``test_torch_analytics.py::
+    test_tiles_outside_the_arena_are_misses``).  On a CUDA device the K3
+    kernel runs (a cluster of :func:`scan_cluster_size` CTAs per query
+    tile); on the CPU the plain version runs."""
     dev = resolve_device(device)
     if not same_device(entries_soa.device, dev):
         raise ValueError(f"entries_soa lies on {entries_soa.device}, "
@@ -228,10 +242,11 @@ def descent_scan(
     B, P, K = check_scan_inputs(cand, entries_soa, rects_soa, qstart, qend,
                                 dim, dev)
     out = torch.empty(B, dtype=torch.int32, device=entries_soa.device)
-    call("leaf_scan", "descent_scan_launch", [_PTR] * 6 + [_INT] * 3,
+    call("leaf_scan", "descent_scan_launch", [_PTR] * 6 + [_INT] * 4,
          out.device, cand.data_ptr(), entries_soa.data_ptr(),
          rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
-         out.data_ptr(), K, P, B)
+         out.data_ptr(), K, P, B,
+         scan_cluster_size(B // TB, K, sm_count(out.device)))
     descent_scan.launches += 1
     return out
 

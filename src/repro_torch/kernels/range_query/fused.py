@@ -41,7 +41,7 @@ import torch
 from ...device import DeviceLike, resolve_device, same_device
 from .._build import call, check_aligned, check_tensor, sm_count
 from .descent import take_candidates, tile_hits
-from .layout import COARSE_GROUP, ID_SENTINEL, TB, TP
+from .layout import COARSE_GROUP, ID_SENTINEL, TB, TP, cluster_size
 
 # int16 fine-plane code space: finite bounds clip to [I16_LO, I16_HI];
 # the values just outside are reserved for ±inf padding so an inert
@@ -216,19 +216,6 @@ def fused_serve_torch(
 
 _MODE_CODE = {"reach": 0, "count": 1, "collect": 2}
 _ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-MAX_CLUSTER = 8
-
-
-def cluster_size(n_query_tiles: int, n_sms: int) -> int:
-    """Blocks per query tile in K1's thread block cluster: the least of
-    1, 2, 4, 8 whose clusters cover the ``n_sms`` multiprocessors (8 at
-    most), so a small batch still fills the card and a large one keeps
-    one block per query tile."""
-    c = 1
-    while c < MAX_CLUSTER and n_query_tiles * c < n_sms:
-        c *= 2
-    return c
-
 
 def fused_serve(
     qfine: torch.Tensor,        # (2*dim, NTp) int16 quantized fine MBRs

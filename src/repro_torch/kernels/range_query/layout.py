@@ -1,6 +1,8 @@
 """Data layout of the serving arena: tile constants, the SoA entry
-planes and the leaf-tile MBR pyramid (host NumPy, once per upload), and
-the one device copy of a forest's planes that every engine shares.
+planes and the leaf-tile MBR pyramid (host NumPy, once per upload), the
+one device copy of a forest's planes that every engine shares, and the
+thread block cluster size of the kernels that run a cluster per query
+tile.
 
 Copies of ``repro.kernels.range_query``'s layout pieces.  The tile
 grain stays the reference's: ``TB = 8`` queries per query tile and
@@ -23,6 +25,8 @@ TP = 128          # arena entries per leaf tile
 TPT = 128         # the fine plane is padded to a multiple of TPT tiles
 COARSE_GROUP = 8  # leaf tiles per coarse pyramid node
 
+MAX_CLUSTER = 8   # CTAs per thread block cluster of K1, K3, K4 and K6
+
 # payload-id sentinel for collect padding/misses: sorts after every real
 # vertex id and survives the int32 round trip
 ID_SENTINEL = np.int32(np.iinfo(np.int32).max)
@@ -35,6 +39,17 @@ SOA_BUILDS = 0
 # ``host_uploads`` from the host transposition, ``device_adoptions`` from
 # a ``build_forest_device`` handoff without a copy
 UPLOAD_COUNTERS = {"host_uploads": 0, "device_adoptions": 0}
+
+
+def cluster_size(n_query_tiles: int, n_sms: int) -> int:
+    """Blocks per query tile in K1's thread block cluster: the least of
+    1, 2, 4, 8 whose clusters cover the ``n_sms`` multiprocessors (8 at
+    most), so a small batch still fills the card and a large one keeps
+    one block per query tile."""
+    c = 1
+    while c < MAX_CLUSTER and n_query_tiles * c < n_sms:
+        c *= 2
+    return c
 
 
 def forest_to_soa(forest) -> Tuple[np.ndarray, np.ndarray]:

@@ -5,8 +5,9 @@
 candidate lists cut below, at and above the true candidate count, at
 K = 3 and with a row of padding only (rows with no candidate, rows of
 repeated padding); tiles outside the arena, which the plain versions
-count as misses as the kernels do; the cluster size of K4's and K6's
-kernel.  Every comparison is exact.
+count as misses as the kernels do; ``collect_scan_torch`` with a last
+row of padding only; the cluster size of K4's and K6's kernel and K5's
+warps per CTA.  Every comparison is exact.
 """
 
 import jax
@@ -31,7 +32,7 @@ from repro_torch.kernels.range_query.descent import (
 )
 from repro_torch.kernels.range_query.fused import compact_ascending
 from repro_torch.kernels.range_query.layout import ID_SENTINEL, TB, TP
-from test_torch_descent import k_cases, scan_inputs
+from test_torch_descent import k_cases, last_row_padding, scan_inputs
 from test_torch_fused import _t
 
 
@@ -107,6 +108,22 @@ def test_collect_scan_matches_reference(B, kind):
             assert np.array_equal(np.sort(row[row != ID_SENTINEL]),
                                   np.sort(drow[drow != ID_SENTINEL]))
         assert (got != int(ID_SENTINEL)).any()
+
+
+@pytest.mark.parametrize("B", [TB, 3 * TB])
+def test_collect_scan_on_a_last_row_of_padding_matches_reference(B):
+    """K above the true count and the last row all padding: equal to the
+    interpreted Pallas kernel; the padded row's first slot holds its
+    tile's hits and every later slot of the row is sentinels."""
+    d, cand = last_row_padding(60 + B, B)
+    args = (d["esoa"], d["ids"], d["rsoa"], d["qs"], d["qe"])
+    got = A.collect_scan_torch(cand, *map(_t, args))
+    want = RA.collect_scan_pallas(*_j(cand, *args), interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    first = A.collect_scan_torch(cand[:, :1].contiguous(), *map(_t, args))
+    assert torch.equal(got[-TB:, :TP], first[-TB:])
+    assert (first[-TB:] != int(ID_SENTINEL)).any()
+    assert (got[-TB:, TP:] == int(ID_SENTINEL)).all()
 
 
 def test_padding_slots_count_nothing():
@@ -198,3 +215,15 @@ def test_scan_cluster_size(n_query_tiles, K):
     choice, at most K."""
     want = {1: 8, 32: 8, 132: 1, 256: 1}[n_query_tiles]
     assert A.scan_cluster_size(n_query_tiles, K, 132) == min(want, K)
+
+
+@pytest.mark.parametrize("K", [1, 3, 16, 64])
+@pytest.mark.parametrize("n_query_tiles", [1, 32, 256])
+def test_collect_warps(n_query_tiles, K):
+    """K5's warps (slots) per CTA on 132 multiprocessors: of 1, 2, 4 and
+    8, at most K, the one whose (B/8) * ceil(K / w) CTAs come nearest to
+    one a multiprocessor, the wider on a tie."""
+    want = {1: {1: 1, 3: 1, 16: 1, 64: 1},
+            32: {1: 1, 3: 1, 16: 4, 64: 8},
+            256: {1: 1, 3: 2, 16: 8, 64: 8}}[n_query_tiles][K]
+    assert A.collect_warps(n_query_tiles, K, 132) == want

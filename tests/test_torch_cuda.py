@@ -1,13 +1,13 @@
 """GPU tests of the port: each CUDA kernel (fused serve, tile prune,
-descent / count / collect / polygon scans (K4 and K6 also at K = 1 to
-64, B = 8 to 2048, rows of padding only, tiles outside the arena, 4, 8
-and 16 half-planes), the packed closure product (also at f = 1 to
-4,099, Wm = 1 to 200, W = 1 to 300, with dense rows, rows without a bit
-and bits at columns >= m), the segmented-MBR reduction, the full-arena
-leaf scan (also on P = 0, 1,001 and 40,000 at B = 1 to 2048, slices of
-every start residue mod 4 and length 0 to 5,000, clipped, empty and
-reversed, hits at a slice's first or last entry, planes at a misaligned
-base), the fused
+descent / count / collect / polygon scans (K3-K6 also at K = 1 to 64,
+B = 8 to 2048, rows of padding only, tiles outside the arena; K6 at 4,
+8 and 16 half-planes; K5 refusing planes at a misaligned base), the
+packed closure product (also at f = 1 to 4,099, Wm = 1 to 200, W = 1
+to 300, with dense rows, rows without a bit and bits at columns >= m),
+the segmented-MBR reduction, the full-arena leaf scan (also on P = 0,
+1,001 and 40,000 at B = 1 to 2048, slices of every start residue mod 4
+and length 0 to 5,000, clipped, empty and reversed, hits at a slice's
+first or last entry, planes at a misaligned base), the fused
 EmbeddingBag) against its plain PyTorch version, the wrappers' input
 checks, the engine on the card (both paths, polygons) against the
 engine on the CPU, the device build on the card against the host build,
@@ -311,6 +311,30 @@ def test_prune_wrappers_reject_misaligned_planes(cuda):
     assert F.fused_serve.launches == launches
 
 
+def test_collect_scan_rejects_misaligned_planes(cuda):
+    """K5 loads the planes as float4 and the ids as int4: a plane or id
+    tensor whose data starts off a 16-byte boundary raises before any
+    launch."""
+    d, T, ck = _cluster_scan_case(5, TB, 4, 8, cuda)
+    P = T["esoa"].shape[1]
+    ids = torch.arange(P, dtype=torch.int32, device=cuda)[None]
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    rest = (T["rsoa"], T["qs"], T["qe"])
+    launches = A.collect_scan.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        A.collect_scan(ck, shifted(T["esoa"]), ids, *rest)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        A.collect_scan(ck, T["esoa"], shifted(ids), *rest)
+    assert A.collect_scan.launches == launches
+    assert torch.equal(A.collect_scan(ck, T["esoa"], ids, *rest),
+                       A.collect_scan_torch(ck, T["esoa"], ids, *rest))
+
+
 @pytest.mark.parametrize("path", ["fused", "two_phase"])
 def test_bad_vertex_ids_leave_the_card_usable(cuda, path):
     """An out-of-range vertex id raises IndexError on the host, before a
@@ -499,24 +523,33 @@ def _cluster_scan_case(seed, B, K, ne, device):
 @pytest.mark.parametrize("K", [1, 2, 3, 16, 64])
 @pytest.mark.parametrize("B", [TB, 32 * TB, 256 * TB])
 def test_cluster_scans_match_plain(cuda, B, K):
-    """K4 and K6 bit for bit against their plain versions: one query
-    tile (a cluster of min(8, K) CTAs, most with one slot), 32 (the
+    """K3, K4 and K6 bit for bit against their plain versions: one
+    query tile (a cluster of min(8, K) CTAs, most with one slot), 32 (the
     serving batch: 8 CTAs a cluster) and 256 (one CTA a query tile, K
     slots through its cp.async ring); K not a multiple of the cluster,
-    and 64 (several ring turns)."""
+    and 64 (several ring turns).  K5 on the same inputs, at the warps
+    per CTA ``collect_warps`` picks (1, 1 to 8, 1 to 8): every (query,
+    slot) row written, padding and out-of-arena slots as sentinels."""
     d, T, ck = _cluster_scan_case(B + K, B, K, 8, cuda)
+    P = T["esoa"].shape[1]
+    ids = torch.as_tensor(np.random.default_rng(B + K).permutation(P)
+                          .astype(np.int32)[None], device=cuda)
     box = (T["esoa"], T["rsoa"], T["qs"], T["qe"])
     poly = (T["esoa"], T["rsoa"], T["lines"], T["qs"], T["qe"])
+    col = (T["esoa"], ids, T["rsoa"], T["qs"], T["qe"])
     for kernel, plain, args, kw in (
+            (D.descent_scan, D.descent_scan_torch, box, {}),
             (A.count_scan, A.count_scan_torch, box, {}),
+            (A.collect_scan, A.collect_scan_torch, col, {}),
             (A.polygon_scan, A.polygon_scan_torch, poly, {"ne": d["ne"]})):
         launches = kernel.launches
         got = kernel(ck, *args, **kw)
         assert kernel.launches == launches + 1
         assert torch.equal(got, plain(ck, *args, **kw)), kernel.__name__
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert A.scan_cluster_size(B // TB, K, n_sms) == (
+    assert D.scan_cluster_size(B // TB, K, n_sms) == (
         min(8, K) if B < 256 * TB else 1)
+    assert 1 <= A.collect_warps(B // TB, K, n_sms) <= min(8, K)
 
 
 @pytest.mark.parametrize("B,ne", [(TB, 4), (TB, 8), (TB, 16), (32 * TB, 4),

@@ -3,7 +3,8 @@ against the JAX package's: ``prune_tiles_torch`` against the interpreted
 ``prune_tiles_pallas`` and ``prune_tiles_ref``, the candidate compaction
 (``compact_ascending``) against the reference engine's
 ``compact_candidates``, and ``descent_scan_torch`` against the
-interpreted ``descent_scan_pallas``.  Inputs come from numpy seeds and
+interpreted ``descent_scan_pallas`` (also with a last row of padding
+only); K3's cluster size.  Inputs come from numpy seeds and
 are fed to both sides; every comparison is exact.
 """
 
@@ -145,6 +146,39 @@ def test_descent_scan_matches_reference(B, kind):
         assert got.any()
 
 
+def last_row_padding(seed, B):
+    """``scan_inputs`` whose last query tile takes the first one's
+    slices and rects (``scan_inputs`` leaves it empty where B > TB), its
+    compacted candidates cut at K above the largest true count, and the
+    last row then all padding: its first tile in every slot."""
+    d = scan_inputs(seed, B)
+    d["qs"][-TB:], d["qe"][-TB:] = d["qs"][:TB], d["qe"][:TB]
+    d["rsoa"][:, -TB:] = d["rsoa"][:, :TB]
+    mask = D.prune_tiles_torch(_t(d["fine"]), _t(d["coarse"]), _t(d["rsoa"]),
+                               _t(d["qs"]), _t(d["qe"]))
+    cand, cnt = F.compact_ascending(mask, d["nt"])
+    assert int(cnt[-1]) >= 2
+    cand = D.take_candidates(cand, int(cnt.max()) + 3).clone()
+    cand[-1] = int(cand[-1, 0])
+    return d, cand
+
+
+@pytest.mark.parametrize("B", [TB, 3 * TB])
+def test_descent_scan_on_a_last_row_of_padding_matches_reference(B):
+    """K above the true count and the last row all padding: equal to the
+    interpreted Pallas kernel, and the padded row answers as its first
+    slot alone."""
+    d, cand = last_row_padding(50 + B, B)
+    args = (d["esoa"], d["rsoa"], d["qs"], d["qe"])
+    got = D.descent_scan_torch(cand, *map(_t, args))
+    want = RD.descent_scan_pallas(jnp.asarray(cand.numpy()),
+                                  *[jnp.asarray(a) for a in args],
+                                  interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    first = D.descent_scan_torch(cand[:, :1].contiguous(), *map(_t, args))
+    assert torch.equal(got[-TB:], first[-TB:]) and got[-TB:].any()
+
+
 def test_take_candidates_pads_with_the_last_column():
     d = scan_inputs(3, 2 * TB)
     nt = d["nt"]
@@ -248,6 +282,16 @@ def test_slice_tile_spans_bound_the_prunes(case):
                                                 (39, 40)]
     if case == "to_nt":
         assert spans[0][-1, 1] == nt
+
+
+@pytest.mark.parametrize("K", [1, 3, 16, 64])
+@pytest.mark.parametrize("n_query_tiles", [1, 32, 256])
+def test_descent_scan_cluster_size(n_query_tiles, K):
+    """K3's CTAs per query tile on 132 multiprocessors, K4's and K6's
+    choice: 8 (capped at K) while fewer than 132 query tiles leave
+    multiprocessors idle, 1 at 256 query tiles."""
+    want = {1: 8, 32: 8, 256: 1}[n_query_tiles]
+    assert D.scan_cluster_size(n_query_tiles, K, 132) == min(want, K)
 
 
 @pytest.mark.parametrize("nb,ntp,want", [(32, 77440, 16), (1, 77440, 76),
