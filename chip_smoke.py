@@ -160,7 +160,8 @@ not beside this script, it exits with code 2 and prints no result.
            reset just before, read just after), within 1e-5 of
            ``segment_bag_torch`` on the card; K10 timed on both batches'
            bags with its plain version, ``F.embedding_bag`` as the
-           library yardstick, and the bound from these inputs
+           library yardstick, the bound from these inputs and the
+           gather's 32-byte sector traffic beside it
   profile  torch.profiler over one reach pass on each path (fused,
            two-phase, leaf scan, wavefront) and one polygon pass: device
            operations and busy time per batch, and the busy share of
@@ -191,8 +192,13 @@ device time of their histories' item embedding, the closure product
 with each index's largest launch), the leaf-scan probe (K9) on the
 first leaf-scan batch of yelp x1.0 comp and x0.5 base and on the
 random arena at dims 2 and 3, and summed over its 48 launches, with
-the launch floor, on inputs that every checkout of the port makes
-alike; phase ``build`` first, for the checkout's ``ptxas`` lines.
+the launch floor, the fused EmbeddingBag (K10) on the bags of
+serve_p99's and serve_bulk's histories over DIN's item table, with its
+plain version, ``F.embedding_bag``, its bound and the gather's 32-byte
+sector traffic, also at 1 to 64 segments a warp and, on serve_bulk's
+bags, over the table's first 10,000 to 700,000 rows, on inputs that
+every checkout of the port makes alike; phase ``build`` first, for the
+checkout's ``ptxas`` lines.
 Run it for two checkouts in turns (parent, change, change, parent) in
 one call to compare them on one card.
 """
@@ -253,6 +259,10 @@ CLUSTER_SCAN_TILES = 3000
 CLUSTER_NE = ((256, 4), (256, 8), (256, 16), (8, 512), (8, 1024), (8, 4096))
 SWEEP_CLUSTERS = (1, 2, 4, 8)      # K3's, K4's and K6's clusters in --ab
 SWEEP_WARPS = (1, 2, 4, 8)         # K5's warps per CTA in --ab
+SWEEP_SEGMENTS = (1, 2, 4, 8, 16, 32, 64)   # K10's segments a warp
+# K10 in --ab also on serve_bulk's bags over the item table's first rows
+# only (each index taken modulo the rows): tables in and beyond L2
+BAG_TABLE_ROWS = (10_000, 300_000, 500_000, 700_000)
 POLY_MIXED = ((3, 4), (3, 12))     # extra batches: edge buckets 4 and 16
 # K7's edge cases (f rows, m = 32*Wm - 3 columns so that A's last word
 # holds bits at columns >= m, W words of out) and K9's (slice lengths,
@@ -859,36 +869,36 @@ def compare_range_query(ks, args, dim, where):
 
 
 # K10's cases: (rows V, width D, bags B, longest bag); each with three
-# empty bags at the end, float32 and bf16 tables
+# empty bags at the end, float32 and bf16 tables; the edge cases
+# (``bag_edges``) add the widths BAG_WIDTHS
 BAG_CASES = ((10, 18, 1, 3), (1000, 32, 37, 100), (1_000_000, 18, 512, 100),
              (100_000, 128, 300, 40), (64, 128, 9, 0))
+BAG_WIDTHS = (1, 2, 17, 18, 19, 32, 128, 129)
+# a bag longer than this is held against the card's plain version only
+# on exactly summable data (``bag_edge_operands(exact=True)``)
+LONG_BAG = 1000
 
 
 def bag_operands(rng, V, D, B, maxlen, dtype, device):
     """K10's packed operands for B random bags of 0..maxlen lookups into
     a (V, D) table (the last three bags empty, the packed tail padding),
     with random weights; maxlen = 0 gives L = 0, one inert tile."""
-    import torch
-    from repro_torch.kernels.segment_bag import pack_bags
-
     lens = rng.integers(0, maxlen + 1, B)
     lens[max(B - 3, 0):] = 0
-    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-    idx = rng.integers(0, V, int(offsets[-1]))
-    i, s, w = pack_bags(idx, offsets)
-    w[: len(idx)] = rng.uniform(0.5, 2.0, len(idx)).astype(np.float32)
-    table = torch.as_tensor(rng.standard_normal((V, D), np.float32))
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (table.to(dtype), i, s, w))
+    return bag_edge_operands(rng, lens, V, D, dtype, device)
 
 
-def compare_segment_bag(ks, ops, B, where):
+def compare_segment_bag(ks, ops, B, where, card=True):
     """K10 bit for bit against its plain version on the CPU, which adds
     the same products in the same ascending order, and against the
     plain version on the card within BAG_TOL absolute plus BAG_TOL
     relative (its atomic adds take any order; these random tables sum
     to tens, not to DIN's tenths).  Returns the largest absolute
-    difference from the card's plain version (the CPU's is 0)."""
+    difference from the card's plain version (the CPU's is 0).  With
+    ``card`` false, only the CPU's (a bag of thousands of random terms,
+    whose float32 sum moves by more than BAG_TOL with the order of the
+    adds: ``bag_edges`` holds such a bag also on exactly summable data,
+    ``exact``, for the card's version); returns 0."""
     import torch
 
     sb = ks.sb
@@ -896,9 +906,10 @@ def compare_segment_bag(ks, ops, B, where):
     plain = sb.segment_bag_torch(*ops, n_segments=B)
     torch.cuda.synchronize()
     diff = (got - plain).abs()
-    err = float(diff.max()) if got.numel() else 0.0
+    err = float(diff.max()) if got.numel() and card else 0.0
     if (got.dtype != torch.float32 or got.shape != plain.shape
-            or not bool((diff <= BAG_TOL + BAG_TOL * plain.abs()).all())):
+            or card and not bool(
+                (diff <= BAG_TOL + BAG_TOL * plain.abs()).all())):
         raise AssertionError(f"segment_bag kernel != plain version ({where}: "
                              f"max_abs_err {err})")
     if not torch.equal(got.cpu(), sb.segment_bag_torch(
@@ -908,10 +919,70 @@ def compare_segment_bag(ks, ops, B, where):
     return err
 
 
-def segment_bag_cases(ks, rng, dev, cases):
-    """K10 on BAG_CASES, float32 and bf16 tables, each case's difference
-    from the card's plain version recorded in ``cases``."""
+def bag_edge_operands(rng, lens, V, D, dtype, device, pad=0, shift=False,
+                      exact=False):
+    """K10's packed operands for bags of the given lengths into a random
+    (V, D) table, random weights, ``pad`` more lookups of padding at the
+    end; ``shift`` puts the table one element past an aligned base (a
+    narrower copy instantiation, ``copy_bytes``).  ``lens = None`` gives
+    L = 0: no lookup and no padding either, for one bag.  ``exact``
+    draws the table from the integers -8..8 and the weights from 0.5,
+    1, 1.5 and 2: every product and every sum of up to 10^6 of them is
+    exact in float32, in any order of the adds."""
     import torch
+    from repro_torch.kernels.segment_bag import pack_bags
+
+    if lens is None:
+        i = s = np.zeros(0, np.int32)
+        w = np.zeros(0, np.float32)
+    else:
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        i, s, w = pack_bags(rng.integers(0, V, int(offsets[-1])), offsets)
+        w[: int(offsets[-1])] = (
+            rng.integers(1, 5, int(offsets[-1])) / 2 if exact
+            else rng.uniform(0.5, 2.0, int(offsets[-1])))
+        i = np.concatenate([i, np.zeros(pad, np.int32)])
+        s = np.concatenate([s, np.full(pad, len(lens), np.int32)])
+        w = np.concatenate([w, np.zeros(pad, np.float32)])
+    table = torch.as_tensor(
+        rng.integers(-8, 9, (V, D)).astype(np.float32) if exact
+        else rng.standard_normal((V, D), np.float32)).to(dtype).to(device)
+    if shift:
+        flat = torch.empty(V * D + 1, dtype=dtype, device=device)
+        flat[1:].copy_(table.flatten())
+        table = flat[1:].view(V, D)
+    return (table, *(torch.as_tensor(a, device=device) for a in (i, s, w)))
+
+
+def bag_edges(rng):
+    """K10's edge cases, the kinds tests/test_torch_cuda.py's BAG_EDGES
+    holds: (what, bag lengths or None for L = 0, V, D, padding lookups,
+    shifted table)."""
+    ragged = rng.integers(0, 101, 1001)
+    ragged[200:700] = 0
+    out = [("one bag of 5,000", [5000], 100_000, 18, 0, False),
+           ("one bag of 200,000", [200_000], 1_000_000, 18, 0, False),
+           ("empty stretches, a padding tail",
+            [0] * 5000 + [40] * 50 + [0] * 20_000 + [3], 1000, 18, 1000,
+            False),
+           ("L = 0", None, 10, 18, 0, False),
+           ("L = 33", [33], 50, 18, 0, False),
+           ("L = 95", [31, 0, 64], 50, 18, 0, False),
+           ("1,001 ragged bags", list(ragged), 5000, 18, 0, False)]
+    out += [(f"D = {D}", list(rng.integers(0, 101, 301)), 5000, D, 0, False)
+            for D in BAG_WIDTHS]
+    out += [(f"D = {D} shifted", list(rng.integers(0, 41, 77)), 500, D, 0,
+             True) for D in (18, 32, 128)]
+    return out
+
+
+def segment_bag_cases(ks, rng, dev, cases):
+    """K10 on BAG_CASES and the edge cases of ``bag_edges``, float32 and
+    bf16 tables, then the ragged edge case at every forced launch shape
+    of SWEEP_SEGMENTS and a few more; each case's difference from the
+    card's plain version recorded in ``cases``."""
+    import torch
+    from repro_torch.kernels.segment_bag import ops as sbo
 
     for V, D, B, maxlen in BAG_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -922,6 +993,34 @@ def segment_bag_cases(ks, rng, dev, cases):
                           "cpu_plain_max_abs_err": 0,
                           "card_plain_max_abs_err": compare_segment_bag(
                               ks, ops, B, where)})
+    edges = bag_edges(rng)
+    for what, lens, V, D, pad, shift in edges:
+        long = lens is not None and max(lens) > LONG_BAG
+        for dtype in (torch.float32, torch.bfloat16):
+            B = 1 if lens is None else len(lens)
+            for exact in (False, True) if long else (False,):
+                ops = bag_edge_operands(rng, lens, V, D, dtype, dev, pad,
+                                        shift, exact)
+                cases.append({"segment_bag_edge": what, "dtype": str(dtype),
+                              "exact_data": exact,
+                              "copy_bytes": sbo.copy_bytes(ops[0]),
+                              "card_plain_max_abs_err": compare_segment_bag(
+                                  ks, ops, B, f"{what} {dtype}",
+                                  card=exact or not long)})
+    pick = sbo.warp_segments
+    what, lens, V, D, pad, _ = edges[6]
+    try:
+        for C in (*SWEEP_SEGMENTS, 3, 1000, 5000):
+            sbo.warp_segments = lambda *_, C=C: C
+            for dtype in (torch.float32, torch.bfloat16):
+                ops = bag_edge_operands(rng, lens, V, D, dtype, dev, 77)
+                cases.append({"segment_bag_edge": what, "dtype": str(dtype),
+                              "warp_segments": C,
+                              "card_plain_max_abs_err": compare_segment_bag(
+                                  ks, ops, len(lens),
+                                  f"{what} {dtype} warp_segments={C}")})
+    finally:
+        sbo.warp_segments = pick
 
 
 def cluster_scan_cases(ks, rng, dev, errs, cases):
@@ -2624,9 +2723,16 @@ def segment_bag_timing(sb, ops, offsets_np, B):
                              f"same function")
     rows = int(torch.unique(idx[:L]).numel())
     nbytes = rows * D * table.element_size() + 12 * idx.numel() + B * D * 4
+    # the 32-byte sectors the gather touches, each lookup's row at its
+    # own address: what it moves through L2, whatever the bound counts
+    row_bytes = D * table.element_size()
+    start = table.data_ptr() + idx[:L].long() * row_bytes
+    sectors = int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
     bms, by, work = bound(nbytes, 0, 0, f32_fma=L * D, lookups=L,
                           padded_lookups=int(idx.numel()), distinct_rows=rows,
-                          bags=B, D=D)
+                          bags=B, D=D, gather_sector_bytes=32 * sectors,
+                          gather_sector_ms=32 * sectors / HBM_BYTES_PER_S
+                          * 1e3)
     return {"ms": device_ms(kern, 20, f"segment_bag (B={B})"),
             "plain_ms": device_ms(
                 lambda: sb.segment_bag_torch(*ops, n_segments=B), 5,
@@ -2736,8 +2842,9 @@ def phase_ab(ks, card, src):
     port, so two checkouts can be timed in turns on one card (parent,
     change, change, parent).  K4 and K6 are also timed at each cluster
     size of SWEEP_CLUSTERS (``cluster_sweep``).  Before all of these,
-    ``ab_build_scan``: K7 and K9 per launch and summed, beside the
-    launch floor."""
+    ``ab_build_scan``: K7 and K9 per launch and summed; then K10 on both
+    serve batches' bags and at each segments-a-warp of SWEEP_SEGMENTS
+    (``ab_bags``); then the launch floor."""
     from repro_torch.core import QueryEngine, build_index
     from repro_torch.core import engine as core_engine
     from repro_torch.data import get_dataset, polygon_workload, workload
@@ -2748,11 +2855,13 @@ def phase_ab(ks, card, src):
         us, rects = workload(g, N_QUERIES, extent_ratio=0.05)
         indexes[f"{ds}x{scale} {method}"] = (g, method, build_index(
             g, method), us, rects)
-    # K7 and K9 first, as in the full run, where every kernel has run
-    # before the first profiled window: in a run that first launched
-    # them after K1-K6's windows, the profiler kept no device event of
-    # most of their windows
+    # K7, K9 and K10 first, as in the full run, where every kernel has
+    # run before the first profiled window: in a run that first launched
+    # K7 and K9 after K1-K6's windows, the profiler kept no device event
+    # of most of their windows
     bitset, range_query = ab_build_scan(ks, indexes)
+    cfg, params, cpu_params, recsys_batches = din_setup()
+    bags = ab_bags(ks, params, recsys_batches)
     floor = launch_floor_ms()
     scan_sums = scan_launch_sums(ks, indexes)
     fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
@@ -2830,9 +2939,8 @@ def phase_ab(ks, card, src):
     import torch
     from repro_torch.models.recsys import din
 
-    cfg, params, cpu_params, batches = din_setup()
     serve = {}
-    for shape, batch in batches.items():
+    for shape, batch in recsys_batches.items():
         rec = serve_shape(ks, shape, params, cpu_params, cfg, batch)
         serve[shape] = {k: rec[k] for k in ("e2e_us_per_batch",
                                             "device_busy_us_per_batch",
@@ -2843,9 +2951,44 @@ def phase_ab(ks, card, src):
             f"_embed_items ({shape} history)")
     emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
          prune_tiles=prune, scans=scans, scan_sums=scan_sums,
-         polygon_scan=polygon, din=serve,
+         polygon_scan=polygon, din=serve, segment_bag=bags,
          bitset_mm=bitset, range_query=range_query, launch_floor_ms=floor,
          timers=TIMERS)
+
+
+def ab_bags(ks, params, batches):
+    """``--ab``'s K10: ``segment_bag_timing`` on the packed bags of each
+    serve batch's histories over DIN's item table (``bag_inputs``, as
+    ``bag_path`` packs them), and K10 at each forced segments-a-warp of
+    SWEEP_SEGMENTS (``cluster_sweep``; {} for a package without
+    ``warp_segments``); on serve_bulk's bags also over the table's first
+    BAG_TABLE_ROWS rows (0.7 to 50 MB against the 72 MB table and the 50
+    MB L2), the same bags with each index modulo the rows."""
+    import torch
+    from repro_torch.kernels.segment_bag import ops as sbo
+
+    table = params["item_emb"]["emb"]
+    out = {}
+    for shape, batch in batches.items():
+        idx, offsets = bag_inputs(batch)
+        B = len(offsets) - 1
+        ops = (table, *(torch.as_tensor(a, device=DEVICE)
+                        for a in ks.sb.pack_bags(idx, offsets)))
+        out[shape] = segment_bag_timing(ks.sb, ops, offsets, B)
+        out[shape]["by_warp_segments"] = cluster_sweep(
+            sbo, "warp_segments", SWEEP_SEGMENTS,
+            lambda: ks.sb.segment_bag(*ops, n_segments=B, device=DEVICE), B,
+            f"segment_bag ({shape})")
+        if shape != "serve_bulk":
+            continue
+        out[shape]["by_table_rows"] = {}
+        for V in BAG_TABLE_ROWS:
+            cut = (table[:V], ops[1] % V, *ops[2:])
+            out[shape]["by_table_rows"][V] = device_ms(
+                lambda: ks.sb.segment_bag(*cut, n_segments=B,
+                                          device=DEVICE), 20,
+                f"segment_bag ({shape}, {V} rows)")
+    return out
 
 
 def scan_launch_sums(ks, indexes):
@@ -2954,8 +3097,8 @@ def phase_build(_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="SRC",
-                    help="time K1-K7, K9 and DIN's serving with the "
-                         "package under SRC only (phase_ab)")
+                    help="time K1-K7, K9, K10 and DIN's serving with "
+                         "the package under SRC only (phase_ab)")
     a = ap.parse_args()
     try:
         import torch

@@ -11,8 +11,11 @@ kernel would return the table's type; ROADMAP R7).
 * :func:`pack_bags` — the host packer: bags given as ``indices`` and
   ``offsets`` -> tile-aligned ``(idx, seg, w)``, the reference's arrays.
 * :func:`segment_bag` — on a CUDA tensor it launches
-  ``csrc/segment_bag.cu`` (K10, the port of ``segment_bag_pallas``); on
-  a CPU tensor it runs :func:`segment_bag_torch`.
+  ``csrc/segment_bag.cu`` (K10, the port of ``segment_bag_pallas``: a
+  warp walks :func:`warp_segments` consecutive segments, found by one
+  32-ary search, staging each batch of 32 rows in shared memory by
+  copies of :func:`copy_bytes` bytes); on a CPU tensor it runs
+  :func:`segment_bag_torch`.
 * :func:`segment_bag_torch` — the plain version, a port of
   ``segment_bag_ref``: gather, scale, sum into ``n_segments + 1`` rows.
 * :func:`embedding_bag` — ``torch.nn.EmbeddingBag``'s ``sum`` / ``mean``
@@ -27,9 +30,14 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, same_device
-from .._build import call, check_tensor
+from .._build import call, check_tensor, sm_count
 
 TL = 8   # lookups per tile: packed arrays are padded to a multiple of it
+# K10's warps on one multiprocessor (nine 4-warp blocks fit at its 56
+# registers a thread: 36, counted as 32), and the waves of warps its
+# grid is cut into (see warp_segments)
+WARPS_PER_SM = 32
+WAVES = 32
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -59,6 +67,35 @@ def pack_bags(indices: np.ndarray, offsets: np.ndarray, tl: int = TL):
     return idx_p, seg_p, w_p
 
 
+def copy_bytes(table: torch.Tensor) -> int:
+    """Bytes of each copy K10 makes of a table row: the widest of 16, 8
+    and 4 (2 for bfloat16) that divides both a row's bytes and the
+    table's base address, so every copy is aligned.  Each width is its
+    own instantiation of the kernel; 2 bytes (a bf16 table of odd D)
+    takes plain loads, since ``cp.async`` copies no less than 4.  D = 18
+    takes 8 in float32 (9 copies a row) and 4 in bf16."""
+    row = table.shape[1] * table.element_size()
+    for nbytes in (16, 8, 4, 2):
+        if (nbytes >= table.element_size() and row % nbytes == 0
+                and table.data_ptr() % nbytes == 0):
+            return nbytes
+    raise ValueError(f"a {table.dtype} table at address "
+                     f"{table.data_ptr():#x} is not element-aligned")
+
+
+def warp_segments(n_segments: int, n_sms: int) -> int:
+    """Consecutive segments a warp of K10 walks after its one search:
+    ``n_segments`` spread over WAVES times the WARPS_PER_SM warps each of
+    ``n_sms`` multiprocessors holds at once, and at least 1.  A small
+    batch gets a warp a segment, so its bags walk side by side; a large
+    one two or more, so each search (5 dependent rounds at L = 16.4M)
+    serves more lookups, in many short waves.  On 132 multiprocessors:
+    1 up to 135,168 segments (serve_p99's 512 bags: 512 warps), 2 at
+    serve_bulk's 262,144, where ``chip_smoke.py --ab`` on an H100 timed
+    2 fastest of 1 to 64, by a few percent."""
+    return max(1, -(-n_segments // (n_sms * WARPS_PER_SM * WAVES)))
+
+
 def segment_bag_torch(table: torch.Tensor, indices: torch.Tensor,
                       segments: torch.Tensor, weights: torch.Tensor, *,
                       n_segments: int) -> torch.Tensor:
@@ -83,10 +120,11 @@ def segment_bag(
 ) -> torch.Tensor:
     """(n_segments, D) float32 segment-weighted sums of table rows.
     ``device`` (``None``: the GPU) must be where the tensors lie: on a
-    CUDA device the K10 kernel runs, and a build or launch failure
-    raises; on the CPU the plain version runs.  The kernel trusts
+    CUDA device the K10 kernel runs, one launch, and a build or launch
+    failure raises; on the CPU the plain version runs.  The kernel trusts
     ``indices`` to lie in ``[0, V)`` and ``segments`` to be sorted, as
-    :func:`pack_bags` makes them."""
+    :func:`pack_bags` makes them; its launch shape is
+    :func:`warp_segments`, its row copies :func:`copy_bytes` wide."""
     dev = resolve_device(device)
     if not same_device(table.device, dev):
         raise ValueError(f"table lies on {table.device}, expected {dev}")
@@ -102,17 +140,18 @@ def segment_bag(
     check_tensor("indices", indices, torch.int32, (L,), dev)
     check_tensor("segments", segments, torch.int32, (L,), dev)
     check_tensor("weights", weights, torch.float32, (L,), dev)
-    if n_segments < 0 or n_segments >= 2 ** 31 - 1 or L >= 2 ** 31:
+    if n_segments < 0 or n_segments >= 2 ** 31 - 1 or L >= 2 ** 31 - 64:
         raise ValueError(f"n_segments={n_segments}, L={L} out of the "
                          f"kernel's int32 range")
     out = torch.empty((n_segments, D), dtype=torch.float32,
                       device=table.device)
     if n_segments == 0 or D == 0:
         return out
-    call("segment_bag", _LAUNCH[table.dtype], [_PTR] * 5 + [_INT] * 3,
+    call("segment_bag", _LAUNCH[table.dtype], [_PTR] * 5 + [_INT] * 5,
          out.device, table.data_ptr(), indices.data_ptr(),
          segments.data_ptr(), weights.data_ptr(), out.data_ptr(), L, D,
-         n_segments)
+         n_segments, copy_bytes(table),
+         warp_segments(n_segments, sm_count(out.device)))
     segment_bag.launches += 1
     return out
 

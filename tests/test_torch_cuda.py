@@ -940,6 +940,131 @@ def test_segment_bag_rejects_what_it_does_not_take(cuda):
         SB.embedding_bag(table.cpu(), np.array([1]), np.array([0, 1]))
 
 
+def _bag_operands(seed, lens, V, D, dtype, pad=0, exact=False):
+    """CPU operands for bags of the given lengths (``None``: L = 0, no
+    padding either) into a random (V, D) table, random weights and
+    ``pad`` more lookups of padding at the end.  ``exact`` draws the
+    table from the integers -8..8 and the weights from 0.5, 1, 1.5 and
+    2, so every sum of up to 10^6 products is exact in float32 in any
+    order of the adds."""
+    rng = np.random.default_rng(seed)
+    if lens is None:
+        i = s = np.zeros(0, np.int32)
+        w = np.zeros(0, np.float32)
+    else:
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        L = int(offsets[-1])
+        i, s, w = SB.pack_bags(rng.integers(0, V, L), offsets)
+        w[:L] = (rng.integers(1, 5, L) / 2 if exact
+                 else rng.uniform(0.5, 2.0, L)).astype(np.float32)
+        i = np.concatenate([i, np.zeros(pad, np.int32)])
+        s = np.concatenate([s, np.full(pad, len(lens), np.int32)])
+        w = np.concatenate([w, np.zeros(pad, np.float32)])
+    table = torch.as_tensor((rng.integers(-8, 9, (V, D)) if exact else
+                             rng.standard_normal((V, D))).astype(
+                                 np.float32)).to(dtype)
+    return [table] + [torch.as_tensor(a) for a in (i, s, w)]
+
+
+def _check_bag(args, B, cuda, table=None, card=True):
+    """K10 on the card (``table``: a card table to use instead of
+    ``args[0]``'s copy), one launch, bit for bit equal to the plain
+    version on the CPU and (``card``) within 1e-5 of the plain version
+    on the card."""
+    dev = [table if table is not None else args[0].to(cuda)] + [
+        a.to(cuda) for a in args[1:]]
+    launches = SB.segment_bag.launches
+    got = SB.segment_bag(*dev, n_segments=B)
+    assert SB.segment_bag.launches == launches + 1
+    assert got.dtype == torch.float32 and got.shape == (B, args[0].shape[1])
+    assert torch.equal(got.cpu(), SB.segment_bag_torch(*args, n_segments=B))
+    if card:
+        torch.testing.assert_close(
+            got, SB.segment_bag_torch(*dev, n_segments=B), rtol=1e-5,
+            atol=1e-5)
+    return got
+
+
+_RAGGED = np.random.default_rng(11).integers(0, 101, 1001)
+_RAGGED[200:700] = 0
+BAG_EDGES = {   # what -> (bag lengths, V, D, padding lookups)
+    "one bag of 5,000": ([5000], 100_000, 18, 0),
+    "one bag of 200,000": ([200_000], 1_000_000, 18, 0),
+    "empty stretches, a padding tail": (
+        [0] * 5000 + [40] * 50 + [0] * 20_000 + [3], 1000, 18, 1000),
+    "L = 0": (None, 10, 18, 0),
+    "L = 33": ([33], 50, 18, 0),
+    "L = 95": ([31, 0, 64], 50, 18, 0),
+    "1,001 ragged bags": (list(_RAGGED), 5000, 18, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what", list(BAG_EDGES))
+def test_segment_bag_kernel_on_edge_cases(cuda, what, dtype):
+    """Bags longer than a batch of 32 lookups and than a warp's window,
+    runs crossing batches, stretches of empty bags and a tail of
+    padding, L = 0 and L not a multiple of 32, 1,001 bags (not a
+    multiple of a block's 4 warps): bit for bit as on the CPU.  The
+    card's plain version adds atomically in any order, and a float32
+    sum of thousands of random terms moves by more than 1e-5 with the
+    order: a bag of over 1,000 lookups is held against it on exactly
+    summable data instead, where every order gives the same sums."""
+    lens, V, D, pad = BAG_EDGES[what]
+    B = 1 if lens is None else len(lens)
+    long = lens is not None and max(lens) > 1000
+    got = _check_bag(_bag_operands(len(what), lens, V, D, dtype, pad), B,
+                     cuda, card=not long)
+    if long:
+        _check_bag(_bag_operands(len(what), lens, V, D, dtype, pad, True),
+                   B, cuda)
+    if lens is not None:
+        empty = torch.as_tensor(np.asarray(lens) == 0, device=got.device)
+        assert not got[empty].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 2, 17, 18, 19, 32, 128, 129])
+def test_segment_bag_kernel_at_each_width(cuda, D, dtype):
+    """Every width, each copy width it takes (``copy_bytes``: 4 to 16
+    bytes in float32, 2 to 16 in bf16), 301 ragged bags."""
+    lens = np.random.default_rng(D).integers(0, 101, 301)
+    args = _bag_operands(D, list(lens), 5000, D, dtype)
+    _check_bag(args, len(lens), cuda)
+
+
+@pytest.mark.parametrize("spw", [1, 2, 3, 4, 8, 16, 32, 64, 1000, 5000])
+def test_segment_bag_kernel_at_forced_launch_shapes(cuda, monkeypatch, spw):
+    """K10 with ``warp_segments`` forced to each segments-a-warp the
+    ``--ab`` sweep takes and beyond (one warp for all 1,001 bags), in
+    float32 and bf16."""
+    from repro_torch.kernels.segment_bag import ops
+
+    monkeypatch.setattr(ops, "warp_segments", lambda *_: spw)
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_bag(_bag_operands(spw, list(_RAGGED), 5000, 18, dtype, 77),
+                   len(_RAGGED), cuda)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float32, 18, 4), (torch.float32, 32, 4), (torch.bfloat16, 18, 2),
+    (torch.bfloat16, 128, 2)])
+def test_segment_bag_kernel_on_a_shifted_table(cuda, dtype, D, want):
+    """A table one element past an aligned base takes the narrowest copy
+    (``copy_bytes``), a table cut by rows (``t[1:]``) keeps its width
+    where its rows stay aligned; both bit for bit as on the CPU."""
+    lens = list(np.random.default_rng(D).integers(0, 41, 77))
+    args = _bag_operands(D + 1, lens, 500, D, dtype)
+    flat = torch.empty(500 * D + 1, dtype=dtype, device=cuda)
+    flat[1:].copy_(args[0].flatten())
+    shifted = flat[1:].view(500, D)
+    assert SB.copy_bytes(shifted) == want
+    _check_bag(args, len(lens), cuda, shifted)
+    full = torch.cat([args[0][:1], args[0]]).to(cuda)
+    assert SB.copy_bytes(full[1:]) == SB.copy_bytes(args[0])
+    _check_bag(args, len(lens), cuda, full[1:])
+
+
 @pytest.fixture
 def no_tf32():
     """float32 matrix products in full precision on the card."""

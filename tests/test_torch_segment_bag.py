@@ -160,3 +160,36 @@ def test_no_gpu_raises(monkeypatch):
         SB.embedding_bag(table, np.array([0]), np.array([0, 1]))
     with pytest.raises(RuntimeError, match="CUDA"):
         SB.segment_bag(table, *[None] * 3, n_segments=1)
+
+
+@pytest.mark.parametrize("n_segments,n_sms,want", [
+    (0, 132, 1), (1, 132, 1), (37, 132, 1), (512, 132, 1),
+    (135_168, 132, 1), (135_169, 132, 2), (262_144, 132, 2),
+    (262_144, 66, 4), (2 ** 31 - 2, 132, 15_888)])
+def test_warp_segments(n_segments, n_sms, want):
+    """K10's segments a warp: 1 on small batches and serve_p99's 512
+    bags (one warp each), 2 on serve_bulk's 262,144 on 132
+    multiprocessors (WAVES waves of WARPS_PER_SM warps a
+    multiprocessor), never 0."""
+    got = SB.warp_segments(n_segments, n_sms)
+    assert got == want
+    warps = -(-max(n_segments, 1) // got)
+    assert warps <= max(1, n_sms * SB.ops.WARPS_PER_SM * SB.ops.WAVES)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float32, 1, 4), (torch.float32, 2, 8), (torch.float32, 17, 4),
+    (torch.float32, 18, 8), (torch.float32, 32, 16), (torch.float32, 129, 4),
+    (torch.bfloat16, 1, 2), (torch.bfloat16, 2, 4), (torch.bfloat16, 17, 2),
+    (torch.bfloat16, 18, 4), (torch.bfloat16, 20, 8),
+    (torch.bfloat16, 128, 16)])
+def test_copy_bytes(dtype, D, want):
+    """K10's copy width: the widest of 16, 8, 4 (2 for bf16) bytes that
+    divides a row and the base; one element past the base leaves the
+    element's own size (the narrowest instantiation)."""
+    table = torch.zeros(5, D, dtype=dtype)
+    assert table.data_ptr() % 16 == 0
+    assert SB.copy_bytes(table) == want
+    flat = torch.zeros(5 * D + 1, dtype=dtype)
+    assert SB.copy_bytes(flat[1:].view(5, D)) == (
+        4 if dtype == torch.float32 else 2)
