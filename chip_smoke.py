@@ -51,7 +51,10 @@ not beside this script, it exits with code 2 and prints no result.
            and 128, tables of 10 to 1,000,000 rows in float32 and bf16,
            ragged bag counts, empty bags, an all-padding tail and L = 0
            (one inert tile), within 1e-5 of its plain version on the
-           card and bit for bit equal to it on the CPU.  The two pyramid
+           card and bit for bit equal to it on the CPU, also on ids -1,
+           -V, -V - 1, V and the int32 extremes (NaN where the plain
+           version has NaN), and ``embedding_bag`` giving the
+           reference's rows for ids [0, 7], [-1, 0] and [0, -8].  The two pyramid
            prunes (fused serve K1 in every mode, tile prune K2) on
            slices of every kind per query tile (8 disjoint ones, nested
            and overlapping ones, degenerate ones beside a short one, one
@@ -84,6 +87,23 @@ not beside this script, it exits with code 2 and prints no result.
            3-12-gons (edge buckets 8, 4 and 16), equal to the host
            polygon path and, on a 256-query sample, to the BFS oracle;
            the prune and the polygon scan launch once per batch
+  obs      the observability hooks (``repro_torch.obs``) on main's
+           engines at yelp x1.0 2dreach-comp and x0.5 2dreach: answers
+           with obs on equal to those with it off (reach, count and
+           collect on both paths, kNN k = 8, a 6-gon batch; B = 256);
+           span coverage >= 0.95 of a traced mixed pass (fused reach,
+           two-phase count, collect, kNN, polygons) with its stage
+           totals, twice; ``engine.batch_us`` counting exactly the
+           batches served, the ``engine.n_compiles`` gauge equal to the
+           engine's and flat in the second pass; ``engine.upload.*`` and
+           ``range_query.soa_builds`` moving as a second engine, a host
+           build and a device build (yelp x0.1) predict; each engine's
+           cost model; ``obs.dump`` parsing file by file;
+           the exactness auditor over 2,048 answers (an eighth also
+           against the BFS oracle) with no divergence, and one
+           divergence and one flight bundle for an answer flipped by
+           hand; e2e µs/query of fused and two-phase reach with obs off
+           and on, in turns
   device_build  ``build_index(..., backend="device")`` on the card for
            the three main-path indexes: every index array equal to the
            host build of phase main, the engine adopts the forest (one
@@ -166,6 +186,12 @@ not beside this script, it exits with code 2 and prints no result.
            two-phase, leaf scan, wavefront) and one polygon pass: device
            operations and busy time per batch, and the busy share of
            the end-to-end time
+  obs_trace  last of the profiled windows (after one, later windows
+           lost their device rows): ``device_trace`` around a fused and
+           a two-phase reach pass of main's yelp x1.0 comp workload,
+           holding one kernel event per K1, K2 and K3 launch and the
+           ``annotate`` range (a window short of events traced again,
+           up to three times)
   timers   the profiler's retries (a window with no device rows, or a
            row whose count is not a multiple of the calls, is profiled
            again), every time taken with CUDA events because no try was
@@ -179,7 +205,8 @@ is ``{"ok": true, "device": {...}}``.
 
 runs only phase ``ab``, with the ``repro_torch`` package under ``SRC``
 (for instance a parent commit's ``src``, unpacked with ``git archive``):
-K1 in every mode, K2 and the descent, count and collect scans (K3-K5)
+fused and two-phase reach end to end (µs/query, B = 256, obs off) on
+yelp x1.0 2dreach-comp and x0.5 2dreach, K1 in every mode, K2 and the descent, count and collect scans (K3-K5)
 on the first batch of yelp x1.0 2dreach-comp and of yelp x0.5 2dreach,
 the polygon scan (K6) on the first 6-gon batch of yelp x1.0 comp,
 K3, K4 and K6 also at thread block clusters of 1, 2, 4 and 8 CTAs and
@@ -417,6 +444,13 @@ def _diff(a, b) -> int:
     if a.shape != b.shape or not torch.equal(a, b):
         return max(err, 1)
     return err
+
+
+def fused_args(eng, us, rects):
+    """The fused serve's tensor inputs for one batch, as the engine
+    assembles them (pad, route, quantize)."""
+    _, us_dev, rsoa = eng._pad(us, rects)
+    return eng._serve_args(rsoa, *eng._route(us_dev))[1]
 
 
 def compare_fused(ks, args, nt, kcaps, where):
@@ -905,18 +939,57 @@ def compare_segment_bag(ks, ops, B, where, card=True):
     got = sb.segment_bag(*ops, n_segments=B, device=DEVICE)
     plain = sb.segment_bag_torch(*ops, n_segments=B)
     torch.cuda.synchronize()
-    diff = (got - plain).abs()
+    nan = torch.isnan(plain)       # bags holding an id outside the table
+    diff = (got - plain).abs().masked_fill(nan, 0)
     err = float(diff.max()) if got.numel() and card else 0.0
     if (got.dtype != torch.float32 or got.shape != plain.shape
-            or card and not bool(
-                (diff <= BAG_TOL + BAG_TOL * plain.abs()).all())):
+            or card and not (torch.equal(torch.isnan(got), nan) and bool(
+                (diff <= BAG_TOL + BAG_TOL * plain.abs().masked_fill(
+                    nan, 0)).all()))):
         raise AssertionError(f"segment_bag kernel != plain version ({where}: "
                              f"max_abs_err {err})")
-    if not torch.equal(got.cpu(), sb.segment_bag_torch(
+    if not nan_equal(got.cpu(), sb.segment_bag_torch(
             *(t.cpu() for t in ops), n_segments=B)):
         raise AssertionError(f"segment_bag kernel != plain version on the "
                              f"CPU ({where})")
     return err
+
+
+def nan_equal(a, b):
+    """Equal, NaN where the other is NaN (``equal_nan``)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0),
+                                               b.masked_fill(nb, 0))
+
+
+# ids of K10's bad-id cases: -1 and -V wrap, the rest lie outside the
+# table (INT32_MIN and INT32_MAX too); "-V" etc. are read per table
+BAD_BAG_IDS = (-1, "-V", "-V-1", "V", -2 ** 31, 2 ** 31 - 1)
+# the reference's rows (``embedding_bag(use_ref=True)``) for one bag of
+# two lookups into arange(28).reshape(7, 4), float32
+F2_ROWS = (([0, 7], [[float("nan")] * 4]),
+           ([-1, 0], [[24.0, 26.0, 28.0, 30.0]]),
+           ([0, -8], [[float("nan")] * 4]))
+
+
+def bad_id_operands(rng, V, D, dtype, device):
+    """K10's operands for bags of 7 lookups and bags of one, each pair
+    holding one of BAD_BAG_IDS, then two bags of good ids and 5 lookups
+    of padding."""
+    import torch
+
+    lens = [7, 1] * len(BAD_BAG_IDS) + [40, 3]
+    table, i, s, w = bag_edge_operands(rng, lens, V, D, dtype, device,
+                                       pad=5)
+    i = i.cpu().numpy().copy()
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    for b, bad in enumerate(BAD_BAG_IDS):
+        bad = {"-V": -V, "-V-1": -V - 1, "V": V}.get(bad, bad)
+        i[offsets[2 * b] + 3] = bad
+        i[offsets[2 * b + 1]] = bad
+    return (table, torch.as_tensor(i, device=device), s, w), len(lens)
 
 
 def bag_edge_operands(rng, lens, V, D, dtype, device, pad=0, shift=False,
@@ -978,9 +1051,12 @@ def bag_edges(rng):
 
 def segment_bag_cases(ks, rng, dev, cases):
     """K10 on BAG_CASES and the edge cases of ``bag_edges``, float32 and
-    bf16 tables, then the ragged edge case at every forced launch shape
-    of SWEEP_SEGMENTS and a few more; each case's difference from the
-    card's plain version recorded in ``cases``."""
+    bf16 tables; on ids outside the table or wrapping (BAD_BAG_IDS, D =
+    18 and 128), NaN where the plain version has NaN; ``embedding_bag``
+    on the card giving the reference's F2_ROWS; then the ragged edge
+    case at every forced launch shape of SWEEP_SEGMENTS and a few more;
+    each case's difference from the card's plain version recorded in
+    ``cases``."""
     import torch
     from repro_torch.kernels.segment_bag import ops as sbo
 
@@ -1007,6 +1083,28 @@ def segment_bag_cases(ks, rng, dev, cases):
                               "card_plain_max_abs_err": compare_segment_bag(
                                   ks, ops, B, f"{what} {dtype}",
                                   card=exact or not long)})
+    for D in (18, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            ops, B = bad_id_operands(rng, 500, D, dtype, dev)
+            err = compare_segment_bag(ks, ops, B, f"bad ids D={D} {dtype}")
+            nan_bags = torch.isnan(ks.sb.segment_bag_torch(
+                *(t.cpu() for t in ops), n_segments=B)).all(1)
+            if nan_bags.tolist() != [False] * 4 + [True] * 8 + [False] * 2:
+                raise AssertionError(f"segment_bag: bad ids D={D} {dtype}: "
+                                     f"NaN bags {nan_bags.tolist()}")
+            cases.append({"segment_bag_bad_ids": [str(i) for i in
+                                                  BAD_BAG_IDS],
+                          "D": D, "dtype": str(dtype),
+                          "nan_bags": int(nan_bags.sum()),
+                          "card_plain_max_abs_err": err})
+    table = torch.arange(28, dtype=torch.float32, device=dev).reshape(7, 4)
+    for idx, want in F2_ROWS:
+        got = ks.sb.embedding_bag(table, np.array(idx), np.array([0, 2]),
+                                  device=dev)
+        if not nan_equal(got.cpu(), torch.tensor(want)):
+            raise AssertionError(f"embedding_bag({idx}) on the card gave "
+                                 f"{got.tolist()}, the reference {want}")
+        cases.append({"embedding_bag_f2": idx, "rows": str(got.tolist())})
     pick = sbo.warp_segments
     what, lens, V, D, pad, _ = edges[6]
     try:
@@ -1448,7 +1546,7 @@ def phase_main_batches(ks, engines, leafscan_ops):
         e, _ = compare_range_query(ks, args, dim, f"{name} main-path batch")
         errs["range_query"] = max(errs["range_query"], e)
     for name, (eng, us, rects) in engines.items():
-        _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
+        args = fused_args(eng, us[:BATCH], rects[:BATCH])
         kcap = min(eng._kb_hwm, eng.n_tiles)
         kcaps = sorted({max(1, kcap // 2), kcap})
         errs["fused_serve"] = max(errs["fused_serve"], compare_fused(
@@ -1461,6 +1559,350 @@ def phase_main_batches(ks, engines, leafscan_ops):
             errs[k] = max(errs[k], v)
     emit("main_batches", ok=True, max_abs_err=errs)
     return errs
+
+
+# --------------------------------------------------------------------------
+# The observability hooks (repro_torch.obs) on the engines of phase main
+# --------------------------------------------------------------------------
+
+OBS_ORACLE_SAMPLE = 0.125    # of the auditor's 2,048 checked answers
+# phase obs's dumps, traces and flight bundles, under the checkout's
+# (git-ignored) build directory, removed at the phase's end
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+OBS_E2E_TURNS = 3            # times e2e_us runs obs off, on, on, off
+E2E_REPEATS = 7              # --ab's e2e_us per path, in turns
+OBS_TRACE_KERNELS = {"fused_serve": "fused_serve_kernel",
+                     "prune_tiles": "prune_tiles_kernel",
+                     "descent_scan": "leaf_scan_cluster_kernel"}
+# one OpenMetrics sample line, and a TYPE line (the reference's test)
+OM_SAMPLE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
+             r'(,[a-zA-Z0-9_]+="[^"]*")*\})? -?[0-9].*$|'
+             r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? (NaN|[+-]Inf)$')
+OM_TYPE = r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|summary)$"
+
+
+class counting:
+    """Count the calls of an engine's batch entry points (instance
+    attributes shadowing the methods while the block runs), those the
+    engine makes itself (kNN's collect) included."""
+
+    KINDS = {"query_batch": "reach", "count_batch": "count",
+             "collect_batch": "collect", "polygon_batch": "polygon"}
+
+    def __init__(self, eng):
+        self.eng, self.calls = eng, dict.fromkeys(self.KINDS.values(), 0)
+
+    def __enter__(self):
+        for m, kind in self.KINDS.items():
+            fn = getattr(self.eng, m)
+
+            def wrap(*a, _fn=fn, _kind=kind):
+                self.calls[_kind] += 1
+                return _fn(*a)
+
+            setattr(self.eng, m, wrap)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for m in self.KINDS:
+            delattr(self.eng, m)
+        return False
+
+
+def obs_answers(eng, us, rects, knn_pts, polys):
+    """Reach, count and collect on both paths, kNN (k = KNN_K) and a
+    polygon batch, B = BATCH: the answers as plain arrays."""
+    u, r = us[:BATCH], rects[:BATCH]
+    out = []
+    for sfx in ("", "_two_phase"):
+        out.append(getattr(eng, f"query_batch{sfx}")(u, r))
+        out.append(getattr(eng, f"count_batch{sfx}")(u, r))
+        col = getattr(eng, f"collect_batch{sfx}")(u, r, COLLECT_K)
+        out += [col.ids, col.counts, col.overflow]
+    knn = eng.knn_batch(u, knn_pts, KNN_K)
+    out += [knn.ids, knn.dist2, eng.polygon_batch(*polys)]
+    return out
+
+
+def mixed_pass(eng, us, rects, knn_pts, polys):
+    """One mixed engine pass over the workload: per batch fused reach,
+    two-phase count and fused collect; then kNN and a polygon batch."""
+    for s in range(0, len(us), BATCH):
+        u, r = us[s:s + BATCH], rects[s:s + BATCH]
+        eng.query_batch(u, r)
+        eng.count_batch_two_phase(u, r)
+        eng.collect_batch(u, r, COLLECT_K)
+    eng.knn_batch(us[:KNN_QUERIES], knn_pts, KNN_K)
+    eng.polygon_batch(*polys)
+
+
+def trace_kernels(path, want):
+    """Device kernel events of a ``device_trace`` Chrome trace by kernel
+    (OBS_TRACE_KERNELS), the annotation's events, and whether every
+    kernel has as many events as its launch counter saw (``want``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    got = {k: sum(sub in n for n in kern)
+           for k, sub in OBS_TRACE_KERNELS.items()}
+    return got, len(kern), got == want
+
+
+def check_dump(paths):
+    """Every file of ``obs.dump`` parses: JSON, JSON lines, and the
+    OpenMetrics text line by line."""
+    import re
+
+    for kind, path in paths.items():
+        with open(path) as f:
+            text = f.read()
+        if path.endswith(".json"):
+            json.loads(text)
+        elif path.endswith(".jsonl"):
+            for ln in text.splitlines():
+                json.loads(ln)
+        else:
+            lines = text.splitlines()
+            if lines[-1] != "# EOF":
+                raise AssertionError(f"{kind}: no # EOF line")
+            for ln in lines[:-1]:
+                pat = OM_TYPE if ln.startswith("# TYPE") else OM_SAMPLE
+                if not re.match(pat, ln):
+                    raise AssertionError(f"{kind}: unparseable {ln!r}")
+    return sorted(paths)
+
+
+def upload_counts(obs):
+    c = obs.REGISTRY.snapshot()["counters"]
+    return {k: c[k] for k in ("engine.upload.host_uploads",
+                              "engine.upload.device_adoptions",
+                              "range_query.soa_builds")}
+
+
+def check_upload_counters(obs, idx):
+    """``engine.upload.*`` and ``range_query.soa_builds`` move as the
+    builds predict: a second engine over a served index ``idx`` shares
+    its planes (nothing moves), a host build served uploads once after
+    one transposition, a device build is adopted with no
+    transposition."""
+    from repro_torch.core import QueryEngine, build_index
+    from repro_torch.data import get_dataset
+
+    g_small = get_dataset("yelp", scale=0.1)
+    steps = []
+    for what, make, want in (
+            ("second engine over a served index",
+             lambda: QueryEngine(idx), (0, 0, 0)),
+            ("host build, then its engine",
+             lambda: QueryEngine(build_index(g_small, "2dreach-comp")),
+             (1, 0, 1)),
+            ("device build, then its engine",
+             lambda: QueryEngine(build_index(g_small, "2dreach-comp",
+                                             backend="device")),
+             (0, 1, 0))):
+        before = upload_counts(obs)
+        make()
+        moved = {k: v - before[k] for k, v in upload_counts(obs).items()}
+        if tuple(moved.values()) != want:
+            raise AssertionError(f"obs: {what}: counters moved {moved}, "
+                                 f"expected {want}")
+        steps.append({"step": what, "moved": moved})
+    return steps
+
+
+
+def phase_obs(ks, engines, indexes):
+    """The observability hooks on phase main's engines at yelp x1.0
+    2dreach-comp and x0.5 2dreach: answers equal with obs on and off;
+    span coverage of a mixed pass; the batch, compile and upload
+    counters; the cost model; ``obs.dump``; the exactness auditor; e2e
+    µs/query with obs off and on.  ``device_trace`` waits for
+    ``phase_obs_trace``, after every other profiled window."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.obs import flight
+
+    names = [f"{ds}x{scale} {m}" for ds, scale, m in (CONFIGS[0],
+                                                      CONFIGS[-1])]
+    work = {}
+    for name in names:
+        eng, us, rects = engines[name]
+        g, _, idx, _, (pus, polys) = indexes[name]
+        pts = ((rects[:KNN_QUERIES, :2] + rects[:KNN_QUERIES, 2:])
+               / 2).astype(np.float32)
+        work[name] = (eng, g, idx, us, rects, pts,
+                      (pus[:BATCH], polys[:BATCH]))
+    obs.disable()
+    obs.reset()
+    out = {"engines": names}
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="obs_", dir=SCRATCH)
+    try:
+        # 1. answers with obs on equal the answers with it off
+        for name, (eng, g, idx, us, rects, pts, polys) in work.items():
+            off = obs_answers(eng, us, rects, pts[:BATCH], polys)
+            obs.enable()
+            on = obs_answers(eng, us, rects, pts[:BATCH], polys)
+            obs.disable()
+            if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(off, on)):
+                raise AssertionError(f"obs: {name}: answers with obs on "
+                                     f"!= answers with it off")
+        out["answers_equal"] = True
+        obs.reset()
+
+        # 2, 3. coverage of a traced mixed pass, the batch and compile
+        # counters, twice over the same shapes
+        eng, g, idx, us, rects, pts, polys = work[names[0]]
+        passes = []
+        obs.start_timeseries(interval=0.05)
+        for p in range(2):
+            obs.TRACER.clear()
+            h0 = obs.REGISTRY.histogram("engine.batch_us").count
+            obs.enable()
+            with counting(eng) as calls:
+                t0 = time.perf_counter()
+                with obs.span("serve.mixed_pass", cat="serve"):
+                    mixed_pass(eng, us, rects, pts, polys)
+                t1 = time.perf_counter()
+            obs.disable()
+            cov = obs.coverage(t0, t1)
+            traced = obs.REGISTRY.histogram("engine.batch_us").count - h0
+            per_kind = {k: obs.REGISTRY.histogram(
+                f"engine.{k}.query_us").count for k in calls}
+            gauge = obs.REGISTRY.gauge("engine.n_compiles").value
+            passes.append({"seconds": t1 - t0, "coverage": cov,
+                           "batches_traced": traced, "calls": dict(calls),
+                           "n_compiles": eng.n_compiles,
+                           "n_compiles_gauge": gauge,
+                           "stage_totals_us": obs.stage_totals()})
+            if cov < 0.95:
+                raise AssertionError(f"obs: span coverage {cov} < 0.95")
+            if traced != sum(calls.values()) or gauge != eng.n_compiles:
+                raise AssertionError(f"obs: {traced} batches recorded for "
+                                     f"calls {calls}; n_compiles gauge "
+                                     f"{gauge}, engine {eng.n_compiles}")
+            if any(per_kind[k] != (p + 1) * calls[k] for k in calls):
+                raise AssertionError(f"obs: per-kind batch counts "
+                                     f"{per_kind} for calls {calls}")
+        if passes[1]["n_compiles"] != passes[0]["n_compiles"]:
+            raise AssertionError("obs: n_compiles moved in steady state")
+        obs.stop_timeseries()
+        out["mixed_passes"] = passes
+        out["upload_counters"] = check_upload_counters(obs, idx)
+
+        # 4. the cost model of each engine
+        out["cost_model"] = {name: obs.engine_cost_model(w[0])
+                             for name, w in work.items()}
+
+        # 5. the dump parses
+        obs.enable()
+        eng.query_batch(us[:BATCH], rects[:BATCH])
+        obs.disable()
+        out["dump"] = check_dump(obs.dump(os.path.join(tmp, "dump")))
+
+        # 6. the auditor: zero divergences over 2,048 answers, then one
+        # flipped answer gives one divergence and one bundle
+        aud = obs.ExactnessAuditor(idx, graph=g, sample=1.0,
+                                   oracle_sample=OBS_ORACLE_SAMPLE)
+        for s in range(0, len(us), BATCH):
+            u, r = us[s:s + BATCH], rects[s:s + BATCH]
+            aud.observe(u, r, eng.query_batch(u, r))
+        aud.drain()
+        clean = aud.report()
+        if clean["divergences"] or clean["checked"] != len(us):
+            raise AssertionError(f"obs: auditor {clean}")
+        obs.FLIGHT.arm(os.path.join(tmp, "flight"), min_interval_s=0.0)
+        flip = obs.ExactnessAuditor(idx, sample=1.0)
+        ans = eng.query_batch(us[:BATCH], rects[:BATCH]).copy()
+        ans[0] = not ans[0]
+        flip.observe(us[:BATCH], rects[:BATCH], ans)
+        flip.drain()
+        bundles = os.listdir(os.path.join(tmp, "flight"))
+        rep = flip.report()
+        if rep["divergences"] != 1 or len(bundles) != 1:
+            raise AssertionError(f"obs: flipped answer gave {rep} and "
+                                 f"bundles {bundles}")
+        data = flight.load_bundle(os.path.join(tmp, "flight", bundles[0]))
+        out["auditor"] = {
+            "clean": {k: clean[k] for k in ("checked", "oracle_checked",
+                                            "divergences")},
+            "flipped": {"divergences": rep["divergences"],
+                        "bundle": bundles[0],
+                        "reason": data["manifest"]["reason"]}}
+
+        # 7. e2e µs/query, fused and two-phase reach at B = BATCH, with
+        # obs off and on, in turns
+        e2e = {"fused": {"off": [], "on": []},
+               "two_phase": {"off": [], "on": []}}
+        for state in ["off", "on", "on", "off"] * OBS_E2E_TURNS:
+            for path, two in (("fused", False), ("two_phase", True)):
+                if state == "on":
+                    obs.enable()
+                e2e[path][state].append(e2e_us(eng, us, rects, "reach",
+                                               two_phase=two))
+                obs.disable()
+                obs.TRACER.clear()
+        out["e2e_us_per_query"] = e2e
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+        obs.FLIGHT.disarm()
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_obs_trace(ks, engines):
+    """``device_trace`` around one fused and one two-phase reach pass of
+    yelp x1.0 2dreach-comp's workload: its Chrome trace must hold one
+    device kernel event per K1, K2 and K3 launch that the launch
+    counters saw, and the ``annotate`` range; a window short of events
+    is traced again, up to PROFILER_TRIES times.  Run last of all the
+    profiled windows: after a ``device_trace`` capture, later
+    ``torch.profiler`` windows of this process kept no device rows for
+    most kernels (PERF.md section 7)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+
+    eng, us, rects = engines[next(iter(engines))]
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="obs_trace_", dir=SCRATCH)
+    try:
+        for attempt in range(PROFILER_TRIES):
+            logdir = os.path.join(tmp, f"trace{attempt}")
+            ks.reset()
+            with obs.device_trace(logdir):
+                with obs.annotate("chip_smoke.obs.reach_passes"):
+                    for s in range(0, len(us), BATCH):
+                        eng.query_batch(us[s:s + BATCH], rects[s:s + BATCH])
+                    for s in range(0, len(us), BATCH):
+                        eng.query_batch_two_phase(us[s:s + BATCH],
+                                                  rects[s:s + BATCH])
+            launches = ks.counts()
+            want_launch = {k: launches[k] for k in OBS_TRACE_KERNELS}
+            path = os.path.join(logdir, obs.profiler.TRACE_FILE)
+            if not os.path.exists(path):
+                raise AssertionError("obs: device_trace wrote no trace")
+            got, n_kern, whole = trace_kernels(path, want_launch)
+            with open(path) as f:
+                annotated = "chip_smoke.obs.reach_passes" in f.read()
+            if whole and annotated:
+                break
+        TIMERS["device_trace_retries"] = attempt
+        if not (whole and annotated):
+            raise AssertionError(f"obs: device_trace kept {got} kernel "
+                                 f"events for launches {want_launch} "
+                                 f"(annotation {annotated})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": want_launch, "events": got, "kernel_events": n_kern,
+            "annotation": annotated, "retries": attempt}
 
 
 # --------------------------------------------------------------------------
@@ -2112,7 +2554,7 @@ def time_fused(ks, eng, us, rects, label, e2e=True):
     them), the bound from these inputs and, with ``e2e``, end-to-end µs
     per query."""
     fs = ks.fs
-    _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
+    args = fused_args(eng, us[:BATCH], rects[:BATCH])
     args = tuple(a.clone() for a in args)
     kcap = min(eng._kb_hwm, eng.n_tiles)
     nt = eng.n_tiles
@@ -2190,7 +2632,7 @@ def phase_timing(ks, engines, card):
                                                 two_phase=True)
     # the prune's mask write grows with the arena: the same on the
     # largest index's first batch
-    _, _, bargs = beng._prepare(bus[:BATCH], brects[:BATCH])
+    bargs = fused_args(beng, bus[:BATCH], brects[:BATCH])
     bprune = (beng._arena.fine, beng._arena.coarse,
               *(a.clone() for a in bargs[6:]))
     bms, by, work = prune_bound(*bprune)
@@ -2834,7 +3276,8 @@ def phase_ab(ks, card, src):
     """``--ab SRC``: on the first main-path batch of yelp x1.0
     2dreach-comp and yelp x0.5 2dreach at their steady capacity, K1 in
     every mode, K2, and the descent, count and collect scans (K3-K5) on
-    ``phase_timing``'s operands; K6 on the first 6-gon batch of yelp
+    ``phase_timing``'s operands; fused and two-phase reach end to end
+    (``e2e_us``, obs off); K6 on the first 6-gon batch of yelp
     x1.0 comp (``phase_timing_slice3``'s operands); DIN's serve shapes
     end to end (``serve_shape``) and the history's item embedding
     (``din._embed_items``) alone, with the ``repro_torch`` package under
@@ -2864,12 +3307,12 @@ def phase_ab(ks, card, src):
     bags = ab_bags(ks, params, recsys_batches)
     floor = launch_floor_ms()
     scan_sums = scan_launch_sums(ks, indexes)
-    fused, prune, kcaps, scans, polygon = {}, {}, {}, {}, {}
+    fused, prune, kcaps, scans, polygon, e2e = {}, {}, {}, {}, {}, {}
     for name in (next(iter(indexes)), list(indexes)[-1]):
         g, method, idx, us, rects = indexes[name]
         eng = QueryEngine(idx)
         serve_all(eng, us, rects)              # to the steady capacity
-        _, _, args = eng._prepare(us[:BATCH], rects[:BATCH])
+        args = fused_args(eng, us[:BATCH], rects[:BATCH])
         args = tuple(a.clone() for a in args)
         kcap = kcaps[name] = min(eng._kb_hwm, eng.n_tiles)
         nt = eng.n_tiles
@@ -2886,6 +3329,17 @@ def phase_ab(ks, card, src):
         # the scans on the plain prune's candidates at the two-phase
         # path's steady K
         serve_all(eng, us, rects, two_phase=True)
+        # end to end with the package's obs hooks off (the default): their
+        # disabled cost, against a parent without them; E2E_REPEATS times
+        # each, in turns, the host's spread beside the median
+        e2e[name] = {"fused": [], "two_phase": []}
+        for _ in range(E2E_REPEATS):
+            for path in e2e[name]:
+                e2e[name][path].append(e2e_us(
+                    eng, us, rects, "reach", two_phase=path == "two_phase"))
+        for path, runs in list(e2e[name].items()):
+            e2e[name][path] = {"median": float(np.median(runs)),
+                               "runs": runs}
         arena = arena_of(eng)
         rsoa, qs, qe = args[6:]
         K = eng._kb_hwm
@@ -2949,7 +3403,8 @@ def phase_ab(ks, card, src):
         serve[shape]["embed_history_ms"] = device_ms(
             lambda: din._embed_items(params, items, cfg), 5,
             f"_embed_items ({shape} history)")
-    emit("ab", src=src, card=card, B=BATCH, kcap=kcaps, fused_serve=fused,
+    emit("ab", src=src, card=card, B=BATCH, kcap=kcaps,
+         e2e_reach_us_per_query=e2e, fused_serve=fused,
          prune_tiles=prune, scans=scans, scan_sums=scan_sums,
          polygon_scan=polygon, din=serve, segment_bag=bags,
          bitset_mm=bitset, range_query=range_query, launch_floor_ms=floor,
@@ -3137,6 +3592,7 @@ def main() -> int:
     results, two_phase, knn, polygons, engines, indexes = phase_main(ks)
     emit("main", launches={r["index"]: r["launches"] for r in results},
          indexes=results, two_phase=two_phase, knn=knn, polygons=polygons)
+    emit("obs", ok=True, **phase_obs(ks, engines, indexes))
     builds, largest, built, k7_calls = phase_device_build(ks, indexes,
                                                           engines)
     leafscan, ls_ops, k9_calls, errs4 = phase_legacy(ks, indexes, built,
@@ -3155,6 +3611,7 @@ def main() -> int:
                                           k9_calls, card)
     bag_paths, bag_err, bag_timed = phase_recsys(ks, card)
     errs["segment_bag"] = max(errs["segment_bag"], bag_err)
+    emit("obs_trace", ok=True, **phase_obs_trace(ks, engines))
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, polygons, device build and leaf-scan
     # serving (host- and device-built), and the two kNN runs

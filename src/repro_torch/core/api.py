@@ -20,6 +20,7 @@ from typing import Union
 import numpy as np
 
 from ..device import DeviceLike
+from ..obs import REGISTRY
 from .georeach import GeoReachIndex, build_georeach
 from .graph import GeosocialGraph
 from .three_d_reach import ThreeDReachIndex, build_3dreach
@@ -70,12 +71,14 @@ def build_index(graph: GeosocialGraph, method: str, **kw) -> AnyIndex:
 
 # (reason, index type) pairs batch_query has already warned about falling
 # back to the host path for: one warning per distinct cause, not one per
-# batch and not one globally
+# batch and not one globally.  Every fallback, warned or not, increments
+# the ``api.host_fallback.<reason>`` metric.
 _FALLBACK_WARNED = set()
 
 
 def _warn_host_fallback(index, reason: str) -> None:
     name = type(index).__name__
+    REGISTRY.counter(f"api.host_fallback.{reason}").inc()
     key = (reason, name)
     if key in _FALLBACK_WARNED:
         return

@@ -40,12 +40,24 @@ those of :func:`~repro_torch.kernels.range_query.layout.forest_planes`,
 one copy per forest and device shared with the leaf-scan engine;
 :data:`UPLOAD_COUNTERS` (that module's) counts uploads and adoptions.
 
-Not ported yet (a later slice): the tracing / fault-injection hooks.
+Every batch runs in the reference's ``repro_torch.obs`` spans
+(``engine.{query,count,collect,knn,polygon}_batch`` around
+``engine.pad_batch``, ``engine.fused`` or ``engine.route_prune`` and
+``engine.scan``, then ``engine.sync``).  The spans add no
+synchronisation: ``engine.fused`` and ``engine.route_prune`` end in the
+ratchet's read of the largest candidate count, which waits for the
+device, a two-phase ``engine.scan`` times only the launch, and
+``engine.sync`` holds the wait for the results.  With the tracer on,
+each batch also records ``engine.batch_us``, ``engine.<kind>.query_us``
+and ``engine.<kind>.queries`` and sets the ``engine.n_compiles`` gauge.
+
+Not ported yet (a later slice): the fault-injection hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -78,6 +90,8 @@ from ..kernels.range_query.layout import (
     forest_planes,
     forest_soa,
 )
+from ..obs import REGISTRY, span
+from ..obs.tracer import TRACER as _TRACER
 from ..queries.program import CollectResult
 from .polygon import convex_halfplanes, points_in_polygon_region, polygon_bbox
 from .two_d_reach import TwoDReachIndex
@@ -176,19 +190,24 @@ class TileArena:
                    device: torch.device) -> "TileArena":
         """Arena for a built forest over its shared entry planes
         (:func:`forest_planes`): the pyramid too is adopted from the
-        forest's ``build_forest_device`` handoff where the planes were
-        (the tensors already have exactly this layout), built from the
-        host transposition and uploaded otherwise."""
-        entries, off = forest_planes(forest, device)
+        forest's ``build_forest_device`` handoff where that lies on
+        ``device`` (the tensors already have exactly this layout), built
+        from the host transposition and uploaded otherwise, inside the
+        ``engine.soa_upload`` span."""
         dev = getattr(forest, "device", None)
-        if dev is not None and entries is dev.entries:
+        if dev is not None and same_device(dev.entries.device, device):
+            entries, off = forest_planes(forest, device)
             return cls(entries=entries, fine=dev.fine, coarse=dev.coarse,
                        entry_off=off, n_tiles=dev.n_tiles, adopted=True)
-        fine, coarse, nt = build_tile_pyramid(forest_soa(forest)[0], dim)
-        return cls(entries=entries,
-                   fine=torch.as_tensor(fine, device=device),
-                   coarse=torch.as_tensor(coarse, device=device),
-                   entry_off=off, n_tiles=nt)
+        esoa = forest_soa(forest)[0]
+        with span("engine.soa_upload", cat="build",
+                  nbytes=int(esoa.nbytes)):
+            entries, off = forest_planes(forest, device)
+            fine, coarse, nt = build_tile_pyramid(esoa, dim)
+            return cls(entries=entries,
+                       fine=torch.as_tensor(fine, device=device),
+                       coarse=torch.as_tensor(coarse, device=device),
+                       entry_off=off, n_tiles=nt)
 
 
 def check_vertex_ids(us: np.ndarray, n_nodes: int) -> None:
@@ -327,6 +346,27 @@ class QueryEngine:
         # ratchets up
         self._kb_hwm = 1
         self._padder = DevicePadder(self.dim, dev)
+        self._shapes = set()       # the shapes served (``n_compiles``)
+
+    @property
+    def n_compiles(self) -> int:
+        """Distinct shapes served so far: (path, mode, batch bucket,
+        candidate capacity), plus the collect bucket ``kc`` or the
+        polygon edge bucket; flat in steady state.  The analogue of the
+        reference's jit cache sizes."""
+        return len(self._shapes)
+
+    def _obs_batch(self, kind: str, B: int, t0: float) -> None:
+        """Gated per-batch registry recording (enabled-only: one
+        histogram append + two updates per *batch*, nothing per query)."""
+        if not _TRACER.enabled:
+            return
+        dt_us = (time.perf_counter() - t0) * 1e6
+        REGISTRY.histogram("engine.batch_us").record(dt_us)
+        REGISTRY.histogram(f"engine.{kind}.query_us").record(
+            dt_us / max(B, 1))
+        REGISTRY.counter(f"engine.{kind}.queries").inc(B)
+        REGISTRY.gauge("engine.n_compiles").set(self.n_compiles)
 
     def _route(self, us: torch.Tensor):
         """Vertex -> (arena slice, point, excluded)."""
@@ -369,22 +409,15 @@ class QueryEngine:
         check_vertex_ids(us, len(self._excluded_host))
         return self._padder.pad(us, rects)
 
-    def _prepare(self, us: np.ndarray, rects: np.ndarray):
-        """Pad, route and quantize one batch.  Returns ``(Bb, forced,
-        args)`` (see :meth:`_serve_args`; the rect and slice tensors live
-        in the padder's per-bucket buffers until the next batch of the
-        same bucket)."""
-        Bb, us_dev, rsoa = self._pad(us, rects)
-        forced, args = self._serve_args(rsoa, *self._route(us_dev))
-        return Bb, forced, args
-
     def _fused_ratchet(self, args, mode: str, kc: Optional[int] = None):
         """One fused launch at the current capacity high-water mark; a
         batch whose true candidate count passes it ratchets the mark and
         re-runs.  Returns ``(out, kcap, tiles)``: for collect, ``out`` is
         the ``(top, counts)`` pair; ``tiles`` the live candidate tiles."""
+        Bb = args[6].shape[1]
         while True:
             kcap = min(self._kb_hwm, self.n_tiles)
+            self._shapes.add(("fused", mode, Bb, kcap, kc))
             out, cnt = fused_serve(*args, mode=mode, kcap=kcap,
                                    nt=self.n_tiles, dim=self.dim,
                                    device=self.device)
@@ -401,8 +434,13 @@ class QueryEngine:
                      kc: Optional[int] = None):
         """One launch per batch for reach/count/collect (plus ratchet
         re-runs).  Returns ``(forced, out)``."""
-        Bb, forced, args = self._prepare(us, rects)
-        out, kcap, tot = self._fused_ratchet(args, mode, kc)
+        with span("engine.pad_batch", cat="engine"):
+            Bb, us_dev, rsoa = self._pad(us, rects)
+        with span("engine.fused", cat="engine", batch=len(us), mode=mode):
+            forced, args = self._serve_args(rsoa, *self._route(us_dev))
+            # the ratchet's read of the largest count waits for the
+            # device, so the span covers the whole fused launch
+            out, kcap, tot = self._fused_ratchet(args, mode, kc)
         self.stats["batches"] += 1
         self.stats["queries"] += len(us)
         self.stats["tiles_scanned"] += tot
@@ -417,14 +455,19 @@ class QueryEngine:
         truncates.  Returns ``(Bb, rsoa, forced, qs, qe, cand_k)`` with
         ``cand_k`` the first ``_kb_hwm`` candidate columns."""
         B = len(us)
-        Bb, us_dev, rsoa = self._pad(us, rects)
-        qs, qe, pts, exc = self._route(us_dev)
-        mask = prune_tiles(self._arena.fine, self._arena.coarse, rsoa, qs,
-                           qe, dim=self.dim, device=self.device)
-        cand, cnt = compact_ascending(mask, self.n_tiles)
-        mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
-        self._kb_hwm = max(self._kb_hwm,
-                           min(_bucket(max(mx, 1), 1), self.n_tiles))
+        with span("engine.pad_batch", cat="engine"):
+            Bb, us_dev, rsoa = self._pad(us, rects)
+        with span("engine.route_prune", cat="engine", batch=B):
+            qs, qe, pts, exc = self._route(us_dev)
+            mask = prune_tiles(self._arena.fine, self._arena.coarse, rsoa,
+                               qs, qe, dim=self.dim, device=self.device)
+            cand, cnt = compact_ascending(mask, self.n_tiles)
+            # the read of the largest count waits for the device, so the
+            # span covers lookup + prune + candidate compaction
+            mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
+            self._kb_hwm = max(self._kb_hwm,
+                               min(_bucket(max(mx, 1), 1), self.n_tiles))
+            forced = self._forced(rsoa, pts, exc)
         kb = self._kb_hwm
         self.stats["batches"] += 1
         self.stats["queries"] += B
@@ -433,7 +476,6 @@ class QueryEngine:
         self.stats["tiles_scanned"] += tot
         self.stats["tiles_grid"] += (Bb // TB) * kb
         self.stats["tiles_full_scan"] += (Bb // TB) * self.n_tiles
-        forced = self._forced(rsoa, pts, exc)
         return Bb, rsoa, forced, qs, qe, take_candidates(cand, kb)
 
     def query_batch(self, us: np.ndarray, rects: np.ndarray) -> np.ndarray:
@@ -443,13 +485,23 @@ class QueryEngine:
         B = len(us)
         if B == 0:
             return np.zeros(0, dtype=bool)
-        if self.path == "fused":
-            forced, hit = self._fused_serve(us, rects, "reach")
-        else:
-            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
-            hit = descent_scan(cand_k, self._arena.entries, rsoa, qs, qe,
-                               dim=self.dim, device=self.device)
-        return ((hit > 0) | forced)[:B].cpu().numpy()
+        t0 = time.perf_counter()
+        with span("engine.query_batch", cat="engine", n=B):
+            if self.path == "fused":
+                forced, hit = self._fused_serve(us, rects, "reach")
+            else:
+                Bb, rsoa, forced, qs, qe, cand_k = self._route_prune(
+                    us, rects)
+                self._shapes.add(("two_phase", "reach", Bb,
+                                  cand_k.shape[1]))
+                with span("engine.scan", cat="engine"):
+                    hit = descent_scan(cand_k, self._arena.entries, rsoa,
+                                       qs, qe, dim=self.dim,
+                                       device=self.device)
+            with span("engine.sync", cat="engine"):
+                out = ((hit > 0) | forced)[:B].cpu().numpy()
+        self._obs_batch("reach", B, t0)
+        return out
 
     def query(self, u: int, rect) -> bool:
         return bool(self.query_batch(np.array([u]), np.array([rect]))[0])
@@ -482,13 +534,23 @@ class QueryEngine:
         B = len(us)
         if B == 0:
             return np.zeros(0, dtype=np.int64)
-        if self.path == "fused":
-            forced, counts = self._fused_serve(us, rects, "count")
-        else:
-            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
-            counts = count_scan(cand_k, self._arena.entries, rsoa, qs, qe,
-                                dim=self.dim, device=self.device)
-        return (counts.long() + forced.long())[:B].cpu().numpy()
+        t0 = time.perf_counter()
+        with span("engine.count_batch", cat="engine", n=B):
+            if self.path == "fused":
+                forced, counts = self._fused_serve(us, rects, "count")
+            else:
+                Bb, rsoa, forced, qs, qe, cand_k = self._route_prune(
+                    us, rects)
+                self._shapes.add(("two_phase", "count", Bb,
+                                  cand_k.shape[1]))
+                with span("engine.scan", cat="engine"):
+                    counts = count_scan(cand_k, self._arena.entries, rsoa,
+                                        qs, qe, dim=self.dim,
+                                        device=self.device)
+            with span("engine.sync", cat="engine"):
+                out = (counts.long() + forced.long())[:B].cpu().numpy()
+        self._obs_batch("count", B, t0)
+        return out
 
     def collect_batch(self, us: np.ndarray, rects: np.ndarray,
                       k: int) -> CollectResult:
@@ -505,18 +567,28 @@ class QueryEngine:
                 counts=np.zeros(0, np.int64),
                 overflow=np.zeros(0, bool),
             )
-        if self.path == "fused":
-            forced, (top, cnt) = self._fused_serve(
-                us, rects, "collect", kc=_bucket(k, 1))
-        else:
-            _, rsoa, forced, qs, qe, cand_k = self._route_prune(us, rects)
-            mat = collect_scan(cand_k, self._arena.entries, self._ids_row,
-                               rsoa, qs, qe, dim=self.dim,
-                               device=self.device)
-            top, cnt = _collect_post(mat, kc=_bucket(k, 1))
-        top = top[:B].cpu().numpy()
-        counts = cnt[:B].cpu().numpy().astype(np.int64)
-        forced = forced[:B].cpu().numpy()
+        kc = _bucket(k, 1)
+        t0 = time.perf_counter()
+        # the reference's collect has no ``engine.sync`` span; its copies
+        # to the host stay inside ``engine.collect_batch`` here
+        with span("engine.collect_batch", cat="engine", n=B):
+            if self.path == "fused":
+                forced, (top, cnt) = self._fused_serve(
+                    us, rects, "collect", kc=kc)
+            else:
+                Bb, rsoa, forced, qs, qe, cand_k = self._route_prune(
+                    us, rects)
+                self._shapes.add(("two_phase", "collect", Bb,
+                                  cand_k.shape[1], kc))
+                with span("engine.scan", cat="engine"):
+                    mat = collect_scan(cand_k, self._arena.entries,
+                                       self._ids_row, rsoa, qs, qe,
+                                       dim=self.dim, device=self.device)
+                    top, cnt = _collect_post(mat, kc=kc)
+            top = top[:B].cpu().numpy()
+            counts = cnt[:B].cpu().numpy().astype(np.int64)
+            forced = forced[:B].cpu().numpy()
+        self._obs_batch("collect", B, t0)
         ids = np.full((B, k), ID_SENTINEL, dtype=np.int32)
         take = min(k, top.shape[1])
         ids[:, :take] = top[:, :take]
@@ -535,7 +607,8 @@ class QueryEngine:
         the host best-first descent."""
         from ..queries.knn import knn_radius_doubling  # deferred: no cycle
 
-        return knn_radius_doubling(self, us, points, k)
+        with span("engine.knn_batch", cat="engine", n=len(us), k=k):
+            return knn_radius_doubling(self, us, points, k)
 
     def polygon_batch(self, us: np.ndarray, polygons) -> np.ndarray:
         """Batched convex-polygon RangeReach on the two-phase path: the
@@ -549,22 +622,32 @@ class QueryEngine:
             return np.zeros(0, dtype=bool)
         if len(polygons) != B:
             raise ValueError(f"{len(polygons)} polygons for {B} queries")
-        bboxes = np.stack([polygon_bbox(p) for p in polygons])
-        ne = max(len(np.asarray(p).reshape(-1, 2)) for p in polygons)
-        neb = _bucket(ne, 4)
-        hps = np.stack([convex_halfplanes(p, pad_to=neb) for p in polygons])
-        # ``forced`` tests a spatial-sink query vertex against the bbox
-        # only; such a vertex is answered below against the whole region
-        Bb, rsoa, _, qs, qe, cand_k = self._route_prune(us, bboxes)
-        # (B, 3, neb) -> (3*neb, Bb); padded batch lanes get inert
-        # half-planes (A=B=0, C=+inf) to match their impossible rects
-        lines = np.zeros((3 * neb, Bb), dtype=np.float32)
-        lines[2 * neb:] = np.inf
-        lines[:, :B] = hps.transpose(1, 2, 0).reshape(3 * neb, B)
-        hit = polygon_scan(cand_k, self._arena.entries, rsoa,
-                           torch.as_tensor(lines, device=self.device), qs,
-                           qe, ne=neb, dim=self.dim, device=self.device)
-        out = (hit[:B] > 0).cpu().numpy()
+        t0 = time.perf_counter()
+        with span("engine.polygon_batch", cat="engine", n=B):
+            bboxes = np.stack([polygon_bbox(p) for p in polygons])
+            ne = max(len(np.asarray(p).reshape(-1, 2)) for p in polygons)
+            neb = _bucket(ne, 4)
+            hps = np.stack([convex_halfplanes(p, pad_to=neb)
+                            for p in polygons])
+            # ``forced`` tests a spatial-sink query vertex against the
+            # bbox only; such a vertex is answered below against the
+            # whole region
+            Bb, rsoa, _, qs, qe, cand_k = self._route_prune(us, bboxes)
+            self._shapes.add(("two_phase", "polygon", Bb, cand_k.shape[1],
+                              neb))
+            # (B, 3, neb) -> (3*neb, Bb); padded batch lanes get inert
+            # half-planes (A=B=0, C=+inf) to match their impossible rects
+            lines = np.zeros((3 * neb, Bb), dtype=np.float32)
+            lines[2 * neb:] = np.inf
+            lines[:, :B] = hps.transpose(1, 2, 0).reshape(3 * neb, B)
+            with span("engine.scan", cat="engine"):
+                hit = polygon_scan(cand_k, self._arena.entries, rsoa,
+                                   torch.as_tensor(lines, device=self.device),
+                                   qs, qe, ne=neb, dim=self.dim,
+                                   device=self.device)
+            with span("engine.sync", cat="engine"):
+                out = (hit[:B] > 0).cpu().numpy()
+        self._obs_batch("polygon", B, t0)
         exc = self._excluded_host[us]
         for i in np.nonzero(exc)[0]:
             out[i] = bool(points_in_polygon_region(

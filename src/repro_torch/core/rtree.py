@@ -43,6 +43,7 @@ from ..kernels.forest_build import (
     tile_pyramid_device,
 )
 from ..kernels.range_query.layout import COARSE_GROUP, TP, TPT
+from ..obs import span
 
 
 DEFAULT_FANOUT = 16
@@ -350,7 +351,16 @@ def build_forest_device(
     engine on the same device adopts without uploading.
 
     ``tree_of_entry`` must be non-decreasing (entries generated per tree
-    in tree order, as ``build_2dreach`` makes them)."""
+    in tree order, as ``build_2dreach`` makes them).
+
+    The steps run in the spans ``build.forest.morton_sort``,
+    ``build.forest.mbr_reduce`` and ``build.forest.pyramid``, which time
+    the host up to the step's own wait for the device, if it has one:
+    the sort ends in the copy of the permuted ids and boxes to the host,
+    and each level of the reduction in the copy of its MBRs, so those
+    two spans cover their device work; the pyramid's kernels are only
+    launched in its span (``build_2dreach`` waits for them afterwards,
+    inside ``build.forest``)."""
     dev = resolve_device(device)
     boxes = np.asarray(boxes, dtype=np.float32)
     P, two_dim = boxes.shape
@@ -376,57 +386,61 @@ def build_forest_device(
     np.cumsum(counts, out=entry_off[1:])
 
     # ---- sort: Morton keys, then the (tree, code) order ------------------
-    Pp = max(TP, -(-P // TP) * TP)
-    soa_ext = torch.cat([
-        torch.as_tensor(np.ascontiguousarray(boxes.T), device=dev),
-        torch.as_tensor(np_inert_plane(dim, 1), device=dev),  # padding
-    ], dim=1)                                                # (2*dim, P+1)
-    if P:
-        key = _morton_keys(soa_ext[:, :P], extent)
-        order = _tree_sort(key, torch.as_tensor(tree_of_entry, device=dev))
-        # one gather builds the permuted AND padded serving plane
-        order_pad = torch.cat([order, torch.full(
-            (Pp - P,), P, dtype=torch.int64, device=dev)])
-        plane = soa_ext[:, order_pad]                        # (2*dim, Pp)
-        ids_host = ids[order.cpu().numpy()]
-    else:
-        plane = torch.as_tensor(np_inert_plane(dim, Pp), device=dev)
-        ids_host = ids
-    boxes_host = np.ascontiguousarray(plane[:, :P].cpu().numpy().T)
+    with span("build.forest.morton_sort", cat="build", entries=int(P)):
+        Pp = max(TP, -(-P // TP) * TP)
+        soa_ext = torch.cat([
+            torch.as_tensor(np.ascontiguousarray(boxes.T), device=dev),
+            torch.as_tensor(np_inert_plane(dim, 1), device=dev),  # padding
+        ], dim=1)                                            # (2*dim, P+1)
+        if P:
+            key = _morton_keys(soa_ext[:, :P], extent)
+            order = _tree_sort(key, torch.as_tensor(tree_of_entry,
+                                                    device=dev))
+            # one gather builds the permuted AND padded serving plane
+            order_pad = torch.cat([order, torch.full(
+                (Pp - P,), P, dtype=torch.int64, device=dev)])
+            plane = soa_ext[:, order_pad]                    # (2*dim, Pp)
+            ids_host = ids[order.cpu().numpy()]
+        else:
+            plane = torch.as_tensor(np_inert_plane(dim, Pp), device=dev)
+            ids_host = ids
+        boxes_host = np.ascontiguousarray(plane[:, :P].cpu().numpy().T)
 
     # ---- level loop: one segmented-MBR reduction per R-tree level --------
     level_mbrs: List[np.ndarray] = []
     tree_off: List[np.ndarray] = []
     cur_soa = plane           # level 0 gathers only indices < P
     cur_counts = counts
-    while True:
-        node_counts = -(-cur_counts // fanout)   # ceil div; 0 stays 0
-        off = np.zeros(n_trees + 1, dtype=np.int64)
-        np.cumsum(node_counts, out=off[1:])
-        n_nodes = int(off[-1])
-        if n_nodes:
-            child_off = np.zeros(n_trees + 1, dtype=np.int64)
-            np.cumsum(cur_counts, out=child_off[1:])
-            node_tree = np.repeat(np.arange(n_trees), node_counts)
-            local = _ragged_arange(node_counts)
-            starts = child_off[node_tree] + local * fanout
-            ends = np.minimum(starts + fanout, child_off[node_tree + 1])
-            mbr_soa = level_mbr(cur_soa, starts, ends, fanout, dim,
-                                device=dev)
-        else:
-            mbr_soa = torch.zeros((2 * dim, 0), dtype=torch.float32,
-                                  device=dev)
-        level_mbrs.append(
-            np.ascontiguousarray(mbr_soa[:, :n_nodes].cpu().numpy().T))
-        tree_off.append(off)
-        if np.all(node_counts <= 1):
-            break
-        cur_soa = mbr_soa     # padded tail columns are inert, never read
-        cur_counts = node_counts
+    with span("build.forest.mbr_reduce", cat="build", entries=int(P)):
+        while True:
+            node_counts = -(-cur_counts // fanout)   # ceil div; 0 stays 0
+            off = np.zeros(n_trees + 1, dtype=np.int64)
+            np.cumsum(node_counts, out=off[1:])
+            n_nodes = int(off[-1])
+            if n_nodes:
+                child_off = np.zeros(n_trees + 1, dtype=np.int64)
+                np.cumsum(cur_counts, out=child_off[1:])
+                node_tree = np.repeat(np.arange(n_trees), node_counts)
+                local = _ragged_arange(node_counts)
+                starts = child_off[node_tree] + local * fanout
+                ends = np.minimum(starts + fanout, child_off[node_tree + 1])
+                mbr_soa = level_mbr(cur_soa, starts, ends, fanout, dim,
+                                    device=dev)
+            else:
+                mbr_soa = torch.zeros((2 * dim, 0), dtype=torch.float32,
+                                      device=dev)
+            level_mbrs.append(
+                np.ascontiguousarray(mbr_soa[:, :n_nodes].cpu().numpy().T))
+            tree_off.append(off)
+            if np.all(node_counts <= 1):
+                break
+            cur_soa = mbr_soa  # padded tail columns are inert, never read
+            cur_counts = node_counts
 
     # ---- the serving arrays (adopted by an engine on this device) -------
-    fine, coarse, nt = tile_pyramid_device(
-        plane, dim, tp=TP, tpt=TPT, group=COARSE_GROUP, device=dev)
+    with span("build.forest.pyramid", cat="build", entries=int(P)):
+        fine, coarse, nt = tile_pyramid_device(
+            plane, dim, tp=TP, tpt=TPT, group=COARSE_GROUP, device=dev)
     return RTreeForest(
         dim=dim,
         fanout=fanout,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs import span
 from .condensation import Condensation, condense
 from .graph import GeosocialGraph
 from .reachability import (
@@ -206,18 +207,19 @@ def build_2dreach(
 
     # ---- decomposition ---------------------------------------------------
     t0 = time.perf_counter()
-    if variant == "base":
-        excluded = np.zeros(n, dtype=bool)
-        dec_edges = graph.edges
-        include = None
-    else:
-        excluded = graph.spatial_sink_mask()
-        e = graph.edges
-        keep = ~(excluded[e[:, 0]] | excluded[e[:, 1]])
-        dec_edges = e[keep]
-        include = ~excluded
-    labels = scc_np(n, dec_edges)
-    cond = condense(n, dec_edges, labels, include_mask=include)
+    with span("build.scc", cat="build", n=n, variant=variant):
+        if variant == "base":
+            excluded = np.zeros(n, dtype=bool)
+            dec_edges = graph.edges
+            include = None
+        else:
+            excluded = graph.spatial_sink_mask()
+            e = graph.edges
+            keep = ~(excluded[e[:, 0]] | excluded[e[:, 1]])
+            dec_edges = e[keep]
+            include = ~excluded
+        labels = scc_np(n, dec_edges)
+        cond = condense(n, dec_edges, labels, include_mask=include)
     stats["t_scc"] = time.perf_counter() - t0
 
     # ---- reachable-set closure (Alg. 1) ----------------------------------
@@ -233,19 +235,21 @@ def build_2dreach(
             src_c = cond.comp[e[m, 0]]
             ok = src_c >= 0
             extra = (e[m, 1][ok], src_c[ok])
-    if backend == "device":
-        clo = closure_bitset_mm(cond, n, spatial_ids,
-                                extra_vertex_comp=extra, device=dev)
-    else:
-        clo = closure_np(cond, n, spatial_ids, extra_vertex_comp=extra)
+    with span("build.closure", cat="build", backend=backend):
+        if backend == "device":
+            clo = closure_bitset_mm(cond, n, spatial_ids,
+                                    extra_vertex_comp=extra, device=dev)
+        else:
+            clo = closure_np(cond, n, spatial_ids, extra_vertex_comp=extra)
     stats["t_closure"] = time.perf_counter() - t0
 
     # ---- tree assignment (+ sharing) --------------------------------------
     t0 = time.perf_counter()
     d = cond.n_comps
-    comp_tree, tree_indptr, cols_flat, n_shared = _assign_trees(
-        cond, clo, variant=variant, dedup=dedup
-    )
+    with span("build.assign", cat="build", dedup=dedup):
+        comp_tree, tree_indptr, cols_flat, n_shared = _assign_trees(
+            cond, clo, variant=variant, dedup=dedup
+        )
     n_tree = len(tree_indptr) - 1
     stats["t_assign"] = time.perf_counter() - t0
 
@@ -258,17 +262,19 @@ def build_2dreach(
     tree_of_entry = np.repeat(np.arange(n_tree), lens)
     ext = graph.spatial_extent()
     extent = np.array([ext[0], ext[1], ext[2], ext[3]], dtype=np.float32)
-    if backend == "device":
-        forest = build_forest_device(
-            boxes, vid.astype(np.int32), tree_of_entry, n_tree,
-            fanout=fanout, extent=extent, device=dev)
-        if dev.type == "cuda":      # the pyramid's kernels have finished
-            torch.cuda.synchronize(dev)
-    else:
-        forest = build_forest(
-            boxes, vid.astype(np.int32), tree_of_entry, n_tree,
-            fanout=fanout, extent=extent,
-        )
+    with span("build.forest", cat="build", backend=backend,
+              trees=int(n_tree), entries=int(len(vid))):
+        if backend == "device":
+            forest = build_forest_device(
+                boxes, vid.astype(np.int32), tree_of_entry, n_tree,
+                fanout=fanout, extent=extent, device=dev)
+            if dev.type == "cuda":  # the pyramid's kernels have finished
+                torch.cuda.synchronize(dev)
+        else:
+            forest = build_forest(
+                boxes, vid.astype(np.int32), tree_of_entry, n_tree,
+                fanout=fanout, extent=extent,
+            )
     stats["t_forest"] = time.perf_counter() - t0
 
     # ---- pointers ----------------------------------------------------------
@@ -276,16 +282,17 @@ def build_2dreach(
     vertex_tree: Optional[np.ndarray] = None
     bitrank: Optional[BitRank] = None
     tree_ptrs: Optional[np.ndarray] = None
-    if variant in ("base", "comp"):
-        vertex_tree = np.full(n, -1, dtype=np.int64)
-        inc = cond.comp >= 0
-        vertex_tree[inc] = comp_tree[cond.comp[inc]]
-    else:
-        has = comp_tree >= 0
-        bitrank = BitRank.from_mask(has)
-        tree_ptrs = comp_tree[has].astype(np.int32)
-        if len(tree_ptrs) == 0:
-            tree_ptrs = np.zeros(1, dtype=np.int32)  # rank-lookup safety
+    with span("build.pointers", cat="build", variant=variant):
+        if variant in ("base", "comp"):
+            vertex_tree = np.full(n, -1, dtype=np.int64)
+            inc = cond.comp >= 0
+            vertex_tree[inc] = comp_tree[cond.comp[inc]]
+        else:
+            has = comp_tree >= 0
+            bitrank = BitRank.from_mask(has)
+            tree_ptrs = comp_tree[has].astype(np.int32)
+            if len(tree_ptrs) == 0:
+                tree_ptrs = np.zeros(1, dtype=np.int32)  # rank-lookup safety
     stats["t_pointers"] = time.perf_counter() - t0
     stats["t_total"] = time.perf_counter() - t_start
 

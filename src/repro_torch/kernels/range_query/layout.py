@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...device import same_device
+from ...obs import REGISTRY, CounterDict, span
 
 TB = 8            # queries per query tile
 TP = 128          # arena entries per leaf tile
@@ -32,13 +33,17 @@ MAX_CLUSTER = 8   # CTAs per thread block cluster of K1, K3, K4 and K6
 ID_SENTINEL = np.int32(np.iinfo(np.int32).max)
 
 # host-side forest transpositions since import: steady-state serving
-# leaves it flat (``forest_soa`` memoises one per forest)
+# leaves it flat (``forest_soa`` memoises one per forest); also counted
+# in the ``repro_torch.obs`` registry as ``range_query.soa_builds``
 SOA_BUILDS = 0
 
 # forest entry planes put on a device by ``forest_planes`` since import:
 # ``host_uploads`` from the host transposition, ``device_adoptions`` from
-# a ``build_forest_device`` handoff without a copy
-UPLOAD_COUNTERS = {"host_uploads": 0, "device_adoptions": 0}
+# a ``build_forest_device`` handoff without a copy.  The values live in
+# the ``repro_torch.obs`` registry (``engine.upload.*``); this dict-shaped
+# view keeps the ``UPLOAD_COUNTERS[...]`` surface.
+UPLOAD_COUNTERS = CounterDict(
+    "engine.upload.", ("host_uploads", "device_adoptions"))
 
 
 def cluster_size(n_query_tiles: int, n_sms: int) -> int:
@@ -59,14 +64,17 @@ def forest_to_soa(forest) -> Tuple[np.ndarray, np.ndarray]:
     """
     global SOA_BUILDS
     SOA_BUILDS += 1
-    dim = forest.dim
-    P = len(forest.entries)
-    Pp = max(TP, ((P + TP - 1) // TP) * TP)
-    soa = np.empty((2 * dim, Pp), dtype=np.float32)
-    soa[:dim, :] = 1.0
-    soa[dim:, :] = 0.0
-    if P:
-        soa[:, :P] = forest.entries.T
+    REGISTRY.counter("range_query.soa_builds").inc()
+    with span("build.soa_transpose", cat="build",
+              entries=int(len(forest.entries))):
+        dim = forest.dim
+        P = len(forest.entries)
+        Pp = max(TP, ((P + TP - 1) // TP) * TP)
+        soa = np.empty((2 * dim, Pp), dtype=np.float32)
+        soa[:dim, :] = 1.0
+        soa[dim:, :] = 0.0
+        if P:
+            soa[:, :P] = forest.entries.T
     return soa, forest.entry_off.astype(np.int32)
 
 

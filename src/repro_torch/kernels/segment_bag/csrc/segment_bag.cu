@@ -5,6 +5,11 @@
 // for s in [0, n_segments), with a (V, D) float32 or bfloat16 table,
 // (L,) int32 idx, (L,) int32 seg sorted ascending (padding carries
 // seg == n_segments) and (L,) float32 w; out is (n_segments, D) float32.
+// An idx in [-V, 0) wraps to idx + V.  An idx outside [-V, V) names no
+// row: its lookup stages row 0 in its place and takes a NaN weight, so
+// its segment sums to NaN, as the reference's jnp.take fills such a row
+// with NaN; nothing outside the table is read.  The host never launches
+// lookups into a table of no rows.
 //
 // Replaces repro/kernels/segment_bag/kernel.py::segment_bag_pallas
 // (_segment_bag_kernel).  It computes that kernel's function, not its grid:
@@ -42,9 +47,11 @@
 //     memory with cp.async, the rows cut into vectors of `VB` bytes handed
 //     out flat over the lanes (D = 18 float32: 9 float2 a row, 288 for 32
 //     rows, 9 a lane, all lanes busy), each lane taking the row index
-//     from its owner by shuffle, four at a time.  Two batches are in
-//     flight: batch b + 1's rows and b + 2's indices are issued before
-//     batch b is summed.
+//     from its owner by shuffle, four at a time.  The owner wraps a
+//     negative idx, and turns one outside the table into row 0 with a
+//     NaN weight (two compares a lookup, none in the copy loop).
+//     Two batches are in flight: batch b + 1's rows and b + 2's indices
+//     are issued before batch b is summed.
 //   * Sum: lane c owns column c (and c + 32, ...).  A ballot of seg marks
 //     where a new segment starts inside the batch; each run of one segment
 //     is added in ascending k from shared memory into the column's
@@ -140,7 +147,7 @@ segment_bag_kernel(const S* __restrict__ table,     // (V, D)
                    const int* __restrict__ seg,     // (L,) sorted
                    const float* __restrict__ w,     // (L,)
                    float* __restrict__ out,         // (n_segments, D)
-                   int L, int D, int n_segments, int spw) {
+                   int V, int L, int D, int n_segments, int spw) {
   constexpr int VW = VB / (int)sizeof(S);           // elements a vector
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -181,6 +188,12 @@ segment_bag_kernel(const S* __restrict__ table,     // (V, D)
     // w and seg by plain stores.  Returns its lookups; `starts` gets the
     // rows (after the first) where a new segment begins.
     auto issue = [&](int buf, unsigned& starts) {
+      // the row, wrapped; an idx outside [-V, V) becomes row 0 with
+      // weight NaN (w * x is then NaN whatever row 0 holds).  Done here,
+      // at the row's first use, so that fetch's loads stay in flight
+      // while the previous batch is summed.
+      if (bi < 0) bi += V;
+      if ((unsigned)bi >= (unsigned)V) { bi = 0; bw = __int_as_float(~0); }
       const bool in = bs < s1;
       const int n = __popc(__ballot_sync(FULL, in));
       const int prev = __shfl_up_sync(FULL, bs, 1);
@@ -269,7 +282,7 @@ segment_bag_kernel(const S* __restrict__ table,     // (V, D)
 
 template <typename S, int VB>
 int launch_vb(const void* table, const void* idx, const void* seg,
-              const void* w, void* out, int L, int D, int n_segments,
+              const void* w, void* out, int V, int L, int D, int n_segments,
               int spw, cudaStream_t stream) {
   const Layout lay = make_layout(D, sizeof(S));
   const size_t smem = (size_t)WARPS * lay.warp_bytes;
@@ -284,30 +297,30 @@ int launch_vb(const void* table, const void* idx, const void* seg,
   kernel<<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const S*>(table), static_cast<const int*>(idx),
       static_cast<const int*>(seg), static_cast<const float*>(w),
-      static_cast<float*>(out), L, D, n_segments, spw);
+      static_cast<float*>(out), V, L, D, n_segments, spw);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename S>
 int launch(const void* table, const void* idx, const void* seg,
-           const void* w, void* out, int L, int D, int n_segments,
+           const void* w, void* out, int V, int L, int D, int n_segments,
            int vector_bytes, int spw, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  if (spw < 1 || vector_bytes < (int)sizeof(S) ||
+  if (spw < 1 || V < 0 || vector_bytes < (int)sizeof(S) ||
       D % (vector_bytes / (int)sizeof(S)) != 0 ||
       reinterpret_cast<uintptr_t>(table) % vector_bytes != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (vector_bytes) {
-    case 16: return launch_vb<S, 16>(table, idx, seg, w, out, L, D,
+    case 16: return launch_vb<S, 16>(table, idx, seg, w, out, V, L, D,
                                      n_segments, spw, st);
-    case 8: return launch_vb<S, 8>(table, idx, seg, w, out, L, D,
+    case 8: return launch_vb<S, 8>(table, idx, seg, w, out, V, L, D,
                                    n_segments, spw, st);
-    case 4: return launch_vb<S, 4>(table, idx, seg, w, out, L, D,
+    case 4: return launch_vb<S, 4>(table, idx, seg, w, out, V, L, D,
                                    n_segments, spw, st);
     case 2:
       if constexpr (sizeof(S) == 2)
-        return launch_vb<S, 2>(table, idx, seg, w, out, L, D, n_segments,
-                               spw, st);
+        return launch_vb<S, 2>(table, idx, seg, w, out, V, L, D,
+                               n_segments, spw, st);
       [[fallthrough]];
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -317,23 +330,26 @@ int launch(const void* table, const void* idx, const void* seg,
 
 // Plain C entries for ctypes, one per table type: each launches on
 // `stream`, never synchronises, and returns cudaGetLastError() so a
-// refused launch is reported to the caller.  n_segments >= 1, D >= 1,
+// refused launch is reported to the caller.  V >= 0 table rows, and
+// V >= 1 where L >= 1 (an idx outside [-V, V) is summed as NaN),
+// n_segments >= 1, D >= 1,
 // vector_bytes divides D's bytes and the table's base address (4, 8 or
 // 16 for float32; 2, 4, 8 or 16 for bf16), segs_per_warp >= 1.
 extern "C" int segment_bag_f32_launch(const void* table, const void* idx,
                                       const void* seg, const void* w,
-                                      void* out, int L, int D,
+                                      void* out, int V, int L, int D,
                                       int n_segments, int vector_bytes,
                                       int segs_per_warp, void* stream) {
-  return launch<float>(table, idx, seg, w, out, L, D, n_segments,
+  return launch<float>(table, idx, seg, w, out, V, L, D, n_segments,
                        vector_bytes, segs_per_warp, stream);
 }
 
 extern "C" int segment_bag_bf16_launch(const void* table, const void* idx,
                                        const void* seg, const void* w,
-                                       void* out, int L, int D,
+                                       void* out, int V, int L, int D,
                                        int n_segments, int vector_bytes,
                                        int segs_per_warp, void* stream) {
-  return launch<unsigned short>(table, idx, seg, w, out, L, D, n_segments,
-                                vector_bytes, segs_per_warp, stream);
+  return launch<unsigned short>(table, idx, seg, w, out, V, L, D,
+                                n_segments, vector_bytes, segs_per_warp,
+                                stream);
 }

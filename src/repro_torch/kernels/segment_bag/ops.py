@@ -100,9 +100,15 @@ def segment_bag_torch(table: torch.Tensor, indices: torch.Tensor,
                       segments: torch.Tensor, weights: torch.Tensor, *,
                       n_segments: int) -> torch.Tensor:
     """(n_segments, D) float32 (same contract as :func:`segment_bag`).
-    The product promotes a bf16 row to float32, as ``segment_bag_ref``'s
-    does; on the CPU ``index_add_`` adds the rows in ascending ``k``."""
-    rows = table[indices] * weights[:, None]
+    An index in ``[-V, 0)`` wraps; one outside ``[-V, V)`` gathers its
+    clamped row, filled with NaN before the weight, so its bag comes out
+    NaN, as ``jnp.take`` fills it in ``segment_bag_ref``.  The product
+    promotes a bf16 row to float32, as ``segment_bag_ref``'s does; on
+    the CPU ``index_add_`` adds the rows in ascending ``k``."""
+    V = table.shape[0]
+    bad = (indices < -V) | (indices >= V)
+    rows = table[indices.clamp(-V, V - 1)].masked_fill(
+        bad[:, None], float("nan")) * weights[:, None]
     out = torch.zeros((n_segments + 1, table.shape[1]), dtype=rows.dtype,
                       device=table.device)
     out.index_add_(0, segments, rows)
@@ -111,7 +117,7 @@ def segment_bag_torch(table: torch.Tensor, indices: torch.Tensor,
 
 def segment_bag(
     table: torch.Tensor,      # (V, D) float32 or bfloat16
-    indices: torch.Tensor,    # (L,) int32 in [0, V)
+    indices: torch.Tensor,    # (L,) int32; [-V, 0) wraps, else NaN
     segments: torch.Tensor,   # (L,) int32 sorted; padding -> n_segments
     weights: torch.Tensor,    # (L,) float32 (padding: 0)
     *,
@@ -121,9 +127,13 @@ def segment_bag(
     """(n_segments, D) float32 segment-weighted sums of table rows.
     ``device`` (``None``: the GPU) must be where the tensors lie: on a
     CUDA device the K10 kernel runs, one launch, and a build or launch
-    failure raises; on the CPU the plain version runs.  The kernel trusts
-    ``indices`` to lie in ``[0, V)`` and ``segments`` to be sorted, as
-    :func:`pack_bags` makes them; its launch shape is
+    failure raises; on the CPU the plain version runs.  An index in
+    ``[-V, 0)`` wraps, and one outside ``[-V, V)`` adds NaN to its bag
+    (the kernel stages row 0 for it with a NaN weight, so it reads no
+    byte outside the table; lookups into a table of no rows raise
+    ``IndexError``, as the plain version's gather does); the kernel
+    trusts ``segments`` to be sorted, as
+    :func:`pack_bags` makes them.  Its launch shape is
     :func:`warp_segments`, its row copies :func:`copy_bytes` wide."""
     dev = resolve_device(device)
     if not same_device(table.device, dev):
@@ -140,16 +150,19 @@ def segment_bag(
     check_tensor("indices", indices, torch.int32, (L,), dev)
     check_tensor("segments", segments, torch.int32, (L,), dev)
     check_tensor("weights", weights, torch.float32, (L,), dev)
-    if n_segments < 0 or n_segments >= 2 ** 31 - 1 or L >= 2 ** 31 - 64:
-        raise ValueError(f"n_segments={n_segments}, L={L} out of the "
-                         f"kernel's int32 range")
+    if (n_segments < 0 or n_segments >= 2 ** 31 - 1 or L >= 2 ** 31 - 64
+            or V >= 2 ** 31):
+        raise ValueError(f"n_segments={n_segments}, L={L}, V={V} out of "
+                         f"the kernel's int32 range")
+    if V == 0 and L:     # K10 stages row 0 for an id outside the table
+        raise IndexError("segment_bag: lookups into a table of no rows")
     out = torch.empty((n_segments, D), dtype=torch.float32,
                       device=table.device)
     if n_segments == 0 or D == 0:
         return out
-    call("segment_bag", _LAUNCH[table.dtype], [_PTR] * 5 + [_INT] * 5,
+    call("segment_bag", _LAUNCH[table.dtype], [_PTR] * 5 + [_INT] * 6,
          out.device, table.data_ptr(), indices.data_ptr(),
-         segments.data_ptr(), weights.data_ptr(), out.data_ptr(), L, D,
+         segments.data_ptr(), weights.data_ptr(), out.data_ptr(), V, L, D,
          n_segments, copy_bytes(table),
          warp_segments(n_segments, sm_count(out.device)))
     segment_bag.launches += 1
@@ -169,20 +182,24 @@ def embedding_bag(
 ) -> torch.Tensor:
     """EmbeddingBag over a ``(V, D)`` table -> ``(B, D)`` float32: bag
     ``b`` pools ``table[indices[offsets[b]:offsets[b + 1]]]`` by ``sum``
-    or ``mean`` (an empty bag is 0).  The bags are packed on the host
-    (:func:`pack_bags`) and summed by :func:`segment_bag` on ``device``
-    (``None``: the GPU; the table must lie there)."""
+    or ``mean`` (an empty bag is 0).  An index in ``[-V, 0)`` wraps, and
+    a bag holding one outside ``[-V, V)`` comes out NaN, as the
+    reference's ``jnp.take`` and ``segment_sum`` make it; an index that
+    does not fit int32 becomes ``INT32_MIN`` (outside any table) before
+    the cast.  The bags are packed on the host (:func:`pack_bags`) and
+    summed by :func:`segment_bag` on ``device`` (``None``: the GPU; the
+    table must lie there)."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
-    indices = np.asarray(indices)
+    indices = np.asarray(indices, dtype=np.int64)
     offsets = np.asarray(offsets)
-    V = table.shape[0]
     L = len(indices)
     if (offsets.ndim != 1 or len(offsets) < 1 or offsets[0] != 0
             or offsets[-1] != L or (np.diff(offsets) < 0).any()):
         raise ValueError("offsets must rise from 0 to len(indices)")
-    if L and (indices.min() < 0 or indices.max() >= V):
-        raise ValueError(f"indices must lie in [0, {V})")
+    i32 = np.iinfo(np.int32)
+    indices = np.where((indices < i32.min) | (indices > i32.max), i32.min,
+                       indices)
     B = len(offsets) - 1
     dev = resolve_device(device)
     idx, seg, w = (torch.as_tensor(a, device=dev)

@@ -78,7 +78,9 @@ def _embed_items(params: Params, items: torch.Tensor, cfg: DINConfig):
     ``jnp.take`` fills it; ids in range wrap.  The ids are clamped, and
     the gathered rows of those that moved filled in place, on the device,
     so a bad id neither syncs with the host nor fires a device-side
-    assert."""
+    assert.  The EmbeddingBag op (``kernels.segment_bag``) keeps the same
+    rule: its plain version clamps and fills the same way, and K10 wraps
+    an id in ``[-V, 0)`` and adds NaN for one outside."""
     cates = items % cfg.n_cates
     emb = params["item_emb"]["emb"]
     V = emb.shape[0]

@@ -36,6 +36,7 @@ import numpy as np
 from ..core.polygon import round_bounds_outward
 from ..core.rtree import query_host_knn
 from ..core.two_d_reach import TwoDReachIndex
+from ..obs import span
 from .program import KNNResult
 
 # Doubling-round cap: the initial radius is extent-span / 2^16, so ~17
@@ -56,8 +57,9 @@ def _fused_count(engine, us_sub: np.ndarray, rects: np.ndarray,
     routing = state.get("routing")
     if routing is None:
         routing = state["routing"] = engine._route(us_dev)
-    forced, args = engine._serve_args(rsoa, *routing)
-    out, _, tot = engine._fused_ratchet(args, "count")
+    with span("engine.fused", cat="engine", batch=n, mode="count"):
+        forced, args = engine._serve_args(rsoa, *routing)
+        out, _, tot = engine._fused_ratchet(args, "count")
     engine.stats["batches"] += 1
     engine.stats["queries"] += n
     engine.stats["tiles_scanned"] += tot

@@ -938,6 +938,17 @@ def test_segment_bag_rejects_what_it_does_not_take(cuda):
         SB.segment_bag(table, i.cpu(), s, w, n_segments=1)
     with pytest.raises(ValueError, match="lies on"):
         SB.embedding_bag(table.cpu(), np.array([1]), np.array([0, 1]))
+    # a table of no rows: lookups raise, as the plain version's gather
+    # does; no lookup gives zeros
+    with pytest.raises(IndexError):
+        SB.segment_bag(table[:0], i, s, w, n_segments=1)
+    with pytest.raises(IndexError):
+        SB.segment_bag_torch(table[:0].cpu(), i.cpu(), s.cpu(), w.cpu(),
+                             n_segments=1)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert torch.equal(SB.segment_bag(table[:0], none, none, none.float(),
+                                      n_segments=2),
+                       torch.zeros(2, 18, device=cuda))
 
 
 def _bag_operands(seed, lens, V, D, dtype, pad=0, exact=False):
@@ -1063,6 +1074,57 @@ def test_segment_bag_kernel_on_a_shifted_table(cuda, dtype, D, want):
     full = torch.cat([args[0][:1], args[0]]).to(cuda)
     assert SB.copy_bytes(full[1:]) == SB.copy_bytes(args[0])
     _check_bag(args, len(lens), cuda, full[1:])
+
+
+BAD_IDS = (-1, "-V", "-V-1", "V", -(2 ** 31), 2 ** 31 - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [18, 128])
+def test_segment_bag_kernel_on_bad_ids(cuda, D, dtype):
+    """Ids -1, -V, -V - 1, V and the int32 extremes, each in a bag of
+    several lookups and in a bag of one: K10 wraps the first two and
+    sums NaN for the rest, reading nothing outside the table; NaN where
+    the plain version has NaN (on the CPU and on the card), bit for bit
+    equal to the CPU's elsewhere, and the card serves on."""
+    V = 500
+    lens = [7, 1] * len(BAD_IDS) + [40, 3]
+    args = _bag_operands(D, lens, V, D, dtype, 5)
+    i = args[1].numpy().copy()
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    for b, bad in enumerate(BAD_IDS):
+        bad = {"-V": -V, "-V-1": -V - 1, "V": V}.get(bad, bad)
+        i[offsets[2 * b] + 3] = bad          # in a bag of 7
+        i[offsets[2 * b + 1]] = bad          # in a bag of one
+    args[1] = torch.as_tensor(i)
+    B = len(lens)
+    launches = SB.segment_bag.launches
+    got = SB.segment_bag(*(a.to(cuda) for a in args), n_segments=B)
+    assert SB.segment_bag.launches == launches + 1
+    cpu = SB.segment_bag_torch(*args, n_segments=B)
+    card = SB.segment_bag_torch(*(a.to(cuda) for a in args), n_segments=B)
+    nan = torch.isnan(cpu)
+    assert nan.any(1).tolist() == [False] * 4 + [True] * 8 + [False] * 2
+    assert torch.equal(torch.isnan(got).cpu(), nan)
+    assert torch.equal(torch.isnan(card).cpu(), nan)
+    assert torch.equal(got.cpu()[~nan], cpu[~nan])
+    torch.testing.assert_close(got[~nan.to(cuda)], card[~nan.to(cuda)],
+                               rtol=1e-5, atol=1e-5)
+    again = _bag_operands(D + 1, [5, 2], V, D, dtype)
+    _check_bag(again, 2, cuda)
+
+
+@pytest.mark.parametrize("indices,want", [
+    ([0, 7], [[np.nan] * 4]), ([-1, 0], [[24.0, 26.0, 28.0, 30.0]]),
+    ([0, -8], [[np.nan] * 4])])
+def test_embedding_bag_on_the_card_gives_the_reference_rows(cuda, indices,
+                                                             want):
+    """The reference's ``embedding_bag(use_ref=True)`` rows for the
+    table arange(28).reshape(7, 4) and one bag of two lookups."""
+    table = torch.arange(28, dtype=torch.float32).reshape(7, 4).to(cuda)
+    got = SB.embedding_bag(table, np.array(indices), np.array([0, 2]))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.asarray(want, np.float32))
 
 
 @pytest.fixture

@@ -393,6 +393,8 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "assert {'repro_torch.obs', 'repro_torch.obs.profiler',\n"
+        "        'repro_torch.obs.audit'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

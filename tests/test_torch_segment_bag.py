@@ -138,8 +138,6 @@ def test_empty_bags_and_padding(B, lens):
 
 @pytest.mark.parametrize("indices,offsets,mode,match", [
     ([0, 1], [0, 2], "max", "mode"),
-    ([0, 7], [0, 2], "sum", "indices"),
-    ([-1, 0], [0, 2], "sum", "indices"),
     ([0, 1], [1, 2], "sum", "offsets"),
     ([0, 1], [0, 1], "sum", "offsets"),
     ([0, 1], [0, 2, 1, 2], "sum", "offsets"),
@@ -149,6 +147,85 @@ def test_embedding_bag_rejects_bad_input(indices, offsets, mode, match):
     with pytest.raises(ValueError, match=match):
         SB.embedding_bag(table, np.array(indices), np.array(offsets),
                          mode=mode, device="cpu")
+
+
+# an id outside [-V, V) makes its bag NaN, one in [-V, 0) wraps, as the
+# reference's jnp.take (fill NaN) and segment_sum make them; the rows
+# are the reference's answers (embedding_bag(use_ref=True)) on the table
+# arange(28).reshape(7, 4)
+BAD_IDS = [([0, 7], [[np.nan] * 4]),
+           ([-1, 0], [[24.0, 26.0, 28.0, 30.0]]),
+           ([0, -8], [[np.nan] * 4])]
+
+
+@pytest.mark.parametrize("indices,want", BAD_IDS)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_out_of_range_ids_match_reference(indices, want,
+                                                        mode):
+    table = np.arange(28, dtype=np.float32).reshape(7, 4)
+    offsets = np.array([0, 2])
+    ref = np.asarray(RO.embedding_bag(jnp.asarray(table), np.array(indices),
+                                      offsets, mode=mode, use_ref=True))
+    div = 2.0 if mode == "mean" else 1.0
+    np.testing.assert_array_equal(ref, np.asarray(want, np.float32) / div)
+    got = SB.embedding_bag(torch.as_tensor(table), np.array(indices),
+                           offsets, mode=mode, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("bad", [7, -8, 1000, -(2 ** 31), 2 ** 31 - 1,
+                                 2 ** 31, -(2 ** 31) - 1, 2 ** 40])
+def test_embedding_bag_id_outside_the_table_or_int32(bad):
+    """Only the bag holding the bad id is NaN, in float32 and bf16; an
+    id that does not fit int32 is outside the table too (the reference's
+    ``pack_bags`` would wrap it into range)."""
+    table = torch.arange(28, dtype=torch.float32).reshape(7, 4)
+    indices = np.array([1, 2, bad, 3, -7, 6], dtype=np.int64)
+    offsets = np.array([0, 2, 4, 4, 6])
+    for t in (table, table.bfloat16()):
+        got = SB.embedding_bag(t, indices, offsets, device="cpu")
+        assert got.dtype == torch.float32
+        assert torch.isnan(got[1]).all()
+        assert not torch.isnan(got[[0, 2, 3]]).any()
+        np.testing.assert_array_equal(
+            got[[0, 2, 3]].numpy(),
+            [[12, 14, 16, 18], [0, 0, 0, 0], [24, 26, 28, 30]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_bag_bad_ids_match_ref_on_packed_operands(dtype):
+    """The plain version against ``segment_bag_ref`` on packed operands
+    holding ids at -1, -V, -V - 1, V and the int32 extremes, in bags of
+    several lookups and a bag of one, with a bad id in the padding too:
+    NaN where the reference has NaN, equal elsewhere."""
+    rng = np.random.default_rng(21)
+    V, D = 50, 18
+    lens = [5, 1, 4, 1, 3, 0, 6, 1, 2]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    B = len(lens)
+    idx = rng.integers(0, V, int(offsets[-1]))
+    i32 = np.iinfo(np.int32)
+    for at, bad in zip((1, 5, 7, 9, 10, 13, 15, 18),
+                       (-1, -V, -V - 1, V, V + 3, i32.min, i32.max, -3)):
+        idx[at] = bad
+    i, s, w = SB.pack_bags(idx, offsets)
+    w[: len(idx)] = rng.uniform(0.5, 2.0, len(idx)).astype(np.float32)
+    i[-1] = V + 5                  # padding: its NaN row is dropped
+    table = torch.as_tensor(rng.standard_normal((V, D)).astype(np.float32)
+                            ).to(dtype)
+    T = torch.as_tensor
+    got = SB.segment_bag(table, T(i), T(s), T(w), n_segments=B,
+                         device="cpu")
+    ref = np.asarray(segment_bag_ref(
+        jnp.asarray(table.float().numpy()).astype(
+            jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
+        jnp.asarray(i), jnp.asarray(s), jnp.asarray(w), n_segments=B))
+    nan_bags = np.isnan(ref).all(1)
+    assert nan_bags.tolist() == [False, False, True, True, True, False,
+                                 True, False, False]
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(ref))
+    np.testing.assert_allclose(got.numpy()[~nan_bags], ref[~nan_bags],
+                               rtol=0, atol=1e-5)
 
 
 def test_no_gpu_raises(monkeypatch):
