@@ -133,6 +133,32 @@ not beside this script, it exits with code 2 and prints no result.
   main_batches  every kernel against its plain version on each index's
            first main-path batch (after the counts are read); K9 on the
            leaf-scan engine's first batch
+  paper    the paper's harness (``repro_torch.benchmarks``) at
+           ``run.py``'s default cut (the four datasets at x0.25, 400
+           Figure 3 queries per parameter value): Tables 2-4, the claims' PASS /
+           FAIL lines and Figure 3's sweep with its stability ratios
+           (host builds and descents; each workload's oracle gate also on
+           the 2DReach methods' engines on the card); ``perf_build`` at
+           yelp x0.12 (every device build's forest and answers equal to
+           the host build's, the engine adopting it; K7 and K8 counted);
+           ``perf_queries``' class sweep at yelp x0.1 2dreach-comp (256
+           queries, k = 8: reach, count, collect, kNN on the fused and
+           the two-phase path, polygons, each equal to the host,
+           ``n_compiles`` flat), then each class and path once more with
+           its launches counted
+  resilience  ``ResilientEngine`` over main's yelp x1.0 2dreach-comp
+           engine, B = 256: healthy (every class equal to the host, no
+           fallback, the bare engine's launches); one injected raise on
+           ``engine.query_batch`` (one retry, exact, two attempts); the
+           retries spent with ``degraded_path="two_phase"`` (as many
+           fires as attempts, so the degraded call runs clean: exact, one
+           K2 and one K3 launch, every query degraded); the breaker
+           tripped (the host answers every class, nothing launches); a
+           corrupt answer on ``engine.answer`` (the exactness auditor
+           flags one divergence); a 0.5 s stall then an error past a
+           0.1 s deadline (no retry, the host answers, bounded); the
+           disabled fault hooks' crossings and cost per batch against
+           ``obs_overhead``'s 2% gate
   timing   the launch floor (the profiler's device time of a
            one-element ``add_``, printed beside the serving kernels'
            bounds); at B=256 on yelp x1.0 comp: device time per launch
@@ -1559,6 +1585,256 @@ def phase_main_batches(ks, engines, leafscan_ops):
             errs[k] = max(errs[k], v)
     emit("main_batches", ok=True, max_abs_err=errs)
     return errs
+
+
+# --------------------------------------------------------------------------
+# The paper's harness (repro_torch.benchmarks) and the resilience layer
+# (repro_torch.resilience)
+# --------------------------------------------------------------------------
+
+# phase paper, cut to stay inside the script's time: run.py's default
+# (not --full) settings, the four datasets at a quarter of their
+# synthetic size (--full: x0.5) and 400 Figure 3 queries per parameter
+# value (--full: 1,000); perf_build and perf_queries at their --smoke
+# configs
+PAPER_SCALE = 0.25
+PAPER_QUERIES = 400
+PERF_BUILD_CONFIG = ("yelp", 0.12)
+PERF_QUERIES_CONFIG = dict(dataset="yelp", scale=0.1, n_q=256, k=8,
+                           repeats=2)
+# each perf_queries class and path: the kernels that must launch (at
+# least once) and those that must not
+PQ_KERNELS = {"fused": ({"fused_serve"}, {"prune_tiles"}),
+              "two_phase": ({"prune_tiles"}, {"fused_serve"})}
+PQ_SCANS = {"reach": "descent_scan", "count": "count_scan",
+            "collect": "collect_scan", "knn": "count_scan",
+            "polygon": "polygon_scan"}
+HANG_S = 0.5          # the injected stall of phase resilience
+HANG_DEADLINE_S = 0.1
+
+
+def phase_paper(ks):
+    """Tables 2-4, Figure 3 and the claims at PAPER_SCALE (run.report:
+    host builds and descents, each Figure 3 workload's oracle gate also
+    on the 2DReach methods' engines on the card); perf_build's smoke
+    config (device build equal to the host build, zero-copy adoption;
+    its K7, K8 launches); perf_queries' class sweep (every class and
+    path equal to the host, n_compiles flat), then each class and path
+    once more with the launches counted."""
+    from repro_torch.benchmarks import perf_build, perf_queries, run
+    from repro_torch.core import QueryEngine, build_2dreach
+    from repro_torch.core.engine import engine_for
+    from repro_torch.data import get_dataset
+
+    out = {"cut": {"scale": PAPER_SCALE, "fig3_queries": PAPER_QUERIES,
+                   "perf_build": list(PERF_BUILD_CONFIG),
+                   "perf_queries": PERF_QUERIES_CONFIG}}
+    rep = run.report(PAPER_SCALE, PAPER_QUERIES, device=DEVICE)
+    out["tables"] = {k: rep[k] for k in ("table2", "table3", "table4",
+                                         "claims", "seconds")}
+    out["fig3"] = rep["fig3"]
+
+    name = "x".join(map(str, PERF_BUILD_CONFIG))
+    ks.reset()
+    t0 = time.perf_counter()
+    row = perf_build.bench_config(*PERF_BUILD_CONFIG, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = ks.counts()
+    if not (launches["bitset_mm"] and launches["seg_mbr"]):
+        raise AssertionError(f"perf_build {name}: launches {launches}")
+    out["perf_build"] = {"config": name, "seconds": round(seconds, 3),
+                         "launches": launches, "row": row,
+                         "summary": perf_build.bench_summary([row])}
+
+    t0 = time.perf_counter()
+    rows = perf_queries.class_sweep(**PERF_QUERIES_CONFIG, device=DEVICE)
+    summary = perf_queries.bench_summary(rows)
+    if summary["steady_state_recompiles"] or set(summary["classes"]) != \
+            set(perf_queries.CLASSES):
+        raise AssertionError(f"perf_queries: {summary}")
+    cfg = PERF_QUERIES_CONFIG
+    g = get_dataset(cfg["dataset"], scale=cfg["scale"])
+    idx = build_2dreach(g, variant="comp")
+    eng = engine_for(idx, device=DEVICE)
+    two = QueryEngine(idx, device=DEVICE, path="two_phase")
+    cases = perf_queries.class_cases(
+        idx, eng, two, perf_queries.class_workload(g, cfg["n_q"]),
+        cfg["k"])
+    per_path = {}
+    for kind, (host_fn, paths) in cases.items():
+        want = host_fn()
+        for path, fn in paths.items():
+            ks.reset()
+            got = fn()
+            n = ks.counts()
+            need, never = PQ_KERNELS[path]
+            need = need | ({PQ_SCANS[kind]} if path == "two_phase" else set())
+            if not perf_queries._same(kind, want, got) or not all(
+                    n[k] for k in need) or any(n[k] for k in never):
+                raise AssertionError(f"perf_queries {kind} {path}: "
+                                     f"launches {n}")
+            per_path[f"{kind} {path}"] = {k: v for k, v in n.items() if v}
+    out["perf_queries"] = {
+        "config": f"{cfg['dataset']}x{cfg['scale']} 2dreach-comp",
+        "seconds": round(time.perf_counter() - t0, 3), "summary": summary,
+        "launches": per_path}
+    return out
+
+
+def phase_resilience(ks, engines, indexes):
+    """``ResilientEngine`` over phase main's yelp x1.0 2dreach-comp engine
+    on the first batch (B = BATCH) of its workload: healthy, one injected
+    raise, retries spent with the two-phase path as the degradation
+    target, the breaker tripped, a corrupt answer caught by the auditor,
+    a stall past the deadline; each with its answers held to the host
+    index and its launches counted; then the disabled fault hooks' cost
+    (``obs_overhead``'s analytic gate)."""
+    from repro_torch import obs
+    from repro_torch.benchmarks import obs_overhead
+    from repro_torch.obs.metrics import Registry
+    from repro_torch.queries import knn_reach_host, polygon_reach_host
+    from repro_torch.resilience import (
+        FaultPlan,
+        FaultSpec,
+        ResilientEngine,
+        RetryPolicy,
+        inject,
+    )
+
+    name = "{}x{} {}".format(*CONFIGS[0])
+    eng, us, rects = engines[name]
+    g, _, idx, host_reach, (pus, polys) = indexes[name]
+    u, r = us[:BATCH], rects[:BATCH]
+    pts = ((r[:, :2] + r[:, 2:]) / 2).astype(np.float32)
+    pu, pp = pus[:BATCH], polys[:BATCH]
+    cnt, ids = host_count_collect(idx, u, r, COLLECT_K)
+    want = {"reach": host_reach[:BATCH], "count": cnt, "collect": ids,
+            "knn": knn_reach_host(idx, u, pts, KNN_K),
+            "polygon": polygon_reach_host(idx, pu, pp)}
+
+    def serve_classes(e):
+        col = e.collect_batch(u, r, COLLECT_K)
+        got = {"reach": e.query_batch(u, r), "count": e.count_batch(u, r),
+               "collect": col.ids, "knn": e.knn_batch(u, pts, KNN_K),
+               "polygon": e.polygon_batch(pu, pp)}
+        for kind, w in want.items():
+            a = got[kind]
+            same = (np.array_equal(a.ids, w.ids)
+                    and np.array_equal(a.dist2, w.dist2)
+                    if kind == "knn" else np.array_equal(a, w))
+            if not same or (kind == "collect"
+                            and not np.array_equal(col.counts, cnt)):
+                raise AssertionError(f"resilience: {kind} != host")
+
+    def wrapper(**kw):
+        kw.setdefault("retry", RetryPolicy(max_attempts=3, base_s=1e-4,
+                                           cap_s=1e-3))
+        return ResilientEngine(eng, idx, registry=Registry(), **kw)
+
+    def counted(fn):
+        """``fn()``, the launches it made and its seconds."""
+        ks.reset()
+        t0 = time.perf_counter()
+        got = fn()
+        return got, ks.counts(), time.perf_counter() - t0
+
+    out = {"engine": name, "batch": BATCH}
+    # healthy: the wrapper launches what the bare engine launches (once
+    # its capacity ratchet has seen these batches)
+    serve_classes(eng)
+    _, bare, _ = counted(lambda: serve_classes(eng))
+    res = wrapper()
+    _, wrapped, _ = counted(lambda: serve_classes(res))
+    if wrapped != bare or res.stats["fallback_queries"] or \
+            res.stats["device_batches"] != len(want):
+        raise AssertionError(f"resilience healthy: {wrapped} against the "
+                             f"bare engine's {bare}, {res.stats}")
+    out["healthy"] = {"launches": wrapped, "stats": dict(res.stats)}
+
+    # one injected raise at the engine's entry: one retry, exact
+    res = wrapper()
+    with inject(FaultPlan(FaultSpec("engine.query_batch", kind="raise"),
+                          seed=1)) as plan:
+        got, n, _ = counted(lambda: res.query_batch(u, r))
+    rep = res.last_report
+    if not (np.array_equal(got, want["reach"])
+            and (rep["attempts"] == 2).all() and rep["retries"] == 1
+            and plan.fires_at("engine.query_batch") == 1
+            and n["fused_serve"] == 1):
+        raise AssertionError(f"resilience retry: {rep}, launches {n}")
+    out["retry"] = {"launches": n, "retries": rep["retries"],
+                    "attempts": int(rep["attempts"].max())}
+
+    # retries spent, the two-phase path answers: as many fires as
+    # attempts, so the degraded call (which re-enters query_batch) runs
+    # clean
+    res = wrapper(degraded_path="two_phase")
+    with inject(FaultPlan(FaultSpec(
+            "engine.query_batch", kind="raise",
+            max_fires=res.retry.max_attempts), seed=2)):
+        got, n, _ = counted(lambda: res.query_batch(u, r))
+    rep = res.last_report
+    expect = {**dict.fromkeys(KERNELS, 0), "prune_tiles": 1,
+              "descent_scan": 1}
+    if not (np.array_equal(got, want["reach"])
+            and rep["degraded"].all() and n == expect
+            and res.stats["fallback_queries"] == BATCH):
+        raise AssertionError(f"resilience two_phase: launches {n}, {rep}")
+    out["two_phase"] = {"launches": n, "retries": rep["retries"],
+                        "stats": dict(res.stats)}
+
+    # the breaker tripped: the host answers every class, nothing launches
+    res = wrapper()
+    res.trip()
+    _, n, _ = counted(lambda: serve_classes(res))
+    if any(n.values()) or res.stats["fallback_batches"] != len(want):
+        raise AssertionError(f"resilience tripped: launches {n}")
+    out["tripped"] = {"launches_total": sum(n.values()),
+                      "stats": dict(res.stats)}
+
+    # a corrupt answer, caught by the exactness auditor
+    aud = obs.ExactnessAuditor(idx, sample=1.0)
+    with inject(FaultPlan(FaultSpec("engine.answer", kind="corrupt"))):
+        ans = eng.query_batch(u, r)
+    aud.observe(u, r, ans)
+    aud.drain()
+    audit = aud.report()
+    if audit["divergences"] != 1 or audit["kept"][0]["served"] == \
+            audit["kept"][0]["expected"]:
+        raise AssertionError(f"resilience corrupt: {audit}")
+    out["corrupt"] = {k: audit[k] for k in ("checked", "divergences")}
+
+    # a stall that ends in an error past the deadline: no retry, the
+    # host answers, in bounded time
+    res = wrapper()
+    with inject(FaultPlan(
+            FaultSpec("engine.query_batch", kind="hang", hang_s=HANG_S),
+            FaultSpec("engine.route_prune", kind="raise"), seed=3)):
+        got, n, dt = counted(
+            lambda: res.query_batch(u, r, deadline=HANG_DEADLINE_S))
+    rep = res.last_report
+    if not (np.array_equal(got, want["reach"])
+            and rep["degraded"].all() and (rep["attempts"] == 1).all()
+            and not any(n.values()) and dt < HANG_S + 5.0):
+        raise AssertionError(f"resilience hang: {dt} s, launches {n}, "
+                             f"{rep}")
+    out["hang"] = {"seconds": round(dt, 3), "hang_s": HANG_S,
+                   "deadline_s": HANG_DEADLINE_S,
+                   "attempts": int(rep["attempts"].max())}
+
+    # the disabled fault hooks: crossings a batch, cost each, share of a
+    # batch (obs_overhead's analytic gate, on this engine's batch)
+    per_hook = obs_overhead.disabled_fault_point_cost_s()
+    hooks = obs_overhead.fault_hooks_per_batch(eng, u, r)
+    per_batch = obs_overhead.batch_time_s(eng, u, r)
+    share = hooks * per_hook / per_batch
+    if share >= obs_overhead.GATE:
+        raise AssertionError(f"resilience: disabled fault hooks {share}")
+    out["disabled_hooks"] = {"per_batch": hooks,
+                             "ns_each": per_hook * 1e9,
+                             "batch_us": per_batch * 1e6,
+                             "share_of_batch": share}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3601,6 +3877,10 @@ def main() -> int:
     for k, v in (*errs4.items(),
                  *phase_main_batches(ks, engines, ls_ops).items()):
         errs[k] = max(errs[k], v)
+    paper = phase_paper(ks)
+    emit("paper", ok=True, **paper)
+    resil = phase_resilience(ks, engines, indexes)
+    emit("resilience", ok=True, **resil)
 
     per_mode, two, floor = phase_timing(ks, engines, card)
     slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest,
@@ -3614,7 +3894,9 @@ def main() -> int:
     emit("obs_trace", ok=True, **phase_obs_trace(ks, engines))
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, polygons, device build and leaf-scan
-    # serving (host- and device-built), and the two kNN runs
+    # serving (host- and device-built), the two kNN runs, perf_build's
+    # device builds, each perf_queries class and path, and the resilient
+    # engine's healthy, retried and two-phase batches
     per_path = {k: {} for k in KERNELS}
     for r in results:
         per_path["fused_serve"][f"{r['index']} fused"] = r["launches"]
@@ -3634,6 +3916,17 @@ def main() -> int:
     for r in leafscan:
         per_path["range_query"][
             f"{r['index']} leafscan {r['built_on']}-built"] = r["launches"]
+    pb, pq = paper["perf_build"], paper["perf_queries"]
+    for k, n in pb["launches"].items():
+        if n:
+            per_path[k][f"{pb['config']} perf_build device_build"] = n
+    for case, counts in pq["launches"].items():
+        for k, n in counts.items():
+            per_path[k][f"{pq['config']} perf_queries {case}"] = n
+    for case in ("healthy", "retry", "two_phase"):
+        for k, n in resil[case]["launches"].items():
+            if n:
+                per_path[k][f"{resil['engine']} resilience {case}"] = n
     per_path["segment_bag"] = bag_paths
     emit("timers", **TIMERS)
     timed = {"fused_serve": per_mode["reach"], **two, **slice3,

@@ -51,7 +51,11 @@ device, a two-phase ``engine.scan`` times only the launch, and
 each batch also records ``engine.batch_us``, ``engine.<kind>.query_us``
 and ``engine.<kind>.queries`` and sets the ``engine.n_compiles`` gauge.
 
-Not ported yet (a later slice): the fault-injection hooks.
+The reference's fault-injection hooks sit where its engine has them
+(:mod:`repro_torch.resilience.faults`): ``engine.route_prune`` at the
+top of both paths' phase 1, ``engine.query_batch`` on entry to
+``query_batch`` and the value point ``engine.answer`` on its result.
+Disabled, each is one attribute test.
 """
 
 from __future__ import annotations
@@ -93,6 +97,7 @@ from ..kernels.range_query.layout import (
 from ..obs import REGISTRY, span
 from ..obs.tracer import TRACER as _TRACER
 from ..queries.program import CollectResult
+from ..resilience.faults import fault_point, fault_value
 from .polygon import convex_halfplanes, points_in_polygon_region, polygon_bbox
 from .two_d_reach import TwoDReachIndex
 
@@ -434,6 +439,7 @@ class QueryEngine:
                      kc: Optional[int] = None):
         """One launch per batch for reach/count/collect (plus ratchet
         re-runs).  Returns ``(forced, out)``."""
+        fault_point("engine.route_prune", n=len(us))
         with span("engine.pad_batch", cat="engine"):
             Bb, us_dev, rsoa = self._pad(us, rects)
         with span("engine.fused", cat="engine", batch=len(us), mode=mode):
@@ -455,6 +461,7 @@ class QueryEngine:
         truncates.  Returns ``(Bb, rsoa, forced, qs, qe, cand_k)`` with
         ``cand_k`` the first ``_kb_hwm`` candidate columns."""
         B = len(us)
+        fault_point("engine.route_prune", n=B)
         with span("engine.pad_batch", cat="engine"):
             Bb, us_dev, rsoa = self._pad(us, rects)
         with span("engine.route_prune", cat="engine", batch=B):
@@ -485,6 +492,7 @@ class QueryEngine:
         B = len(us)
         if B == 0:
             return np.zeros(0, dtype=bool)
+        fault_point("engine.query_batch", n=B)
         t0 = time.perf_counter()
         with span("engine.query_batch", cat="engine", n=B):
             if self.path == "fused":
@@ -501,7 +509,9 @@ class QueryEngine:
             with span("engine.sync", cat="engine"):
                 out = ((hit > 0) | forced)[:B].cpu().numpy()
         self._obs_batch("reach", B, t0)
-        return out
+        # value point: a kind="corrupt" fault silently flips answers
+        # here, the failure the online exactness auditor must catch
+        return fault_value("engine.answer", out)
 
     def query(self, u: int, rect) -> bool:
         return bool(self.query_batch(np.array([u]), np.array([rect]))[0])

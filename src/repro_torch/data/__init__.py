@@ -6,11 +6,13 @@ from .lbsn import SPECS, LBSNSpec, dataset_stats, generate_lbsn
 from .queries import (
     DEGREE_BUCKETS,
     DEGREE_DEFAULT,
+    KNN_DEFAULT_K,
     POLYGON_EDGE_VALUES,
     POLYGON_EDGES_DEFAULT,
     REGION_EXTENT_DEFAULT,
     REGION_EXTENT_VALUES,
     SELECTIVITY_VALUES,
+    knn_workload,
     polygon_workload,
     region_for_extent,
     workload,
@@ -20,9 +22,10 @@ from .registry import dataset_names, get_dataset
 
 __all__ = [
     "SPECS", "LBSNSpec", "dataset_stats", "generate_lbsn",
-    "DEGREE_BUCKETS", "DEGREE_DEFAULT", "POLYGON_EDGE_VALUES",
-    "POLYGON_EDGES_DEFAULT", "REGION_EXTENT_DEFAULT",
-    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "polygon_workload",
+    "DEGREE_BUCKETS", "DEGREE_DEFAULT", "KNN_DEFAULT_K",
+    "POLYGON_EDGE_VALUES", "POLYGON_EDGES_DEFAULT", "REGION_EXTENT_DEFAULT",
+    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "knn_workload",
+    "polygon_workload",
     "region_for_extent", "workload",
     "ShardInfo", "din_batches",
     "dataset_names", "get_dataset",

@@ -1,7 +1,7 @@
 """RangeReach query-workload generators — the paper's parameters.
 
-A copy of the RangeReach and polygon parts of ``repro.data.queries``:
-the same seeds give the same query vertices and the same regions.
+A copy of the RangeReach, kNN and polygon parts of ``repro.data.queries``:
+the same seeds give the same query vertices, regions and focus points.
 
 * region extent ratio   — query region area as a percentage of the global
                           spatial extent (1/2/5/10/20 %, default 5%).
@@ -84,8 +84,31 @@ def region_for_selectivity(
     return rects
 
 
+KNN_DEFAULT_K = 10
 POLYGON_EDGE_VALUES = (3, 4, 6, 8, 12)
 POLYGON_EDGES_DEFAULT = 6
+
+
+def knn_workload(
+    g: GeosocialGraph,
+    n_queries: int = 1000,
+    degree_bucket: Tuple[int, int] = DEGREE_DEFAULT,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(us, points) for the KNNReach class: query vertices by the
+    paper's degree-bucket methodology, focus points uniform over the
+    spatial extent."""
+    rng = np.random.default_rng(seed)
+    us = sample_vertices_by_degree(g, degree_bucket, n_queries, rng)
+    ext = g.spatial_extent()
+    w = max(float(ext[2] - ext[0]), 1e-3)
+    h = max(float(ext[3] - ext[1]), 1e-3)
+    points = np.stack(
+        [rng.random(n_queries) * w + ext[0],
+         rng.random(n_queries) * h + ext[1]],
+        axis=1,
+    ).astype(np.float32)
+    return us.astype(np.int64), points
 
 
 def polygon_workload(

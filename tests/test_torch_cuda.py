@@ -15,8 +15,11 @@ the leaf-scan and wavefront engines on the card against the host
 descent, the two pyramid prunes (K1, K2) on slices of every kind
 (disjoint, nested, degenerate, one over the whole arena) at B = 8 to
 2048 and on the yelp x0.5 base arena's 77,440 tiles, an out-of-range
-vertex id that must leave the card usable, the boolean sweep closure on the card against its CPU run, and
-DIN (apply, score_candidates) on the card against its CPU run.  Every
+vertex id that must leave the card usable, the resilient engine on the
+card (healthy: every class on the kernels with no fallback; retries
+spent with ``degraded_path="two_phase"``: one K2 and one K3 launch for
+the batch), the boolean sweep closure on the card against its CPU run,
+and DIN (apply, score_candidates) on the card against its CPU run.  Every
 test needs a CUDA device and skips where there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch:
@@ -60,6 +63,14 @@ from repro_torch.kernels.range_query.layout import (
 )
 from repro_torch.models.nn import tree_to
 from repro_torch.models.recsys import din
+from repro_torch.queries import range_count_host
+from repro_torch.resilience import (
+    FaultPlan,
+    FaultSpec,
+    ResilientEngine,
+    RetryPolicy,
+    inject,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -428,6 +439,56 @@ def test_two_phase_engine_on_card_matches_cpu(cuda, method):
     pts = rects[:64, :2].copy()
     assert (gpu.knn_batch(us[:64], pts, 5).ids
             == cpu.knn_batch(us[:64], pts, 5).ids).all()
+
+
+def _launches():
+    return (F.fused_serve.launches, D.prune_tiles.launches,
+            D.descent_scan.launches, A.count_scan.launches,
+            A.collect_scan.launches, A.polygon_scan.launches)
+
+
+def test_resilient_engine_on_card_healthy(cuda):
+    """A healthy wrapper over the card's engine: every class answers as
+    the host does, on the kernels, with no retry and no fallback."""
+    g = get_dataset("yelp", scale=0.05)
+    idx = build_index(g, "2dreach-comp")
+    eng = QueryEngine(idx)
+    res = ResilientEngine(eng, idx)
+    us, rects = workload(g, 256, extent_ratio=0.05, seed=3)
+    pus, polys = polygon_workload(g, 64, extent_ratio=0.05, seed=4)
+    before = _launches()
+    assert (res.query_batch(us, rects) == idx.query_batch(us, rects)).all()
+    assert (res.count_batch(us, rects)
+            == range_count_host(idx, us, rects)).all()
+    res.collect_batch(us, rects, 5)
+    res.knn_batch(us[:64], rects[:64, :2].copy(), 4)
+    cpu = QueryEngine(idx, device="cpu")
+    assert (res.polygon_batch(pus, polys)
+            == cpu.polygon_batch(pus, polys)).all()
+    moved = [b - a for a, b in zip(before, _launches())]
+    assert moved[0] >= 4 and moved[1] == 1 and moved[5] == 1
+    assert res.stats["fallback_queries"] == 0 and res.stats["retries"] == 0
+    assert res.stats["device_batches"] == 5
+
+
+def test_resilient_two_phase_degradation_on_card(cuda):
+    """Retries spent on an injected raise at the engine's entry, with
+    ``degraded_path="two_phase"``: the card's two-phase path answers
+    the batch exactly, one prune (K2) and one descent scan (K3)."""
+    g = get_dataset("yelp", scale=0.05)
+    idx = build_index(g, "2dreach-comp")
+    res = ResilientEngine(QueryEngine(idx), idx, degraded_path="two_phase",
+                          retry=RetryPolicy(max_attempts=3, base_s=1e-6,
+                                            cap_s=1e-5))
+    us, rects = workload(g, 256, extent_ratio=0.05, seed=5)
+    before = _launches()
+    with inject(FaultPlan(FaultSpec("engine.query_batch", kind="raise",
+                                    max_fires=3))):
+        got = res.query_batch(us, rects)
+    moved = [b - a for a, b in zip(before, _launches())]
+    assert (got == idx.query_batch(us, rects)).all()
+    assert moved == [0, 1, 1, 0, 0, 0]
+    assert res.last_report["degraded"].all() and res.stats["retries"] == 2
 
 
 # --------------------------------------------------------------------------

@@ -9,8 +9,9 @@ calls, the same metric names and counts (all but the value of the
 the shapes it has served), and ``engine_cost_model`` equal term for
 term.  Then the reference's engine-side tests of ``tests/test_obs.py``,
 ``test_trace.py`` and ``test_flight.py`` that need no frontend,
-resilience layer, dynamic index or cluster, on the port's engine; and
-``device_trace`` writing a CPU trace.  Both packages' obs state is reset
+dynamic index or cluster, on the port's engine (those of the resilience
+layer through ``repro_torch.resilience``); and ``device_trace`` writing
+a CPU trace.  Both packages' obs state is reset
 before and after every test, and no tracer is left on.
 """
 
@@ -51,6 +52,15 @@ from repro_torch.obs.audit import ExactnessAuditor
 from repro_torch.obs.flight import FLIGHT
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.querylog import QUERY_LOG
+from repro_torch.resilience import (
+    BreakerPolicy,
+    CircuitBreaker,
+    FaultPlan,
+    FaultSpec,
+    ResilientEngine,
+    RetryPolicy,
+    inject,
+)
 from test_torch_obs import check_openmetrics
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -353,6 +363,56 @@ def test_padder_bucketing_spans_carry_trace_ids(built):
         assert by_name[name]["trace_ids"] == want, name
 
 
+def test_retry_and_two_phase_degradation_attribution(built):
+    """Injected device failures: last_report names the specific trace
+    ids that were retried and then degraded (two_phase target)."""
+    _, idx, eng, us, rects = built
+    ren = ResilientEngine(
+        eng, idx, name="trace-attrib", degraded_path="two_phase",
+        retry=RetryPolicy(max_attempts=2, base_s=1e-4, cap_s=1e-3),
+        sleep=lambda s: None)
+    B = 8
+    ctxs = [trace_context.mint(u=int(u)) for u in us[:B]]
+    want = [c.trace_id for c in ctxs]
+    # exactly the two device attempts fail; the two_phase degradation
+    # target crosses the same fault point, so it must stay unpoisoned
+    plan = FaultPlan(FaultSpec("engine.query_batch", kind="raise",
+                               max_fires=2), seed=5)
+    with inject(plan):
+        with trace_context.scope(ctxs):
+            out = ren.query_batch(us[:B], rects[:B])
+    rep = ren.last_report
+    assert rep["trace_ids"] == want
+    assert rep["retries"] == 1
+    assert rep["retried_trace_ids"] == want      # whole batch retried
+    assert rep["degraded_trace_ids"] == want     # ... then degraded
+    assert rep["degraded"].all()
+    assert (rep["attempts"] == 2).all()          # both device attempts
+    # degradation is exact: two_phase answers match the host truth
+    assert (out == idx.query_batch(us[:B], rects[:B])).all()
+
+
+def test_partial_failure_attributes_only_failed_ids(built):
+    """One poisoned attempt then success: attempts reflects per-query
+    device cost and nothing is degraded."""
+    _, idx, eng, us, rects = built
+    ren = ResilientEngine(
+        eng, idx, name="trace-partial",
+        retry=RetryPolicy(max_attempts=3, base_s=1e-4, cap_s=1e-3),
+        sleep=lambda s: None)
+    B = 4
+    ctxs = [trace_context.mint(u=int(u)) for u in us[:B]]
+    with inject(FaultPlan(FaultSpec("engine.query_batch", kind="raise",
+                                    max_fires=1), seed=2)):
+        with trace_context.scope(ctxs):
+            ren.query_batch(us[:B], rects[:B])
+    rep = ren.last_report
+    assert rep["retried_trace_ids"] == [c.trace_id for c in ctxs]
+    assert rep["degraded_trace_ids"] == []
+    assert not rep["degraded"].any()
+    assert (rep["attempts"] == 2).all()
+
+
 # ------------------------------------------ flight (reference test_flight)
 
 def _populate_window(eng, us, rects, n=32):
@@ -435,6 +495,23 @@ def test_slo_fired_freezes_bundle(built, tmp_path):
         assert json.load(f)["detail"]["slo"] == "latency"
 
 
+def test_breaker_open_freezes_bundle(built, tmp_path):
+    _, _, eng, us, rects = built
+    _populate_window(eng, us, rects, n=4)
+    FLIGHT.arm(str(tmp_path), min_interval_s=0.0)
+    br = CircuitBreaker("unit", BreakerPolicy(failure_threshold=3))
+    br.record_failure()
+    br.record_failure()
+    assert FLIGHT.snapshot()["dumps"] == 0           # not yet open
+    br.record_failure()                              # threshold: opens
+    assert br.state_name == "open"
+    assert FLIGHT.snapshot()["dumps"] == 1
+    (bundle,) = os.listdir(tmp_path)
+    assert bundle.startswith("000-breaker-open")
+    assert any(e["kind"] == "breaker.opened" and e["name"] == "unit"
+               for e in FLIGHT.events())
+
+
 def test_auditor_clean_run_zero_divergences(built):
     _, idx, eng, us, rects = built
     aud = ExactnessAuditor(idx, sample=1.0, seed=3)
@@ -460,8 +537,8 @@ def test_auditor_oracle_subsample_clean(built):
 
 def test_auditor_flags_a_flipped_answer(built, tmp_path):
     """The reference's ``test_auditor_flags_injected_wrong_answer``
-    with the answer flipped by hand (fault injection waits for the
-    resilience layer): one divergence within one drain, and one
+    with the answer flipped by hand, and the BFS oracle checking every
+    answer: one divergence within one drain, and one
     ``audit-divergence`` bundle naming the flipped query's trace."""
     g, idx, eng, us, rects = built
     ctxs, _ = _populate_window(eng, us, rects, n=16)
@@ -483,6 +560,42 @@ def test_auditor_flags_a_flipped_answer(built, tmp_path):
     assert obs_flight.load_bundle(os.path.join(tmp_path, bundle))[
         "manifest"]["detail"]["trace_id"] == ctxs[0].trace_id
     assert any(e["kind"] == "audit.divergence" for e in FLIGHT.events())
+
+
+def test_auditor_flags_injected_wrong_answer(built, tmp_path):
+    """The e2e proof: a corrupt fault flips one served answer; the
+    auditor catches it within one drain and freezes an
+    ``audit-divergence`` bundle naming the poisoned trace."""
+    _, idx, eng, us, rects = built
+    ctxs, _ = _populate_window(eng, us, rects, n=16)
+    FLIGHT.arm(str(tmp_path), min_interval_s=0.0)
+    aud = ExactnessAuditor(idx, sample=1.0, seed=0)
+    plan = FaultPlan(FaultSpec("engine.answer", kind="corrupt",
+                               max_fires=1), seed=1)
+    with inject(plan):
+        with trace_context.scope(ctxs):
+            ans = eng.query_batch(us[:16], rects[:16])
+    assert plan.fires_at("engine.answer") == 1
+    aud.observe(us[:16], rects[:16], ans,
+                trace_ids=[c.trace_id for c in ctxs])
+    assert aud.drain() == 16                 # one drain suffices
+    rep = aud.report()
+    assert rep["divergences"] == 1
+    (d,) = rep["kept"]
+    assert d["served"] != d["expected"]
+    assert d["trace_id"] == ctxs[0].trace_id     # mutator flips flat[0]
+    # bundle frozen with the offender in the manifest detail
+    assert FLIGHT.snapshot()["dumps"] == 1
+    (bundle,) = os.listdir(tmp_path)
+    assert bundle == "000-audit-divergence"
+    with open(os.path.join(tmp_path, bundle, "manifest.json")) as f:
+        man = json.load(f)
+    assert man["detail"]["trace_id"] == ctxs[0].trace_id
+    assert any(e["kind"] == "audit.divergence" for e in FLIGHT.events())
+    # the injected fault sits next to the divergence in the black box
+    assert any(e["kind"] == "fault.injected"
+               and e["point"] == "engine.answer"
+               for e in FLIGHT.events())
 
 
 def test_auditor_sample_zero_is_noop(built):
