@@ -133,9 +133,10 @@ not beside this script, it exits with code 2 and prints no result.
   main_batches  every kernel against its plain version on each index's
            first main-path batch (after the counts are read); K9 on the
            leaf-scan engine's first batch
-  paper    the paper's harness (``repro_torch.benchmarks``) at
-           ``run.py``'s default cut (the four datasets at x0.25, 400
-           Figure 3 queries per parameter value): Tables 2-4, the claims' PASS /
+  paper    the paper's harness (``repro_torch.benchmarks``) at a cut
+           below ``run.py``'s default (the four datasets at x0.1, 200
+           Figure 3 queries per parameter value; ``run.py``: x0.25,
+           400): Tables 2-4, the claims' PASS /
            FAIL lines and Figure 3's sweep with its stability ratios
            (host builds and descents; each workload's oracle gate also on
            the 2DReach methods' engines on the card); ``perf_build`` at
@@ -159,6 +160,37 @@ not beside this script, it exits with code 2 and prints no result.
            0.1 s deadline (no retry, the host answers, bounded); the
            disabled fault hooks' crossings and cost per batch against
            ``obs_overhead``'s 2% gate
+  dynamic  ``DynamicIndex(engine="device")`` on yelp x1.0 2dreach-comp,
+           its base built on the card with the device backend and
+           adopted (no upload), against the port's host-engine
+           ``DynamicIndex`` fed the same updates (``streaming_workload``
+           with perf_dynamic's mix: edges 0.6, vertices 0.2, check-ins
+           0.2): main's 2,048 queries in batches of 256 at overlay
+           sizes 0, 64, 256 and 1,024, every answer equal, 64 of them
+           equal to the BFS oracle on ``snapshot_graph()``, the engine's
+           shapes flat once warm, µs/query per overlay size; count,
+           collect (k = 8) and a 6-gon batch at the largest overlay;
+           one sync compaction, one background compaction while batches
+           are served and 4 updates race each batch (the tail replayed,
+           ``last_error`` None after ``join``), a third one, each with
+           its K7 and K8 launches, seconds and device memory; a crash
+           injected at ``dynamic.compaction.mid_swap`` rolls back (the
+           same answers); device memory beyond the base's own tensors
+           flat across the three swaps and the crash; no host upload
+  cluster  ``ShardedEngine`` at 1, 4 and 8 shards on yelp x0.5 2dreach
+           and at 1 and 4 on x1.0 2dreach-comp (main's indexes and
+           workloads; 8 shards there cut for the script's time): the
+           fused and the two-phase answers to all 2,048 queries equal to
+           ``query_host`` and main's single-device engine; per batch S
+           K1 launches (plus S per ratchet re-run), or S K2 and S K3;
+           µs/query per S and path, the LPT balance, the common width
+           Pp and the stacks' bytes; ``shard_arenas`` of phase
+           device_build's forests equal to the host path's, K8 twice
+           per shard, one adoption; a ``Frontend`` (max_batch 256) over
+           2,048 submits from 4 threads, answers equal, its mean batch;
+           ``DynamicIndex(engine="cluster", n_shards=4)`` on yelp x1.0
+           2dreach-comp fed phase dynamic's updates, equal to its
+           host-engine index before and after one compaction
   timing   the launch floor (the profiler's device time of a
            one-element ``add_``, printed beside the serving kernels'
            bounds); at B=256 on yelp x1.0 comp: device time per launch
@@ -264,6 +296,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -370,8 +403,14 @@ TOLERANCE = dict.fromkeys(KERNELS, 0) | {"segment_bag": BAG_TOL}
 BAG_CHECK_ROWS = 512     # serve_bulk rows and bags held against the CPU
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0,
+                                                  1), **fields}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -1592,13 +1631,13 @@ def phase_main_batches(ks, engines, leafscan_ops):
 # (repro_torch.resilience)
 # --------------------------------------------------------------------------
 
-# phase paper, cut to stay inside the script's time: run.py's default
-# (not --full) settings, the four datasets at a quarter of their
-# synthetic size (--full: x0.5) and 400 Figure 3 queries per parameter
-# value (--full: 1,000); perf_build and perf_queries at their --smoke
-# configs
-PAPER_SCALE = 0.25
-PAPER_QUERIES = 400
+# phase paper, cut to stay inside the script's time with phases dynamic
+# and cluster: the four datasets at a tenth of their synthetic size
+# (run.py: x0.25, --full: x0.5) and 200 Figure 3 queries per parameter
+# value (run.py: 400, --full: 1,000); perf_build and perf_queries at
+# their --smoke configs
+PAPER_SCALE = 0.1
+PAPER_QUERIES = 200
 PERF_BUILD_CONFIG = ("yelp", 0.12)
 PERF_QUERIES_CONFIG = dict(dataset="yelp", scale=0.1, n_q=256, k=8,
                            repeats=2)
@@ -1834,6 +1873,461 @@ def phase_resilience(ks, engines, indexes):
                              "ns_each": per_hook * 1e9,
                              "batch_us": per_batch * 1e6,
                              "share_of_batch": share}
+    return out
+
+
+# --------------------------------------------------------------------------
+# The dynamic index (repro_torch.dynamic) and the cluster's sharded engine
+# and frontend (repro_torch.cluster)
+# --------------------------------------------------------------------------
+
+DYN_CONFIG = ("yelp", 1.0, "2dreach-comp")
+DYN_OVERLAYS = (0, 64, 256, 1024)     # perf_dynamic's checkpoints
+DYN_MIX = dict(p_query=0.0, p_edge=0.6, p_vertex=0.2, p_spatial=0.2)
+DYN_SEED = 7
+DYN_ORACLE = 64                       # queries held to the BFS oracle
+DYN_TAIL_OPS = 4                      # updates racing each served batch
+DYN_PRE_BG_OPS = 64                   # updates before the background one
+MEM_SLACK = 4 << 20                   # bytes "flat" allows beyond the base
+# the shard counts per index; S = 8 on x1.0 comp is cut to keep the
+# script inside its time
+CLUSTER_CONFIGS = ((("yelp", 0.5, "2dreach"), (1, 4, 8)),
+                   (("yelp", 1.0, "2dreach-comp"), (1, 4)))
+FRONTEND_THREADS = 4
+DYN_CLUSTER_SHARDS = 4
+
+
+def served(fn, us, rects):
+    """``fn`` over the workload in batches of BATCH, concatenated."""
+    return np.concatenate([fn(us[s:s + BATCH], rects[s:s + BATCH])
+                           for s in range(0, len(us), BATCH)])
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the distinct CUDA tensors among the attributes of
+    ``objs`` (and of the dicts and tuples they hold, one level down)."""
+    import torch
+
+    seen, total = set(), 0
+
+    def add(t):
+        nonlocal total
+        if isinstance(t, torch.Tensor) and t.is_cuda \
+                and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.untyped_storage().nbytes()
+
+    for o in objs:
+        for v in vars(o).values():
+            add(v)
+            for w in (v.values() if isinstance(v, dict) else
+                      v if isinstance(v, (tuple, list)) else ()):
+                for x in (w if isinstance(w, (tuple, list)) else (w,)):
+                    add(x)
+    return total
+
+
+def base_bytes(dyn) -> int:
+    """Device bytes of a dynamic index's base: its engine's arena,
+    pyramid, quantized planes, ids, routing side and padding buffers,
+    and its device build's handoff."""
+    eng = dyn.base_engine
+    return tensor_bytes(eng, eng._arena, eng._side, eng._padder,
+                        dyn.base_index.forest.device)
+
+
+def memory_level(dyn) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    total = torch.cuda.memory_allocated()
+    base = base_bytes(dyn)
+    return {"allocated": total, "base": base, "other": total - base}
+
+
+def phase_dynamic(ks):
+    """``DynamicIndex(engine="device")`` on yelp x1.0 2dreach-comp, built
+    with the device backend on the card (adopted, no upload), against the
+    port's host-engine ``DynamicIndex`` fed the same updates
+    (``streaming_workload``, perf_dynamic's update mix): 2,048 queries in
+    batches of BATCH at overlay sizes 0, 64, 256 and 1,024, every answer
+    equal, DYN_ORACLE of them held to the BFS oracle on
+    ``snapshot_graph()``, the engine's shapes flat once warm; count,
+    collect (k = 8) and one polygon batch at the largest overlay; one
+    sync compaction, one background compaction while batches are served
+    and updates race it (the tail replayed), a third one, and a crash
+    injected at ``dynamic.compaction.mid_swap`` (rolled back, the same
+    answers); K7 and K8 launches per compaction, no upload, device
+    memory beyond the base flat."""
+    from repro_torch.core import rangereach_oracle_batch
+    from repro_torch.core.engine import UPLOAD_COUNTERS
+    from repro_torch.data import (
+        apply_stream_op,
+        get_dataset,
+        polygon_workload,
+        streaming_workload,
+        workload,
+    )
+    from repro_torch.dynamic import NEVER, DynamicIndex
+    from repro_torch.resilience import (
+        FaultPlan,
+        FaultSpec,
+        InjectedFault,
+        inject,
+    )
+
+    ds, scale, method = DYN_CONFIG
+    name = f"{ds}x{scale} {method}"
+    g = get_dataset(ds, scale=scale)
+    us, rects = workload(g, N_QUERIES, extent_ratio=0.05)
+    ops = iter(streaming_workload(g, n_steps=8 * max(DYN_OVERLAYS),
+                                  seed=DYN_SEED, **DYN_MIX))
+    applied = []
+    uploads0 = UPLOAD_COUNTERS["host_uploads"]
+    ks.reset()
+    t0 = time.perf_counter()
+    dev = DynamicIndex(g, method, policy=NEVER, engine="device")
+    build_s = time.perf_counter() - t0
+    build_launches = ks.counts()
+    t0 = time.perf_counter()
+    host = DynamicIndex(g, method, policy=NEVER)
+    host_build_s = time.perf_counter() - t0
+    if dev.base_engine.stats["adopted"] != 1 or not (
+            build_launches["bitset_mm"] and build_launches["seg_mbr"]):
+        raise AssertionError(f"dynamic: base not adopted from a device "
+                             f"build: {build_launches}")
+    def update(n):
+        for _ in range(n):
+            op = next(ops)
+            apply_stream_op(dev, op)
+            apply_stream_op(host, op)
+            applied.append(op)
+
+    def check(what, sample=False):
+        got = served(dev.query_batch, us, rects)
+        want = host.query_batch(us, rects)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"dynamic {what}: device != host engine "
+                                 f"({int((got != want).sum())} answers)")
+        if sample:
+            gm = dev.snapshot_graph()
+            o = rangereach_oracle_batch(gm, us[:DYN_ORACLE],
+                                        rects[:DYN_ORACLE])
+            if not np.array_equal(o, got[:DYN_ORACLE]):
+                raise AssertionError(f"dynamic {what}: != BFS oracle")
+        return got
+
+    overlays = []
+    for target in DYN_OVERLAYS:
+        while dev.overlay_size < target:
+            update(1)
+        ans = check(f"overlay {target}", sample=True)   # warm-up pass
+        check(f"overlay {target} (2)")                  # ratchet settled
+        warm = dev.base_engine.n_compiles
+        ks.reset()
+        t0 = time.perf_counter()
+        served(dev.query_batch, us, rects)
+        dt = time.perf_counter() - t0
+        launches = ks.counts()
+        t0 = time.perf_counter()
+        host.query_batch(us, rects)
+        host_dt = time.perf_counter() - t0
+        if dev.base_engine.n_compiles != warm or not \
+                launches["fused_serve"]:
+            raise AssertionError(f"dynamic overlay {target}: shapes "
+                                 f"{warm} -> {dev.base_engine.n_compiles}, "
+                                 f"launches {launches}")
+        overlays.append({
+            "overlay_size": dev.overlay_size,
+            "us_per_query": dt / len(us) * 1e6,
+            "host_engine_us_per_query": host_dt / len(us) * 1e6,
+            "fused_serve_launches": launches["fused_serve"],
+            "n_compiles": warm, "hit_rate": float(ans.mean())})
+
+    # the analytics classes over base and overlay
+    pus, polys = polygon_workload(g, BATCH, n_edges=POLY_EDGES,
+                                  extent_ratio=0.05, seed=3)
+    u, r = us[:BATCH], rects[:BATCH]
+    ks.reset()
+    got = {"count": dev.count_batch(u, r),
+           "collect": dev.collect_batch(u, r, KNN_K),
+           "polygon": dev.polygon_batch(pus, list(polys))}
+    classes = ks.counts()
+    want = {"count": host.count_batch(u, r),
+            "collect": host.collect_batch(u, r, KNN_K),
+            "polygon": host.polygon_batch(pus, list(polys))}
+    for kind in got:
+        a, b = got[kind], want[kind]
+        same = (np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.counts, b.counts)
+                if kind == "collect" else np.array_equal(a, b))
+        if not same:
+            raise AssertionError(f"dynamic {kind}: device != host engine")
+    if not (classes["fused_serve"] and classes["prune_tiles"]
+            and classes["polygon_scan"]):
+        raise AssertionError(f"dynamic classes: launches {classes}")
+
+    def compaction(background):
+        """One compaction, with DYN_TAIL_OPS updates racing each batch
+        served while a background build runs."""
+        ks.reset()
+        t0 = time.perf_counter()
+        fg, tail = [], 0
+        if not dev.compact(background=background):
+            raise AssertionError("dynamic: a compaction was in flight")
+        s = 0
+        while dev.compacting:
+            b0 = time.perf_counter()
+            a = dev.query_batch(us[s:s + BATCH], rects[s:s + BATCH])
+            fg.append((time.perf_counter() - b0) / BATCH * 1e6)
+            if not np.array_equal(a, host.query_batch(
+                    us[s:s + BATCH], rects[s:s + BATCH])):
+                raise AssertionError("dynamic: answers during the build")
+            update(DYN_TAIL_OPS)
+            tail += DYN_TAIL_OPS
+            s = (s + BATCH) % len(us)
+        dev.join_compaction(timeout=600)        # re-raises a failure
+        seconds = time.perf_counter() - t0
+        if dev.compaction_error is not None:
+            raise AssertionError(f"dynamic: {dev.compaction_error!r}")
+        n = ks.counts()
+        if len(dev._oplog) != tail or dev.base_engine.stats["adopted"] != 1:
+            raise AssertionError(f"dynamic: tail {len(dev._oplog)} of "
+                                 f"{tail} replayed")
+        check("after the swap", sample=True)
+        return {"seconds": seconds, "build_seconds":
+                dev.stats["t_last_compaction"],
+                "bitset_mm": n["bitset_mm"], "seg_mbr": n["seg_mbr"],
+                "fused_serve_foreground": n["fused_serve"],
+                "tail_replayed": tail, "foreground_batches": len(fg),
+                "foreground_us_per_query": fg,
+                "entries": int(len(dev.base_index.forest.entries)),
+                "memory": memory_level(dev)}
+
+    comps = [compaction(False)]
+    update(DYN_PRE_BG_OPS)
+    comps.append(compaction(True))
+    if not comps[1]["foreground_batches"]:
+        raise AssertionError("dynamic: no batch served during the build")
+    comps.append(compaction(False))
+    if any(not (c["bitset_mm"] and c["seg_mbr"]) for c in comps):
+        raise AssertionError(f"dynamic: a compaction did not build on the "
+                             f"card: {comps}")
+
+    # a crash inside the swap rolls back: the same answers, the failed
+    # swap's new engine freed
+    update(DYN_PRE_BG_OPS)
+    before = check("before the crash")
+    mem_before = memory_level(dev)
+    with inject(FaultPlan(FaultSpec("dynamic.compaction.mid_swap",
+                                    kind="raise"))):
+        try:
+            dev.compact(background=False)
+        except InjectedFault:
+            pass
+        else:
+            raise AssertionError("dynamic: the injected crash did not fire")
+    if not np.array_equal(check("after the crash"), before) or \
+            dev.stats["n_compactions"] != len(comps):
+        raise AssertionError("dynamic: the crashed swap changed answers")
+    mem_crash = memory_level(dev)
+    flat = [c["memory"]["other"] - comps[0]["memory"]["other"]
+            for c in comps[1:]] + [mem_crash["other"]
+                                   - comps[0]["memory"]["other"],
+                                   mem_crash["allocated"]
+                                   - mem_before["allocated"]]
+    if max(flat) > MEM_SLACK:
+        raise AssertionError(f"dynamic: device memory beyond the base "
+                             f"grew {flat} bytes")
+    uploads = UPLOAD_COUNTERS["host_uploads"] - uploads0
+    if uploads:
+        raise AssertionError(f"dynamic: {uploads} host uploads")
+    out = {"config": name, "build_seconds": build_s,
+           "host_engine_build_seconds": host_build_s,
+           "build_launches": {k: v for k, v in build_launches.items() if v},
+           "overlays": overlays, "class_launches": {
+               k: v for k, v in classes.items() if v},
+           "compactions": comps, "crash": {"memory_before": mem_before,
+                                           "memory_after": mem_crash},
+           "memory_growth_beyond_base": flat, "host_uploads": uploads,
+           "stats": {k: v for k, v in dev.report().items()
+                     if isinstance(v, (int, float))}}
+    return out, host, applied
+
+
+def phase_cluster(ks, engines, indexes, built, dyn_host, dyn_ops):
+    """``ShardedEngine`` on the card at S = 1, 4 and 8 shards over yelp
+    x0.5 2dreach (base) and at S = 1 and 4 over x1.0 2dreach-comp (phase
+    main's indexes and workloads): fused and two-phase answers to all 2,048 queries equal to
+    ``query_host`` and to main's single-device engine; per batch S K1
+    launches (plus S per ratchet re-run), or S K2 and S K3; balance, the
+    common width Pp and the stacks' bytes.  ``shard_arenas`` of the
+    device-built forest (phase device_build) equal to the host path's:
+    K8 twice per shard (the fine and the coarse level), one adoption.
+    A ``Frontend`` (max_batch 256) over 2,048 submits from
+    FRONTEND_THREADS threads.  ``DynamicIndex(engine="cluster")`` fed
+    phase dynamic's updates, against its host-engine index, across one
+    compaction."""
+    import torch
+
+    from repro_torch.cluster import (
+        Frontend,
+        ShardedEngine,
+        partition_forest,
+        shard_arenas,
+    )
+    from repro_torch.core import query_host
+    from repro_torch.core.engine import UPLOAD_COUNTERS
+    from repro_torch.data import (
+        apply_stream_op,
+        get_dataset,
+        workload,
+    )
+    from repro_torch.dynamic import NEVER, DynamicIndex
+
+    names = ["{}x{} {}".format(*c) for c, _ in CLUSTER_CONFIGS]
+    out = {"engines": [], "shard_arenas": [], "frontend": None}
+    for name, (_, shard_counts) in zip(names, CLUSTER_CONFIGS):
+        g, method, idx, host_reach, _ = indexes[name]
+        eng, us, rects = engines[name]
+        exc = idx.excluded[us]
+        tid = np.full(len(us), -1, np.int64)
+        tid[~exc] = idx.lookup_tree(us[~exc])
+        routed = tid >= 0
+        if not np.array_equal(query_host(idx.forest, tid[routed],
+                                         rects[routed]),
+                              host_reach[routed]):
+            raise AssertionError(f"cluster {name}: host index != query_host")
+        single = served(eng.query_batch, us, rects)
+        if not np.array_equal(single, host_reach):
+            raise AssertionError(f"cluster {name}: QueryEngine != host")
+        for S in shard_counts:
+            t0 = time.perf_counter()
+            se = ShardedEngine(idx, n_shards=S)
+            rec = {"index": name, "shards": S,
+                   "setup_seconds": time.perf_counter() - t0,
+                   "balance": se.partition.balance(), "width": se.width,
+                   "n_tiles": se.n_tiles,
+                   "shard_entries": se.partition.shard_entries.tolist(),
+                   "stack_bytes": se.nbytes_planes}
+            for path, fn in (("fused", se.query_batch),
+                             ("two_phase", se.query_batch_two_phase)):
+                if not np.array_equal(served(fn, us, rects), host_reach):
+                    raise AssertionError(f"cluster {name} S={S} {path}: "
+                                         f"!= query_host")
+                reruns = se.stats["fused_reruns"]
+                ks.reset()
+                t0 = time.perf_counter()
+                got = served(fn, us, rects)
+                dt = time.perf_counter() - t0
+                n = ks.counts()
+                batches = -(-len(us) // BATCH)
+                reruns = se.stats["fused_reruns"] - reruns
+                want = ({"fused_serve": S * (batches + reruns)}
+                        if path == "fused" else
+                        {"prune_tiles": S * batches,
+                         "descent_scan": S * batches})
+                want = {**dict.fromkeys(KERNELS, 0), **want}
+                if not np.array_equal(got, single) or n != want:
+                    raise AssertionError(f"cluster {name} S={S} {path}: "
+                                         f"launches {n}, expected {want}")
+                rec[path] = {"us_per_query": dt / len(us) * 1e6,
+                             "launches": {k: v for k, v in n.items() if v},
+                             "reruns": reruns}
+            rec["stats"] = {k: int(v) for k, v in se.stats.items()}
+            out["engines"].append(rec)
+            del se
+        # the device path of shard_arenas, from phase device_build's
+        # forest
+        dforest = built[name].forest
+        for S in shard_counts:
+            part = partition_forest(idx.forest, S)
+            want = shard_arenas(idx.forest, part)
+            before = dict(UPLOAD_COUNTERS)
+            ks.reset()
+            got = shard_arenas(dforest, partition_forest(dforest, S))
+            torch.cuda.synchronize()
+            n = ks.counts()
+            moved = {k: UPLOAD_COUNTERS[k] - before[k] for k in before}
+            if n["seg_mbr"] != 2 * S or moved != {"host_uploads": 0,
+                                                   "device_adoptions": 1}:
+                raise AssertionError(f"cluster {name} S={S} shard_arenas: "
+                                     f"launches {n}, {moved}")
+            for a, b in zip(got[:3], want[:3]):
+                if not np.array_equal(a.cpu().numpy(), b):
+                    raise AssertionError(f"cluster {name} S={S}: device "
+                                         f"shard_arenas != host path")
+            out["shard_arenas"].append({"index": name, "shards": S,
+                                        "seg_mbr": n["seg_mbr"],
+                                        "adoption": moved})
+            del got, want
+
+    # the frontend over the x1.0 comp sharded engine, four submitters
+    name = names[1]
+    eng, us, rects = engines[name]
+    host_reach = indexes[name][3]
+    se = ShardedEngine(indexes[name][2], n_shards=DYN_CLUSTER_SHARDS)
+    answers = np.zeros(len(us), dtype=bool)
+    errs = []
+
+    with Frontend(se, max_batch=BATCH, max_delay=2e-3) as fe:
+        fe.warmup(us[:BATCH], rects[:BATCH])
+
+        def submit(k):
+            try:
+                sl = range(k, len(us), FRONTEND_THREADS)
+                futs = [(i, fe.submit(int(us[i]), rects[i])) for i in sl]
+                for i, f in futs:
+                    answers[i] = f.result(timeout=120)
+            except BaseException as e:       # raised below, in this thread
+                errs.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(k,))
+                   for k in range(FRONTEND_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        dt = time.perf_counter() - t0
+        stats = dict(fe.stats)
+        mean_batch = fe.mean_batch
+    if errs or any(t.is_alive() for t in threads) or \
+            not np.array_equal(answers, host_reach):
+        raise AssertionError(f"cluster frontend: {errs[:1]}, "
+                             f"{int((answers != host_reach).sum())} wrong")
+    out["frontend"] = {"index": name, "shards": se.n_shards,
+                       "threads": FRONTEND_THREADS, "requests": len(us),
+                       "seconds": dt, "mean_batch": mean_batch,
+                       "stats": stats}
+    del se
+
+    # the dynamic index on the sharded base, fed phase dynamic's updates
+    ds, scale, method = DYN_CONFIG
+    g = get_dataset(ds, scale=scale)
+    dus, drects = workload(g, N_QUERIES, extent_ratio=0.05)
+    t0 = time.perf_counter()
+    dyn = DynamicIndex(g, method, policy=NEVER, engine="cluster",
+                       n_shards=DYN_CLUSTER_SHARDS)
+    for op in dyn_ops:
+        apply_stream_op(dyn, op)
+    want = dyn_host.query_batch(dus, drects)
+    ks.reset()
+    before = served(dyn.query_batch, dus, drects)
+    n_before = ks.counts()
+    dyn.compact(background=False)
+    after = served(dyn.query_batch, dus, drects)
+    if not (np.array_equal(before, want) and np.array_equal(after, want)
+            and n_before["fused_serve"]
+            and dyn.base_engine.stats["adopted"] == 1):
+        raise AssertionError(f"cluster dynamic: answers or launches "
+                             f"{n_before}")
+    out["dynamic"] = {"config": f"{ds}x{scale} {method}",
+                      "shards": dyn.base_engine.n_shards,
+                      "updates": len(dyn_ops),
+                      "seconds": time.perf_counter() - t0,
+                      "fused_serve_launches": n_before["fused_serve"],
+                      "n_compactions": dyn.stats["n_compactions"]}
     return out
 
 
@@ -3873,7 +4367,6 @@ def main() -> int:
                                                           engines)
     leafscan, ls_ops, k9_calls, errs4 = phase_legacy(ks, indexes, built,
                                                      results, engines)
-    del built
     for k, v in (*errs4.items(),
                  *phase_main_batches(ks, engines, ls_ops).items()):
         errs[k] = max(errs[k], v)
@@ -3881,6 +4374,11 @@ def main() -> int:
     emit("paper", ok=True, **paper)
     resil = phase_resilience(ks, engines, indexes)
     emit("resilience", ok=True, **resil)
+    dyn, dyn_host, dyn_ops = phase_dynamic(ks)
+    emit("dynamic", ok=True, **dyn)
+    clu = phase_cluster(ks, engines, indexes, built, dyn_host, dyn_ops)
+    emit("cluster", ok=True, **clu)
+    del built, dyn_host, dyn_ops
 
     per_mode, two, floor = phase_timing(ks, engines, card)
     slice3, errs3 = phase_timing_slice3(ks, engines, indexes, largest,
@@ -3927,6 +4425,33 @@ def main() -> int:
         for k, n in resil[case]["launches"].items():
             if n:
                 per_path[k][f"{resil['engine']} resilience {case}"] = n
+    for k, n in dyn["build_launches"].items():
+        per_path[k][f"{dyn['config']} dynamic build"] = n
+    for r in dyn["overlays"]:
+        per_path["fused_serve"][
+            f"{dyn['config']} dynamic overlay {r['overlay_size']}"] = \
+            r["fused_serve_launches"]
+    for k, n in dyn["class_launches"].items():
+        per_path[k][f"{dyn['config']} dynamic count/collect/polygon"] = n
+    for i, c in enumerate(dyn["compactions"]):
+        per_path["bitset_mm"][f"{dyn['config']} dynamic compaction {i}"] = \
+            c["bitset_mm"]
+        per_path["seg_mbr"][f"{dyn['config']} dynamic compaction {i}"] = \
+            c["seg_mbr"]
+        if c["fused_serve_foreground"]:
+            per_path["fused_serve"][
+                f"{dyn['config']} dynamic compaction {i} foreground"] = \
+                c["fused_serve_foreground"]
+    for r in clu["engines"]:
+        for path in ("fused", "two_phase"):
+            for k, n in r[path]["launches"].items():
+                per_path[k][f"{r['index']} cluster S={r['shards']} "
+                            f"{path}"] = n
+    for r in clu["shard_arenas"]:
+        per_path["seg_mbr"][f"{r['index']} shard_arenas S={r['shards']}"] = \
+            r["seg_mbr"]
+    per_path["fused_serve"][f"{clu['dynamic']['config']} cluster dynamic"] \
+        = clu["dynamic"]["fused_serve_launches"]
     per_path["segment_bag"] = bag_paths
     emit("timers", **TIMERS)
     timed = {"fused_serve": per_mode["reach"], **two, **slice3,

@@ -9,6 +9,8 @@
   stage by stage, with the zero-copy handoff gate;
 * :mod:`~repro_torch.benchmarks.perf_queries` — host, fused and
   two-phase serving per query class;
+* :mod:`~repro_torch.benchmarks.perf_dynamic` — the dynamic index's
+  latency against its overlay size and its compaction's cost;
 * :mod:`~repro_torch.benchmarks.obs_overhead` — the analytic gate on the
   disabled obs and fault hooks' cost;
 * :mod:`~repro_torch.benchmarks.run` — the tables and Figure 3 in one

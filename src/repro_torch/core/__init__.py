@@ -3,10 +3,18 @@ device builds and the device query engine, and the baselines.
 
 Public API:
     build_index(graph, method) / batch_query(index, us, rects, engine=)
+    build_dynamic_index(graph, method, policy=, engine=)
     run_queries(index, program, engine=) / index_nbytes(index)
 """
 
-from .api import METHODS, batch_query, build_index, index_nbytes, run_queries
+from .api import (
+    METHODS,
+    batch_query,
+    build_dynamic_index,
+    build_index,
+    index_nbytes,
+    run_queries,
+)
 from .condensation import Condensation, condense
 from .engine import QueryEngine, engine_for
 from .georeach import GeoReachIndex, build_georeach
@@ -42,7 +50,8 @@ from .three_d_reach import ThreeDReachIndex, build_3dreach
 from .two_d_reach import BitRank, TwoDReachIndex, build_2dreach
 
 __all__ = [
-    "METHODS", "batch_query", "build_index", "index_nbytes", "run_queries",
+    "METHODS", "batch_query", "build_dynamic_index", "build_index",
+    "index_nbytes", "run_queries",
     "Condensation", "condense",
     "QueryEngine", "engine_for",
     "GeoReachIndex", "build_georeach",

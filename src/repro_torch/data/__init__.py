@@ -1,5 +1,5 @@
 """Data: synthetic LBSN graphs shaped to the paper's datasets and the
-RangeReach query workloads, and the recsys input pipeline (copies of
+RangeReach query and update workloads, and the recsys input pipeline (copies of
 ``repro.data``'s generators)."""
 
 from .lbsn import SPECS, LBSNSpec, dataset_stats, generate_lbsn
@@ -12,9 +12,12 @@ from .queries import (
     REGION_EXTENT_DEFAULT,
     REGION_EXTENT_VALUES,
     SELECTIVITY_VALUES,
+    STREAM_OP_KINDS,
+    apply_stream_op,
     knn_workload,
     polygon_workload,
     region_for_extent,
+    streaming_workload,
     workload,
 )
 from .pipeline import ShardInfo, din_batches
@@ -24,9 +27,9 @@ __all__ = [
     "SPECS", "LBSNSpec", "dataset_stats", "generate_lbsn",
     "DEGREE_BUCKETS", "DEGREE_DEFAULT", "KNN_DEFAULT_K",
     "POLYGON_EDGE_VALUES", "POLYGON_EDGES_DEFAULT", "REGION_EXTENT_DEFAULT",
-    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "knn_workload",
-    "polygon_workload",
-    "region_for_extent", "workload",
+    "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "STREAM_OP_KINDS",
+    "apply_stream_op", "knn_workload", "polygon_workload",
+    "region_for_extent", "streaming_workload", "workload",
     "ShardInfo", "din_batches",
     "dataset_names", "get_dataset",
 ]

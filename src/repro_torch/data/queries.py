@@ -1,7 +1,8 @@
 """RangeReach query-workload generators — the paper's parameters.
 
-A copy of the RangeReach, kNN and polygon parts of ``repro.data.queries``:
-the same seeds give the same query vertices, regions and focus points.
+A copy of the RangeReach, kNN, polygon and streaming parts of
+``repro.data.queries``: the same seeds give the same query vertices,
+regions, focus points and update streams.
 
 * region extent ratio   — query region area as a percentage of the global
                           spatial extent (1/2/5/10/20 %, default 5%).
@@ -141,6 +142,91 @@ def polygon_workload(
             [cx + rx * np.cos(ang), cy + ry * np.sin(ang)], axis=1
         ).astype(np.float32))
     return us.astype(np.int64), tuple(polys)
+
+
+STREAM_OP_KINDS = ("query", "add_edge", "add_vertex", "add_spatial")
+
+
+def streaming_workload(
+    g: GeosocialGraph,
+    n_steps: int = 1000,
+    seed: int = 0,
+    p_query: float = 0.5,
+    p_edge: float = 0.3,
+    p_vertex: float = 0.1,
+    p_spatial: float = 0.1,
+    extent_ratio: float = REGION_EXTENT_DEFAULT,
+    new_spatial_frac: float = 0.5,
+):
+    """Generate a serving-node stream interleaving updates and queries.
+
+    Yields one op tuple per step, against the *mutating* graph (the
+    generator tracks vertices it created so updates and queries target
+    them too):
+
+    * ``("query", u, rect)``          — RangeReach probe; ``rect`` is a
+      (4,) float32 region with area ``extent_ratio`` of the extent.
+    * ``("add_edge", s, t)``          — new social/check-in edge.
+    * ``("add_vertex", coords|None)`` — new user (None) or venue (x, y).
+    * ``("add_spatial", v, (x, y))``  — check-in: existing non-spatial
+      vertex v acquires a coordinate.
+
+    The op mix is ``p_query/p_edge/p_vertex/p_spatial`` (normalised).
+    ``add_spatial`` falls back to ``add_edge`` once every vertex is
+    spatial.  Feed the ops to :class:`repro_torch.dynamic.DynamicIndex`
+    with :func:`apply_stream_op`.
+    """
+    rng = np.random.default_rng(seed)
+    probs = np.array([p_query, p_edge, p_vertex, p_spatial], dtype=np.float64)
+    probs = probs / probs.sum()
+    ext = g.spatial_extent()
+    w = max(float(ext[2] - ext[0]), 1e-3)
+    h = max(float(ext[3] - ext[1]), 1e-3)
+
+    n = g.n_nodes
+    nonspatial = list(np.nonzero(~g.spatial_mask)[0])
+
+    def rand_xy():
+        return (float(ext[0] + rng.random() * w),
+                float(ext[1] + rng.random() * h))
+
+    for _ in range(n_steps):
+        kind = STREAM_OP_KINDS[int(rng.choice(4, p=probs))]
+        if kind == "add_spatial" and not nonspatial:
+            kind = "add_edge"
+        if kind == "query":
+            u = int(rng.integers(0, n))
+            rect = region_for_extent(g, extent_ratio, 1, rng)[0]
+            yield ("query", u, rect)
+        elif kind == "add_edge":
+            s = int(rng.integers(0, n))
+            t = int(rng.integers(0, n))
+            yield ("add_edge", s, t)
+        elif kind == "add_vertex":
+            if rng.random() < new_spatial_frac:
+                yield ("add_vertex", rand_xy())
+            else:
+                nonspatial.append(n)
+                yield ("add_vertex", None)
+            n += 1
+        else:  # add_spatial
+            i = int(rng.integers(0, len(nonspatial)))
+            v = int(nonspatial.pop(i))
+            yield ("add_spatial", v, rand_xy())
+
+
+def apply_stream_op(index, op):
+    """Apply one ``streaming_workload`` op to a DynamicIndex-compatible
+    consumer; returns the (u, rect) pair for query ops, else None."""
+    if op[0] == "query":
+        return op[1], op[2]
+    if op[0] == "add_edge":
+        index.add_edge(op[1], op[2])
+    elif op[0] == "add_vertex":
+        index.add_vertex(op[1])
+    else:
+        index.add_spatial(op[1], op[2])
+    return None
 
 
 def workload(

@@ -15,7 +15,10 @@ the leaf-scan and wavefront engines on the card against the host
 descent, the two pyramid prunes (K1, K2) on slices of every kind
 (disjoint, nested, degenerate, one over the whole arena) at B = 8 to
 2048 and on the yelp x0.5 base arena's 77,440 tiles, an out-of-range
-vertex id that must leave the card usable, the resilient engine on the
+vertex id that must leave the card usable, the cluster's sharded engine
+on the card at 1, 4 and 8 shards (one K1, or one K2 and one K3, per
+shard a batch) and its shard stacks gathered from a device build, the
+dynamic index's device engine on the card, the resilient engine on the
 card (healthy: every class on the kernels with no fallback; retries
 spent with ``degraded_path="two_phase"``: one K2 and one K3 launch for
 the batch), the boolean sweep closure on the card against its CPU run,
@@ -1222,3 +1225,81 @@ def test_din_on_card_matches_cpu(cuda, no_tf32, fn):
         want = din.score_candidates(cpu, batch, cfg, chunk=16)
     assert got.shape == (64,) and torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The cluster's sharded engine and the dynamic index on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_sharded_engine_on_card(cuda, S):
+    """Both paths on the card equal the host index at S shards: K1 once
+    per shard a fused batch (plus S per ratchet re-run), K2 and K3 once
+    per shard a two-phase batch."""
+    from repro_torch.cluster import ShardedEngine
+
+    g = get_dataset("yelp", scale=0.1)
+    idx = build_index(g, "2dreach-comp")
+    eng = ShardedEngine(idx, n_shards=S, device=cuda)
+    us, rects = workload(g, 512, extent_ratio=0.05, seed=3)
+    want = idx.query_batch(us, rects)
+    for b in range(0, 512, 256):
+        k1, reruns = F.fused_serve.launches, eng.stats["fused_reruns"]
+        assert np.array_equal(eng.query_batch(us[b:b + 256],
+                                              rects[b:b + 256]),
+                              want[b:b + 256])
+        assert F.fused_serve.launches - k1 == S * (
+            1 + eng.stats["fused_reruns"] - reruns)
+        k2, k3 = D.prune_tiles.launches, D.descent_scan.launches
+        assert np.array_equal(eng.query_batch_two_phase(
+            us[b:b + 256], rects[b:b + 256]), want[b:b + 256])
+        assert (D.prune_tiles.launches - k2, D.descent_scan.launches - k3) \
+            == (S, S)
+
+
+def test_shard_arenas_device_path_on_card(cuda):
+    """A forest built on the card: its shard stacks gathered and reduced
+    there (K8 twice per shard: the fine and the coarse level) equal the
+    host path's, with one adoption and no upload."""
+    from repro_torch.cluster import partition_forest, shard_arenas
+
+    g = get_dataset("yelp", scale=0.1)
+    host = build_index(g, "2dreach-comp")
+    dev = build_index(g, "2dreach-comp", backend="device", device=cuda)
+    for S in (1, 4, 8):
+        want = shard_arenas(host.forest, partition_forest(host.forest, S))
+        k8 = FB.seg_mbr.launches
+        up = UPLOAD_COUNTERS["host_uploads"]
+        got = shard_arenas(dev.forest, partition_forest(dev.forest, S))
+        assert FB.seg_mbr.launches - k8 == 2 * S
+        assert UPLOAD_COUNTERS["host_uploads"] == up
+        for a, b in zip(got[:3], want[:3]):
+            assert a.is_cuda and np.array_equal(a.cpu().numpy(), b)
+
+
+def test_dynamic_index_device_engine_on_card(cuda):
+    """DynamicIndex(engine="device") on the card answers as the host
+    engine's across a compaction, with every base adopted (no upload)."""
+    from repro_torch.core import build_dynamic_index
+    from repro_torch.data import apply_stream_op, streaming_workload
+    from repro_torch.dynamic import NEVER
+
+    g = get_dataset("yelp", scale=0.1)
+    up = UPLOAD_COUNTERS["host_uploads"]
+    dev = build_dynamic_index(g, "2dreach-comp", policy=NEVER,
+                              engine="device", device=cuda)
+    host = build_dynamic_index(g, "2dreach-comp", policy=NEVER)
+    us, rects = workload(g, 256, extent_ratio=0.05, seed=5)
+    for op in streaming_workload(g, n_steps=200, seed=5, p_query=0.0,
+                                 p_edge=0.6, p_vertex=0.2, p_spatial=0.2):
+        apply_stream_op(dev, op)
+        apply_stream_op(host, op)
+    assert np.array_equal(dev.query_batch(us, rects),
+                          host.query_batch(us, rects))
+    assert np.array_equal(dev.count_batch(us, rects),
+                          host.count_batch(us, rects))
+    dev.compact(background=False)
+    assert dev.base_engine.stats["adopted"] == 1
+    assert np.array_equal(dev.query_batch(us, rects),
+                          host.query_batch(us, rects))
+    assert UPLOAD_COUNTERS["host_uploads"] == up

@@ -162,8 +162,8 @@ def test_batch_query_device_on_port_build(graphs, ref_indexes, variant):
     assert (got == batch_query(idx, us, rects)).all()
     assert (got == R.batch_query(ref_indexes[variant], us, rects)).all()
     assert engine_for(idx, device="cpu") is engine_for(idx, device="cpu")
-    with pytest.raises(NotImplementedError):
-        batch_query(idx, us, rects, engine="cluster")
+    assert (batch_query(idx, us, rects, engine="cluster", device="cpu")
+            == got).all()
     tri = np.array([[0, 0], [1, 0], [0, 1]], np.float32)
     assert not QueryEngine(idx, device="cpu", path="two_phase").polygon_batch(
         us, [tri - 1e6] * len(us)).any()          # a region far away
