@@ -1,5 +1,6 @@
 """The paper's benchmark harness on the port (the port of the reference's
-``benchmarks/`` scripts that the port can run today).
+``benchmarks/`` scripts, all but ``roofline.py`` and ``hlo_stats.py``,
+which read the LM/GNN dry runs).
 
 * :mod:`~repro_torch.benchmarks.paper_tables` — Tables 2-4 (graph
   statistics, build time, index size) and the paper's claims on them;
@@ -9,12 +10,19 @@
   stage by stage, with the zero-copy handoff gate;
 * :mod:`~repro_torch.benchmarks.perf_queries` — host, fused and
   two-phase serving per query class;
+* :mod:`~repro_torch.benchmarks.perf_rangereach` — the RangeReach
+  engines (host, wavefront, K9 leaf scan, device, cluster) per query,
+  the degraded arm, and the closure by scatter-OR, MXU product and K7;
+* :mod:`~repro_torch.benchmarks.chaos_flight` — the gate that a
+  chaos-driven SLO burn freezes a replayable flight bundle;
+* :mod:`~repro_torch.benchmarks.regress` — the ``BENCH_*.json`` runs
+  against a history of the port's own, with the ratio gates;
 * :mod:`~repro_torch.benchmarks.perf_dynamic` — the dynamic index's
   latency against its overlay size and its compaction's cost;
 * :mod:`~repro_torch.benchmarks.obs_overhead` — the analytic gate on the
   disabled obs and fault hooks' cost;
-* :mod:`~repro_torch.benchmarks.run` — the tables and Figure 3 in one
-  report.
+* :mod:`~repro_torch.benchmarks.run` — the tables, Figure 3 and the
+  kernel microbenches in one report.
 
 Run one with ``PYTHONPATH=src python -m repro_torch.benchmarks.<name>``.
 Each writes only under ``results/torch/`` of the checkout.  The device

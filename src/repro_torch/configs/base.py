@@ -5,9 +5,10 @@ An ``ArchSpec`` names an architecture, its family, a config factory (full
 or reduced), and its shape cells.  A ``Cell`` knows how to produce, for
 one device:
 
-    fn         — the step to run (serve / retrieval scoring)
+    fn         — the step to run (train step / serve / retrieval scoring)
     args       — its inputs as ``meta`` tensors: shapes and dtypes, no
-                 storage (the reference's ``ShapeDtypeStruct``s)
+                 storage (the reference's ``ShapeDtypeStruct``s); a train
+                 cell's are the parameters, the AdamW state and a batch
 
 The reference also attaches a mesh sharding to each input; the port
 serves from one device, so a cell carries none.
@@ -79,12 +80,16 @@ def _din_builder(cfg_fn, shape: str):
     def build():
         from ..models.recsys import din
 
-        if s["kind"] == "train":
-            raise NotImplementedError(
-                f"{shape}: the training step comes with the port of "
-                f"train/ (ROADMAP Queue 1, item 13)")
         cfg = cfg_fn()
         p_meta = din.param_shapes(cfg)
+        if s["kind"] == "train":
+            from ..train import AdamWConfig, adamw_init, make_train_step
+
+            o_meta = adamw_init(p_meta)
+            b_meta = _din_batch_meta(s["batch"], cfg.seq_len)
+            step = make_train_step(
+                lambda p, b: (din.loss_fn(p, b, cfg), {}), AdamWConfig())
+            return step, (p_meta, o_meta, b_meta)
         if s["kind"] == "serve":
             b_meta = _din_batch_meta(s["batch"], cfg.seq_len,
                                      with_label=False)

@@ -12,6 +12,9 @@ compare array for array.
 reference (JAX arrays or NumPy) into this package's: the same nested
 dict, with each array as a tensor.  Both keep a dense layer as ``w``
 ``(d_in, d_out)`` and ``b``, so nothing is transposed.
+:func:`adamw_state_from_jax` carries the reference's AdamW state (its
+step and moments) across the same way, so training can continue from a
+state that is not zero.
 """
 
 from __future__ import annotations
@@ -148,9 +151,25 @@ def din_params_from_jax(tree, device: DeviceLike = None):
     if set(tree) != _DIN_KEYS:
         raise ValueError(f"not a DIN parameter tree: keys {sorted(tree)}")
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return torch.as_tensor(np.array(node), device=dev)
+    return _tree_from_jax(tree, dev)
 
-    return conv(tree)
+
+def _tree_from_jax(node, dev: torch.device):
+    if isinstance(node, dict):
+        return {k: _tree_from_jax(v, dev) for k, v in node.items()}
+    return torch.as_tensor(np.array(node), device=dev)
+
+
+def adamw_state_from_jax(state, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.train.AdamWState` from the
+    reference's ``repro.train.optim.AdamWState`` (``step`` and the
+    moment trees ``m``, ``v`` of arrays), on ``device`` (``None``: the
+    GPU): the step as an int32 scalar, the moments as float32
+    tensors."""
+    from .train.optim import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = state
+    return AdamWState(
+        step=torch.as_tensor(np.array(step, np.int32), device=dev),
+        m=_tree_from_jax(m, dev), v=_tree_from_jax(v, dev))

@@ -1,8 +1,8 @@
 """RangeReach query-workload generators — the paper's parameters.
 
-A copy of the RangeReach, kNN, polygon and streaming parts of
-``repro.data.queries``: the same seeds give the same query vertices,
-regions, focus points and update streams.
+A copy of ``repro.data.queries``: the same seeds give the same query
+vertices, regions, focus points and update streams (RangeReach, kNN,
+polygon, Zipf-skewed and streaming workloads).
 
 * region extent ratio   — query region area as a percentage of the global
                           spatial extent (1/2/5/10/20 %, default 5%).
@@ -142,6 +142,40 @@ def polygon_workload(
             [cx + rx * np.cos(ang), cy + ry * np.sin(ang)], axis=1
         ).astype(np.float32))
     return us.astype(np.int64), tuple(polys)
+
+
+ZIPF_DEFAULT_S = 1.2
+
+
+def zipf_workload(
+    g: GeosocialGraph,
+    n_queries: int = 1000,
+    s: float = ZIPF_DEFAULT_S,
+    extent_ratio: float = REGION_EXTENT_DEFAULT,
+    seed: int = 0,
+    max_ranks: int = 100_000,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(us, rects) with Zipf(s)-skewed query vertices, the workload the
+    heavy-hitter analytics and the hot-shard placement report are for.
+
+    Vertices are ranked by out-degree, descending (popular users are
+    popular query subjects), and rank ``r`` is drawn with probability
+    proportional to ``r^-s``; at the default ``s=1.2`` a handful of
+    vertices dominate the stream.  Regions follow the paper's
+    region-extent method (uniform centres).  ``s <= 0`` raises a
+    ``ValueError``."""
+    if s <= 0:
+        raise ValueError(f"zipf exponent must be > 0, got {s}")
+    rng = np.random.default_rng(seed)
+    deg = g.out_degree()
+    n_ranks = min(g.n_nodes, int(max_ranks))
+    # stable sort so equal-degree vertices rank deterministically
+    ranked = np.argsort(-deg, kind="stable")[:n_ranks]
+    p = np.arange(1, n_ranks + 1, dtype=np.float64) ** -float(s)
+    p /= p.sum()
+    us = ranked[rng.choice(n_ranks, size=n_queries, p=p)]
+    rects = region_for_extent(g, extent_ratio, n_queries, rng)
+    return us.astype(np.int64), rects
 
 
 STREAM_OP_KINDS = ("query", "add_edge", "add_vertex", "add_spatial")

@@ -21,6 +21,13 @@ into such tensors.
   tensor it runs :func:`bitset_mm_torch`.
 * :func:`bitset_mm_torch` — the plain version, a port of
   ``bitset_mm_ref``: unpack, float32 matrix product, threshold, pack.
+* :func:`bitset_mm_mxu` — the port of the reference's MXU product
+  (``_mxu_step``, a plain product outside any Pallas kernel): unpack to
+  bf16, ``torch.matmul``, threshold, pack.  It trades 32x the operands'
+  bytes for the tensor cores' rate.
+* :func:`closure_fixpoint` — ``R <- OWN | A.R`` iterated until no row
+  changes: the unscheduled closure, each step by :func:`bitset_mm` (K7)
+  or :func:`bitset_mm_mxu`.
 """
 
 from __future__ import annotations
@@ -131,3 +138,51 @@ def bitset_mm(
 
 
 bitset_mm.launches = 0
+
+
+def bitset_mm_mxu(a_bits: torch.Tensor, r_bits: torch.Tensor, *,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """(f, W) int32 packed OR-AND product (the contract of
+    :func:`bitset_mm`) as a dense matrix product: the bits unpacked to
+    bf16 0/1, one ``torch.matmul`` (float32 accumulation on the card),
+    ``> 0``, packed.  Every term is 0 or 1, so a positive count stays
+    positive in any precision, and any count works.  ``device``
+    (``None``: the GPU) must be where the tensors lie."""
+    dev = resolve_device(device)
+    if not same_device(a_bits.device, dev):
+        raise ValueError(f"a_bits lies on {a_bits.device}, expected {dev}")
+    m, W = r_bits.shape
+    if m > 32 * a_bits.shape[1]:
+        raise ValueError(f"r_bits has {m} rows, more than 32 * Wm = "
+                         f"{32 * a_bits.shape[1]} columns of a_bits")
+    a = unpack_bits(a_bits, m).to(torch.bfloat16)         # (f, m)
+    r = unpack_bits(r_bits, W * 32).to(torch.bfloat16)    # (m, 32 W)
+    return pack_bits(torch.matmul(a, r) > 0)
+
+
+def closure_fixpoint(
+    own_bits: np.ndarray,   # (d, W) uint32: own spatial columns per comp
+    a_bits: np.ndarray,     # (d, ceil(d/32)) uint32: DAG adjacency, packed
+    n_iters: int,
+    *,
+    use_mxu: bool = False,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """``R <- OWN | A.R`` iterated on ``device`` (``None``: the GPU) at
+    most ``n_iters`` times, stopping early once no row changes; returns
+    the reachable-set bitset matrix as (d, W) ``uint32``.  ``n_iters``
+    must be at least the condensation's level count (its longest path).
+    Each step is :func:`bitset_mm` (K7 on the card, its plain version on
+    the CPU) or, with ``use_mxu``, :func:`bitset_mm_mxu`."""
+    dev = resolve_device(device)
+    own = uint32_bits(own_bits, dev)
+    a = uint32_bits(a_bits, dev)
+    r = own
+    for _ in range(int(n_iters)):
+        step = (bitset_mm_mxu(a, r, device=dev) if use_mxu
+                else bitset_mm(a, r, device=dev))
+        nxt = own | step
+        if torch.equal(nxt, r):
+            break
+        r = nxt
+    return r.cpu().numpy().view(np.uint32)

@@ -7,8 +7,9 @@ from .ops import (
     pack_bags,
     segment_bag,
     segment_bag_torch,
+    sum_error_bound,
     warp_segments,
 )
 
 __all__ = ["TL", "copy_bytes", "embedding_bag", "pack_bags", "segment_bag",
-           "segment_bag_torch", "warp_segments"]
+           "segment_bag_torch", "sum_error_bound", "warp_segments"]

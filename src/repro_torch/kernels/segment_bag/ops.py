@@ -20,6 +20,9 @@ kernel would return the table's type; ROADMAP R7).
   ``segment_bag_ref``: gather, scale, sum into ``n_segments + 1`` rows.
 * :func:`embedding_bag` — ``torch.nn.EmbeddingBag``'s ``sum`` / ``mean``
   over bags, built on the two.
+* :func:`sum_error_bound` — how far two float32 sums of one bag's
+  products, added in different orders, may lie apart: what K10 (ascending
+  adds) is held to against the plain version on the card (atomic adds).
 """
 
 from __future__ import annotations
@@ -113,6 +116,29 @@ def segment_bag_torch(table: torch.Tensor, indices: torch.Tensor,
                       device=table.device)
     out.index_add_(0, segments, rows)
     return out[:n_segments]
+
+
+def sum_error_bound(table: torch.Tensor, indices: torch.Tensor,
+                    segments: torch.Tensor, weights: torch.Tensor, *,
+                    n_segments: int) -> torch.Tensor:
+    """(n_segments, D) float32: the most two float32 sums of a bag's
+    products may differ when they add them in different orders,
+
+        2 * n_b * 2^-24 * sum_k |w_k| * |table[idx_k]|  +  ulp(that sum)
+
+    per bag ``b`` and column, ``n_b`` the bag's lookups.  Each order's
+    sum lies within ``(n_b - 1) * 2^-24`` of the magnitude sum from the
+    exact one, so two lie within twice that; the ulp of the magnitude
+    sum is the floor for a bag of one or no lookup.  The magnitude sum
+    is the plain version over ``table.abs()`` and ``weights.abs()``, on
+    the tensors' device.  A bag holding an id outside the table is NaN
+    here, as it is in the sums."""
+    mag = segment_bag_torch(table.abs(), indices, segments, weights.abs(),
+                            n_segments=n_segments)
+    n = torch.bincount(segments.long(), minlength=n_segments + 1)
+    n = n[:n_segments].to(torch.float32)[:, None]
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return 2 * n * 2.0 ** -24 * mag + ulp
 
 
 def segment_bag(

@@ -266,6 +266,10 @@ def test_serve_cells_match_reference_shapes(shape):
 
 
 def test_registry_holds_din_and_train_waits():
+    """The registry holds DIN with the reference's cells; the train cell
+    no longer waits: it builds its step on meta parameters, AdamW state
+    and batch (``tests/test_torch_train.py`` holds those to the
+    reference's)."""
     assert C.arch_names() == ("din",)
     spec = C.get_arch("din")
     ref = RC.spec()
@@ -273,8 +277,9 @@ def test_registry_holds_din_and_train_waits():
     assert list(spec.cells) == list(ref.cells)
     assert [(a, s) for a, s, _ in C.all_cells()] == [
         ("din", s) for s in ref.cells]
-    with pytest.raises(NotImplementedError, match="train"):
-        spec.cells["train_batch"].build()
+    step, (p, o, b) = spec.cells["train_batch"].build()
+    assert callable(step) and o.step.device.type == "meta"
+    assert b["label"].shape == (65536,)
 
 
 def test_din_params_from_jax_checks_the_tree(monkeypatch):

@@ -270,3 +270,41 @@ def test_copy_bytes(dtype, D, want):
     flat = torch.zeros(5 * D + 1, dtype=dtype)
     assert SB.copy_bytes(flat[1:].view(5, D)) == (
         4 if dtype == torch.float32 else 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("maxlen", [1, 100, 5000])
+def test_sum_error_bound_holds_for_another_order(maxlen, dtype):
+    """``sum_error_bound`` (what K10 is held to against the card's
+    atomic plain version) bounds the gap between the plain version's
+    ascending float32 sums and the same products added in descending
+    order, bag by bag; a bag of one lookup is exact, and a bag holding
+    an id outside the table has a NaN bound, as its sums are NaN."""
+    rng = np.random.default_rng(maxlen)
+    B = 40
+    lens = rng.integers(0, maxlen + 1, size=B)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    L = int(offsets[-1])
+    i, s, w = SB.pack_bags(rng.integers(0, 500, L), offsets)
+    w[:L] = rng.uniform(0.5, 2.0, L).astype(np.float32)
+    table = torch.as_tensor(rng.standard_normal((500, 18)).astype(
+        np.float32)).to(dtype)
+    ops = (table, *(torch.as_tensor(a) for a in (i, s, w)))
+    asc = SB.segment_bag_torch(*ops, n_segments=B)
+    bound = SB.sum_error_bound(*ops, n_segments=B)
+    rows = (table.float()[torch.as_tensor(i[:L]).long()]
+            * torch.as_tensor(w[:L])[:, None]).numpy()
+    for b in range(B):
+        desc = np.zeros(18, np.float32)
+        for k in range(offsets[b + 1] - 1, offsets[b] - 1, -1):
+            desc = desc + rows[k]
+        gap = np.abs(asc[b].numpy() - desc)
+        assert (gap <= bound[b].numpy()).all(), (b, lens[b])
+        if lens[b] <= 1:
+            assert (gap == 0).all()
+    i[0] = 500                                   # outside the table
+    bad = SB.sum_error_bound(table, torch.as_tensor(i), *ops[2:],
+                             n_segments=B)
+    first = int(np.argmax(lens > 0))
+    assert torch.isnan(bad[first]).all()
+    assert not torch.isnan(bad[first + 1:]).any()
