@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of 2DReach serving, its baselines and the
-recsys substrate's DIN serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of 2DReach serving, its baselines, the
+recsys substrate's DIN serving and training path and the LM family on
+one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -243,6 +244,23 @@ not beside this script, it exits with code 2 and prints no result.
            bags with its plain version, ``F.embedding_bag`` as the
            library yardstick, the bound from these inputs and the
            gather's 32-byte sector traffic beside it
+  lm       the LM family (``repro_torch.models.lm``), float32 products
+           without TF32: the five reduced configs (llama4-maverick,
+           deepseek-v3 with MLA, MoE and MTP, gemma3, h2o-danube,
+           gemma2) on the card against the CPU from the same
+           parameters: prefill of 16 tokens, 4 decode steps, ``lm_loss``
+           and one AdamW step, logits and losses within 1e-4 (1 +
+           |CPU|), parameters within 1e-4 relative in norm; gemma2-2b
+           at its published widths in float32 (10.5 GB): a prefill of
+           4,608 tokens (past the 4,096 window: the local rings
+           wrapped) and 512 teacher-forced decode steps, every step's
+           logits within 2e-3 (1 + |forward|) of ``forward`` over all
+           5,120 tokens; then gemma2-2b in bf16, timed: prefill_32k at
+           B = 1, decode_32k at B = 16 from a cache filled to 32,767,
+           long_500k at B = 1 from a cache filled to 524,287 (the cuts
+           in ``reduced``): ms a prefill or decode step, tokens/s, peak
+           bytes, a decode step's device busy µs and top operations.
+           No kernel of the port lies on this path (counts read)
   profile  torch.profiler over one reach pass on each path (fused,
            two-phase, leaf scan, wavefront) and one polygon pass: device
            operations and busy time per batch, and the busy share of
@@ -281,7 +299,14 @@ not beside this script, it exits with code 2 and prints no result.
            step on the CPU from the same parameters: the loss within
            1e-5 relative, every parameter and moment within 1e-4
            relative in norm (the embedding's backward adds with atomics
-           on the card)
+           on the card); then the training launcher in-process on the
+           card with the reduced gemma2 (``--steps 30 --ckpt-every
+           10``): a crash at step 15, ``--resume`` from step 10, and a
+           clean run, the resumed step-30 loss within 1e-5 of the clean
+           one (measured as the card runs by default, and again under
+           ``torch.use_deterministic_algorithms(True)`` where the gap is
+           larger); a checkpoint of the resumed run's card tensors and
+           their bf16 casts restored onto the card bit for bit
   timers   the profiler's retries (a window with no device rows, or a
            row whose count is not a multiple of the calls, is profiled
            again), every time taken with CUDA events because no try was
@@ -4297,8 +4322,11 @@ def phase_train(ks):
     if not (all(np.isfinite(losses)) and all(moved) and int(opt.step)
             == len(batches)):
         raise AssertionError(f"train: losses {losses}, moved {moved}")
+    del params, opt, start
+    torch.cuda.empty_cache()
+    resume = launcher_resume_check()
     return {"config": dataclasses.asdict(cfg), "batch": B,
-            "params": count_params(start),
+            "params": count_params(cpu),
             "ms_per_step": ms, "ms_per_step_median": float(np.median(ms)),
             "samples_per_s": B / float(np.median(ms)) * 1e3,
             "peak_bytes": int(peak), "base_bytes": int(base),
@@ -4308,6 +4336,354 @@ def phase_train(ks):
                 "loss_tolerance": TRAIN_LOSS_TOL},
             "kernel_launches": launched,
             "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "launcher_resume": resume,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+RESUME_ARGS = ("--arch", "gemma2-2b", "--steps", "30", "--ckpt-every", "10")
+RESUME_TOL = 1e-5     # the reference's test_crash_resume_end_to_end bound
+
+
+def launcher_runs(tmp, tag):
+    """The training launcher in-process on the card (the reduced gemma2,
+    as ``examples/train_lm.py`` trains it): a crash at step 15, the
+    resume, and a clean run.  (resumed step-30 loss, clean loss, the
+    resumed run's parameters and state, what it printed)."""
+    import contextlib
+    import io
+
+    from repro_torch.distributed import latest_step
+    from repro_torch.launch import train as LT
+
+    d1 = os.path.join(tmp, f"{tag}_crash")
+    d2 = os.path.join(tmp, f"{tag}_clean")
+    args = [*RESUME_ARGS, "--device", DEVICE]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            LT.main([*args, "--ckpt-dir", d1, "--crash-at", "15"])
+            raise AssertionError("the launcher did not crash at step 15")
+        except RuntimeError as e:
+            if "injected crash at step 15" not in str(e):
+                raise
+        if latest_step(d1) != 10:
+            raise AssertionError(f"crash left step {latest_step(d1)}")
+        params, opt, resumed = LT.main([*args, "--ckpt-dir", d1,
+                                        "--resume"])
+        _, _, clean = LT.main([*args, "--ckpt-dir", d2])
+    text = buf.getvalue()
+    if "[train] resumed from step 10" not in text or latest_step(d1) != 30:
+        raise AssertionError(f"launcher resume: {text[-400:]}")
+    return float(resumed["loss"]), float(clean["loss"]), params, opt, text
+
+
+def launcher_resume_check():
+    """The launcher's crash and resume on the card: the resumed run's
+    step-30 loss within RESUME_TOL of a clean run's (measured first as
+    the card runs by default; where the gap is larger, measured again
+    with ``torch.use_deterministic_algorithms(True)``, and held there);
+    then a checkpoint of the resumed run's card tensors (and of their
+    bf16 casts) restored onto the card, bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.distributed import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed.tree import walk
+
+    t0 = time.perf_counter()
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_", dir=SCRATCH)
+    gaps = {}
+    try:
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            try:
+                r, c, params, opt, text = launcher_runs(tmp, f"det{int(det)}")
+            finally:
+                torch.use_deterministic_algorithms(False)
+            gaps["deterministic" if det else "default"] = {
+                "resumed": r, "clean": c, "gap": abs(r - c)}
+            if abs(r - c) <= RESUME_TOL:
+                break
+        else:
+            raise AssertionError(f"resumed != clean past {RESUME_TOL}: "
+                                 f"{gaps}")
+        tree = {"params": params, "opt": opt,
+                "bf16": {k.replace("/", "."): v.to(torch.bfloat16)
+                         for k, v in walk(params)}}
+        path = os.path.join(tmp, "bits")
+        save_checkpoint(path, 30, tree)
+        back, _ = restore_checkpoint(path, tree)
+        pairs = list(zip(walk(tree), walk(back)))
+        same = all(ka == kb and a.device == b.device and a.dtype == b.dtype
+                   and torch.equal(a, b) for (ka, a), (kb, b) in pairs)
+        if not same or any(a.device.type != torch.device(DEVICE).type
+                           for (_, a), _ in pairs):
+            raise AssertionError("checkpoint from card tensors != restored")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"args": " ".join(RESUME_ARGS), "tolerance": RESUME_TOL,
+            "runs": gaps, "held_with": next(reversed(gaps)),
+            "checkpoint_bit_exact_leaves": len(pairs),
+            "printed": [ln for ln in text.splitlines()
+                        if "step 30 loss" in ln or "resumed" in ln],
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# --------------------------------------------------------------------------
+# The LM family: five reduced configs against the CPU, gemma2-2b at its
+# published widths
+# --------------------------------------------------------------------------
+
+LM_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "gemma3-12b",
+            "h2o-danube-1.8b", "gemma2-2b")
+LM_SMALL = dict(batch=2, seq=32, prompt=16, decode=4)
+LM_TOL = 1e-4          # reduced configs, card against CPU: logits and
+#                        losses within LM_TOL (1 + |CPU|); parameters after
+#                        one step within LM_TOL relative in norm
+LM_FULL = "gemma2-2b"
+LM_SELF = dict(batch=2, prompt=4608, decode=512)   # past the 4,096 window;
+#                        P + T = 5,120, a multiple of the 512 blocking
+LM_SELF_TOL = 2e-3     # decode logits against forward's: the reference's
+#                        own test_prefill_decode_matches_forward bound
+#                        (atol and rtol), here over 26 float32 layers
+LM_TIMED = (("prefill_32k", 1), ("decode_32k", 16), ("long_500k", 1))
+LM_CUTS = {
+    "prefill_32k": "batch 32 -> 1: at 32 the FFN's gate/up activations "
+                   "alone are 32 x 32,768 x 18,432 x 2 B = 38.7 GB",
+    "decode_32k": "batch 128 -> 16: the bf16 KV cache at 128 is 251 GB; "
+                  "the cache is filled with random values to length "
+                  "32,767, not by a prefill",
+    "long_500k": "none (batch 1, the cell's); the cache filled with random "
+                 "values to length 524,287, not by a prefill",
+    "self_check": "float32 (10.5 GB of weights), B = 2, P = 4,608, "
+                  "T = 512 teacher-forced steps",
+}
+LM_PREFILL_ITERS = 2
+LM_DECODE_ITERS = 8
+
+
+def lm_small_case(arch, dev):
+    """``arch``'s reduced config (float32) on the card against the CPU
+    from the same parameters (a CPU generator, seed 0) and batch:
+    prefill of 16 tokens, 4 decode steps, ``lm_loss`` and one
+    ``make_train_step`` step (the train_4k cell's AdamW settings).  The
+    largest errors."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.lm import decode_step, init_params, lm_loss
+    from repro_torch.models.lm import prefill
+    from repro_torch.models.nn import tree_to
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = get_arch(arch).make_config(reduced=True)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    b = next(lm_batches(cfg.vocab, LM_SMALL["seq"], LM_SMALL["batch"],
+                        seed=1))
+    step = make_train_step(lambda p, bb: lm_loss(p, bb, cfg), AdamWConfig())
+    P, T = LM_SMALL["prompt"], LM_SMALL["decode"]
+    out = {}
+    for where, params in (("cpu", cpu), ("card", tree_to(cpu, dev))):
+        d = torch.device("cpu") if where == "cpu" else dev
+        batch = {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+        toks = batch["tokens"]
+        lg, cache = prefill(params, toks[:, :P], cfg, max_len=P + T + 2)
+        seq = [lg]
+        for i in range(T):
+            lg, cache = decode_step(params, cache, toks[:, P + i], cfg)
+            seq.append(lg)
+        with torch.no_grad():
+            loss = lm_loss(params, batch, cfg)[0]
+        p1, _, m = step(params, adamw_init(params), batch)
+        out[where] = (torch.stack(seq).cpu(), float(loss), float(m["loss"]),
+                      float(m["grad_norm"]), [x.cpu() for x in
+                                              tree_leaves(p1)])
+    (l0, s0, t0, g0, p0), (l1, s1, t1, g1, p1) = out["cpu"], out["card"]
+    if not torch.isfinite(l1).all():
+        raise AssertionError(f"{arch}: logits on the card not finite")
+    diff = (l1 - l0).abs()
+    worst = max(float((b1.double() - b0.double()).norm())
+                / max(float(b0.double().norm()), 1e-30)
+                for b0, b1 in zip(p0, p1))
+    rec = {"arch": arch, "logits_max_abs_err": float(diff.max()),
+           "logits_ok": bool((diff <= LM_TOL * (1 + l0.abs())).all()),
+           "loss_abs_err": abs(s1 - s0), "step_loss_abs_err": abs(t1 - t0),
+           "grad_norm_rel_err": abs(g1 - g0) / max(abs(g0), 1e-30),
+           "params_rel_err_norm": worst}
+    ok = (rec["logits_ok"]
+          and max(rec["loss_abs_err"], rec["step_loss_abs_err"])
+          <= LM_TOL * (1 + abs(s0))
+          and rec["grad_norm_rel_err"] <= LM_TOL and worst <= LM_TOL)
+    if not ok:
+        raise AssertionError(f"LM {arch} on the card != CPU: {rec}")
+    return rec
+
+
+def lm_self_check(dev):
+    """gemma2-2b at its published widths in float32 on the card: prefill
+    P tokens (the local layers' rings wrapped), decode T teacher-forced
+    tokens, and hold every step's logits (and the prefill's last) to
+    ``forward`` over all P + T tokens at the same positions."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.lm import (decode_step, forward, init_params,
+                                       prefill)
+    from repro_torch.models.lm.model import logits
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_FULL).make_config(dtype="float32")
+    B, P, T = LM_SELF["batch"], LM_SELF["prompt"], LM_SELF["decode"]
+    params = init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    toks = torch.as_tensor(next(lm_batches(cfg.vocab, P + T, B, seed=2))[
+        "tokens"], device=dev)
+    with torch.no_grad():
+        hidden, _ = forward(params, toks, cfg)
+        want = logits(params, hidden[:, P - 1:P + T], cfg)   # (B, T+1, V)
+    del hidden
+    lg, cache = prefill(params, toks[:, :P], cfg, max_len=P + T)
+    err = (lg - want[:, 0]).abs()
+    ok = bool((err <= LM_SELF_TOL * (1 + want[:, 0].abs())).all())
+    worst = float(err.max())
+    for t in range(T):
+        lg, cache = decode_step(params, cache, toks[:, P + t], cfg)
+        err = (lg - want[:, t + 1]).abs()
+        ok &= bool((err <= LM_SELF_TOL * (1 + want[:, t + 1].abs())).all())
+        worst = max(worst, float(err.max()))
+    rec = {"config": "gemma2-2b float32", "batch": B, "prompt": P,
+           "decode": T, "window": cfg.window,
+           "logits_max_abs_err": worst, "tolerance": LM_SELF_TOL,
+           "cache_len": int(cache["len"]),
+           "seconds": round(time.perf_counter() - t0, 3)}
+    if not ok:
+        raise AssertionError(f"gemma2-2b decode != forward: {rec}")
+    del params, cache, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_filled_cache(cfg, B, seq, dev):
+    """``init_cache`` for B sequences of ``seq`` tokens, filled with
+    random values to length ``seq - 1`` (what a decode step reads and
+    writes does not depend on the values)."""
+    import torch
+    from repro_torch.distributed.tree import walk
+    from repro_torch.models.lm import init_cache
+
+    cache = init_cache(cfg, B, seq, dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    for key, x in walk(cache):
+        if key != "len":
+            x.normal_(generator=gen)
+    cache["len"] = torch.tensor(seq - 1, dtype=torch.int32)
+    return cache
+
+
+def lm_cell(params, cfg, shape, B, dev):
+    """One timed cell of LM_TIMED (see ``lm_timed``); every tensor it
+    makes is freed when it returns."""
+    import torch
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.data import lm_batches
+    from repro_torch.distributed.tree import walk
+    from repro_torch.models.lm import decode_step, prefill
+
+    seq, kind = LM_SHAPES[shape]["seq"], LM_SHAPES[shape]["kind"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"batch": B, "cell_batch": LM_SHAPES[shape]["batch"], "seq": seq,
+           "reduced": LM_CUTS[shape],
+           "base_bytes": int(torch.cuda.memory_allocated(dev))}
+    if kind == "prefill":
+        toks = torch.as_tensor(next(lm_batches(cfg.vocab, seq, B))[
+            "tokens"], device=dev)
+
+        def call():
+            return prefill(params, toks, cfg, max_len=seq)[0]
+        iters = LM_PREFILL_ITERS
+    else:
+        cache = lm_filled_cache(cfg, B, seq, dev)
+        tok = torch.randint(0, cfg.vocab, (B,), device=dev)
+        rec["cache_bytes"] = sum(x.numel() * x.element_size()
+                                 for k, x in walk(cache) if k != "len")
+
+        def call():
+            return decode_step(params, cache, tok, cfg)[0]
+        iters = LM_DECODE_ITERS
+    lg = call()                                            # warm-up
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        t1 = time.perf_counter()
+        lg = call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    if tuple(lg.shape) != (B, cfg.vocab) or not torch.isfinite(lg).all():
+        raise AssertionError(f"{shape}: logits {tuple(lg.shape)}")
+    med = float(np.median(ms))
+    rec.update(ms=ms, ms_median=med,
+               tokens_per_s=(seq * B if kind == "prefill" else B) / med
+               * 1e3, peak_bytes=int(torch.cuda.max_memory_allocated(dev)))
+    if kind == "decode":
+        busy = busy_us(call, 1)
+        rec.update(busy)
+        if busy["device_busy_us_per_batch"] is not None:
+            rec["busy_share"] = busy["device_busy_us_per_batch"] / (
+                med * 1e3)
+    return rec
+
+
+def lm_timed(dev):
+    """gemma2-2b in bf16 (its published dtype) on the card: prefill_32k,
+    decode_32k and long_500k at the batches of LM_TIMED, each after a
+    warm-up: ms per prefill or decode step (host clock around
+    synchronised calls), tokens/s, the bytes allocated before the cell
+    and its peak, and for a decode step the device's busy µs and top
+    operations (torch.profiler)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.nn import param_bytes
+
+    cfg = get_arch(LM_FULL).make_config()
+    params = init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    out = {"config": "gemma2-2b bfloat16", "param_bytes":
+           param_bytes(params), "cells": {
+               shape: lm_cell(params, cfg, shape, B, dev)
+               for shape, B in LM_TIMED}}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(ks, card):
+    """The LM family on the card: the five reduced configs against the
+    CPU, gemma2-2b's decode against its own forward at the published
+    widths in float32, and gemma2-2b timed in bf16 on prefill_32k,
+    decode_32k and long_500k (cut as LM_CUTS says).  float32 products in
+    full precision (no TF32).  No kernel of the port lies on this path:
+    the counts are reset before and read after."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    ks.reset()
+    small = [lm_small_case(a, dev) for a in LM_ARCHS]
+    t1 = time.perf_counter()
+    self_check = lm_self_check(dev)
+    timed = lm_timed(dev)
+    launched = {k: n for k, n in ks.counts().items() if n}
+    return {"card": card, "reduced_vs_cpu": small, "tolerance": LM_TOL,
+            "reduced_seconds": round(t1 - t0, 3),
+            "largest_err": max(r["logits_max_abs_err"] for r in small),
+            "self_check": self_check, "timed": timed,
+            "reduced": LM_CUTS, "kernel_launches": launched,
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
@@ -4681,6 +5057,7 @@ def main() -> int:
                                           k9_calls, card)
     bag_paths, bag_err, bag_timed = phase_recsys(ks, card)
     errs["segment_bag"] = max(errs["segment_bag"], bag_err)
+    emit("lm", ok=True, **phase_lm(ks, card))
     emit("obs_trace", ok=True, **phase_obs_trace(ks, engines))
     srv = phase_serve(ks, engines, indexes)
     emit("serve", ok=True, **srv)

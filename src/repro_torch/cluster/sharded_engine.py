@@ -48,6 +48,7 @@ import torch
 from ..core.engine import DevicePadder, PointerSide, _bucket, check_vertex_ids
 from ..core.two_d_reach import TwoDReachIndex
 from ..device import DeviceLike, resolve_device, same_device
+from ..distributed.sharding import index_shard_specs
 from ..kernels.range_query.descent import (
     descent_scan,
     prune_tiles,
@@ -194,14 +195,18 @@ class ShardedEngine:
         (the stacks themselves where they already lie there), their
         quantized planes on the shared grid, and the routing side."""
         sl = slice(first, first + self._shards_per_dev)
+        specs = index_shard_specs(AXIS)
 
-        def put(x):
+        def put(name, x):
+            # split on the shard axis: this device's shards; else whole
+            if specs[name][:1] == (AXIS,):
+                x = x[sl]
             if isinstance(x, np.ndarray):
-                return torch.as_tensor(np.ascontiguousarray(x[sl]),
-                                       device=dev)
-            return x[sl].to(dev).contiguous()
+                return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+            return x.to(dev).contiguous()
 
-        e, f, c = put(entries), put(fine), put(coarse)
+        e, f, c = (put("entries", entries), put("fine", fine),
+                   put("coarse", coarse))
         grid = make_quant_grid(extent, self.dim, dev)
         qf = torch.stack([quantize_fine(grid, p, self.dim) for p in f])
         qc = torch.stack([quantize_coarse(grid, p, self.dim) for p in c])
@@ -209,17 +214,15 @@ class ShardedEngine:
         # contiguous view, no copy
         assert all(t.is_contiguous() for t in (e, f, c, qf, qc))
         part = self.partition
-
-        def tree(a):
-            return torch.as_tensor(a, device=dev)
-
         return _ShardGroup(
             device=dev, first=first, entries=e, fine=f, coarse=c,
             qfine=qf, qcoarse=qc,
             ids_row=torch.zeros((1, self.width), dtype=torch.int32,
                                 device=dev),
-            side=PointerSide(index, dev), tree_shard=tree(part.tree_shard),
-            tree_qs=tree(part.tree_qs), tree_qe=tree(part.tree_qe),
+            side=PointerSide(index, dev),
+            tree_shard=put("tree_shard", part.tree_shard),
+            tree_qs=put("tree_qs", part.tree_qs),
+            tree_qe=put("tree_qe", part.tree_qe),
             grid=grid, padder=DevicePadder(self.dim, dev))
 
     # ------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Architecture/cell registry (the port of ``repro.configs.base``, the
-recsys family so far).
+"""Architecture/cell registry (the port of ``repro.configs.base``: the
+LM and recsys families).
 
 An ``ArchSpec`` names an architecture, its family, a config factory (full
 or reduced), and its shape cells.  A ``Cell`` knows how to produce, for
 one device:
 
-    fn         — the step to run (train step / serve / retrieval scoring)
+    fn         — the step to run (train step / prefill / decode step /
+                 serve / retrieval scoring)
     args       — its inputs as ``meta`` tensors: shapes and dtypes, no
                  storage (the reference's ``ShapeDtypeStruct``s); a train
                  cell's are the parameters, the AdamW state and a batch
@@ -48,6 +49,77 @@ class ArchSpec:
     make_config: Callable[..., Any]   # make_config(reduced=False)
     cells: Dict[str, Cell]
     notes: str = ""
+
+
+# ==========================================================================
+# LM family
+# ==========================================================================
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def _lm_train_builder(cfg_fn, seq, batch):
+    def build():
+        from ..models.lm import lm_loss, param_shapes
+        from ..train import AdamWConfig, adamw_init, make_train_step
+
+        cfg = cfg_fn()
+        p_meta = param_shapes(cfg)
+        o_meta = adamw_init(p_meta)
+        b_meta = {"tokens": _meta((batch, seq), torch.int32),
+                  "labels": _meta((batch, seq), torch.int32)}
+        step = make_train_step(
+            lambda p, b: lm_loss(p, b, cfg, remat=True), AdamWConfig())
+        return step, (p_meta, o_meta, b_meta)
+
+    return build
+
+
+def _lm_prefill_builder(cfg_fn, seq, batch):
+    def build():
+        from ..models.lm import param_shapes, prefill
+
+        cfg = cfg_fn()
+
+        def fn(params, tokens):
+            return prefill(params, tokens, cfg, max_len=seq)
+
+        return fn, (param_shapes(cfg), _meta((batch, seq), torch.int32))
+
+    return build
+
+
+def _lm_decode_builder(cfg_fn, seq, batch):
+    def build():
+        from ..models.lm import cache_shapes, decode_step, param_shapes
+
+        cfg = cfg_fn()
+
+        def fn(params, cache, token):
+            return decode_step(params, cache, token, cfg)
+
+        return fn, (param_shapes(cfg), cache_shapes(cfg, batch, seq),
+                    _meta((batch,), torch.int32))
+
+    return build
+
+
+def lm_cells(name: str, cfg_fn) -> Dict[str, Cell]:
+    out = {}
+    for shape, s in LM_SHAPES.items():
+        if s["kind"] == "train":
+            b = _lm_train_builder(cfg_fn, s["seq"], s["batch"])
+        elif s["kind"] == "prefill":
+            b = _lm_prefill_builder(cfg_fn, s["seq"], s["batch"])
+        else:
+            b = _lm_decode_builder(cfg_fn, s["seq"], s["batch"])
+        out[shape] = Cell(arch=name, shape=shape, kind=s["kind"], builder=b)
+    return out
 
 
 # ==========================================================================

@@ -1,9 +1,23 @@
 """The ported architectures, importable by id (the reference's
-``repro.configs.registry``; DIN so far, the LM and GNN configs come with
-their slices)."""
-from . import din
+``repro.configs.registry``, in its order; the GNN configs come with
+their family's port)."""
+from . import (
+    deepseek_v3_671b,
+    din,
+    gemma2_2b,
+    gemma3_12b,
+    h2o_danube_1_8b,
+    llama4_maverick_400b_a17b,
+)
 
-_MODULES = (din,)
+_MODULES = (
+    llama4_maverick_400b_a17b,
+    deepseek_v3_671b,
+    gemma3_12b,
+    h2o_danube_1_8b,
+    gemma2_2b,
+    din,
+)
 
 ARCHS = {m.NAME: m for m in _MODULES}
 

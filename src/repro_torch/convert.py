@@ -14,7 +14,11 @@ dict, with each array as a tensor.  Both keep a dense layer as ``w``
 ``(d_in, d_out)`` and ``b``, so nothing is transposed.
 :func:`adamw_state_from_jax` carries the reference's AdamW state (its
 step and moments) across the same way, so training can continue from a
-state that is not zero.
+state that is not zero.  :func:`lm_params_from_jax` carries an LM
+parameter tree (``repro_torch.models.lm``) across in the reference's
+layout.  Every leaf converts bit for bit, the reference's bf16 and
+float8 leaves (``ml_dtypes``, which ``torch.from_numpy`` cannot read)
+included.
 """
 
 from __future__ import annotations
@@ -154,10 +158,56 @@ def din_params_from_jax(tree, device: DeviceLike = None):
     return _tree_from_jax(tree, dev)
 
 
-def _tree_from_jax(node, dev: torch.device):
+_LM_KEYS = {"embed", "ln_f"}
+_LM_OPTIONAL = {"lm_head", "mtp"}
+
+# the ml_dtypes floats torch holds: name -> (unsigned view, torch dtype)
+_ML_FLOATS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e4m3fnuz": (np.uint8, torch.float8_e4m3fnuz),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+    "float8_e5m2fnuz": (np.uint8, torch.float8_e5m2fnuz),
+    "float8_e8m0fnu": (np.uint8, torch.float8_e8m0fnu),
+}
+
+
+def lm_params_from_jax(tree, device: DeviceLike = None):
+    """The port's LM parameters (``repro_torch.models.lm``) from the
+    reference's tree, on ``device`` (``None``: the GPU).  The layout is
+    kept exactly: dense weights ``(d_in, d_out)``, the stacked leading
+    repeat dim of every scanned segment ``seg<i>`` (none where the
+    segment has one repeat), and ``mtp`` and the untied ``lm_head``
+    where the config has them."""
+    dev = resolve_device(device)
+    keys = set(tree)
+    segs = {k for k in keys if k.startswith("seg") and k[3:].isdigit()}
+    if not (_LM_KEYS <= keys and segs
+            and keys <= _LM_KEYS | _LM_OPTIONAL | segs):
+        raise ValueError(f"not an LM parameter tree: keys {sorted(keys)}")
+    return _tree_from_jax(tree, dev)
+
+
+def _leaf_to_tensor(node, dev: torch.device, key: str) -> torch.Tensor:
+    """One array, bit for bit: an ``ml_dtypes`` float is read through
+    its unsigned view and viewed back as torch's dtype of that name."""
+    a = np.asarray(node)
+    if a.dtype.name in _ML_FLOATS:
+        view, dt = _ML_FLOATS[a.dtype.name]
+        t = torch.from_numpy(np.require(a, requirements="C").view(view))
+        t = t.view(dt)
+        return t.to(dev)
+    try:
+        return torch.as_tensor(np.array(a), device=dev)
+    except TypeError as e:
+        raise TypeError(f"{key}: {e}") from None
+
+
+def _tree_from_jax(node, dev: torch.device, key: str = ""):
     if isinstance(node, dict):
-        return {k: _tree_from_jax(v, dev) for k, v in node.items()}
-    return torch.as_tensor(np.array(node), device=dev)
+        return {k: _tree_from_jax(v, dev, f"{key}/{k}")
+                for k, v in node.items()}
+    return _leaf_to_tensor(node, dev, key or "/")
 
 
 def adamw_state_from_jax(state, device: DeviceLike = None):

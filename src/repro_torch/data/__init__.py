@@ -1,6 +1,6 @@
 """Data: synthetic LBSN graphs shaped to the paper's datasets, the
 RangeReach query (uniform and Zipf-skewed) and update workloads, and the
-recsys input pipeline (copies of ``repro.data``'s generators)."""
+LM and recsys input pipelines (copies of ``repro.data``'s generators)."""
 
 from .lbsn import SPECS, LBSNSpec, dataset_stats, generate_lbsn
 from .queries import (
@@ -22,7 +22,7 @@ from .queries import (
     workload,
     zipf_workload,
 )
-from .pipeline import ShardInfo, din_batches
+from .pipeline import ShardInfo, din_batches, lm_batches
 from .registry import dataset_names, get_dataset
 
 __all__ = [
@@ -32,6 +32,6 @@ __all__ = [
     "REGION_EXTENT_VALUES", "SELECTIVITY_VALUES", "STREAM_OP_KINDS", "ZIPF_DEFAULT_S",
     "apply_stream_op", "knn_workload", "polygon_workload",
     "region_for_extent", "streaming_workload", "workload", "zipf_workload",
-    "ShardInfo", "din_batches",
+    "ShardInfo", "din_batches", "lm_batches",
     "dataset_names", "get_dataset",
 ]

@@ -1,5 +1,5 @@
 """Host-side input pipelines (the port of ``repro.data.pipeline``, the
-recsys part so far), shardable across data-parallel hosts.
+LM and recsys parts), shardable across data-parallel hosts.
 
 Deterministic, step-keyed synthetic data: after a restart at step k,
 host h regenerates exactly the batch it would have seen, so no
@@ -32,6 +32,35 @@ def _rng(seed: int, step: int, host: int) -> np.random.Generator:
     return np.random.default_rng(
         np.random.SeedSequence([seed, step, host])
     )
+
+
+def lm_batches(
+    vocab_size: int,
+    seq_len: int,
+    global_batch: int,
+    seed: int = 0,
+    shard: ShardInfo = ShardInfo(),
+    start_step: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic LM stream: Zipf-distributed tokens with local structure
+    (bigram coupling) so the loss has signal to descend."""
+    b = shard.slice_of(global_batch)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks**1.1
+    probs /= probs.sum()
+    step = start_step
+    while True:
+        rng = _rng(seed, step, shard.host_id)
+        toks = rng.choice(vocab_size, size=(b, seq_len + 1), p=probs)
+        # bigram coupling: with p=0.5, next token = (prev*31 + 7) % vocab
+        mask = rng.random((b, seq_len)) < 0.5
+        nxt = (toks[:, :-1] * 31 + 7) % vocab_size
+        toks[:, 1:][mask] = nxt[mask]
+        yield {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+        step += 1
 
 
 def din_batches(

@@ -6,9 +6,10 @@ The reference lays the cluster's shards over a 1-D ``jax`` mesh with a
 placed on: shard ``s`` of ``S`` lives on device ``s // (S // n_dev)``,
 its arena planes whole on that device, while the routing side (the
 pointer arrays and the partition's per-tree arrays) is copied to every
-device.  That is the placement rule of the reference's
-``distributed.sharding.index_shard_specs``: arenas split on the shard
-axis, the pointer side replicated.
+device.  That is the placement rule of
+``distributed.sharding.index_shard_specs`` (the reference's, ported):
+arenas split on the shard axis, the pointer side replicated;
+``ShardedEngine._place`` places by that table.
 """
 
 from __future__ import annotations

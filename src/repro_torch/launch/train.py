@@ -1,20 +1,29 @@
-"""Training launcher, the recsys arm (the port of ``repro.launch.train``).
+"""Training launcher with checkpoint/restart fault tolerance (the port of
+``repro.launch.train``), the LM and recsys arms.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch din \\
-        [--steps 100] [--lr 3e-3] [--batch 64] [--full] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch h2o-danube-1.8b [--steps 100] [--lr 3e-3] [--batch B] \\
+        [--full] [--device cpu] \\
+        [--ckpt-dir DIR [--ckpt-every 25] [--resume] [--crash-at N]]
 
-DIN's parameters come from ``init_params`` with an explicit
-``torch.Generator`` (seed 0), its batches from ``din_batches`` (64 rows,
-as the reference's), and the step from ``make_train_step`` with the
-reference's AdamW settings (warm-up 10 steps, cosine to ``--steps``);
-the loop prints the reference's lines.  ``--reduced`` (the default)
-selects the smoke-scale config, ``--full`` the published widths.  It
-trains on ``--device`` (the GPU by default; without CUDA it raises
-unless ``--device cpu`` is given).
+Parameters come from ``init_params`` with an explicit
+``torch.Generator`` (seed 0); batches from ``lm_batches`` (8 rows of 32
+tokens, as the reference's) or ``din_batches`` (64 rows); the step from
+``make_train_step`` with the reference's AdamW settings (warm-up 10
+steps, cosine to ``--steps``).  ``--reduced`` (the default) selects the
+smoke-scale config, ``--full`` the published widths.  It trains on
+``--device`` (the GPU by default; without CUDA it raises unless
+``--device cpu`` is given).
 
-The LM and GNN families and the reference's checkpoint/restart flags
-(``--ckpt-dir``, ``--resume``, ``--crash-at``) wait for their port,
-ROADMAP Queue 1 item 13 (``distributed/`` and the model families).
+The loop shows the reference's posture end to end: step-keyed data
+(a resumed run skips the stream forward to its step), bounded-async
+checkpoints every ``--ckpt-every`` steps and at the end (with
+``--ckpt-dir``), restore on ``--resume``, and crash injection with
+``--crash-at`` (after that step's checkpoint is on disk).  It prints the
+reference's lines: ``[train] resumed from step N``, ``[train] step N
+loss X (Ts)`` every 10 steps and at the first, ``[train] done``.
+
+The GNN family waits for its port (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -25,36 +34,50 @@ import time
 import torch
 
 from ..configs.registry import get_arch
-from ..data import din_batches
+from ..data import din_batches, lm_batches
 from ..device import DeviceLike, resolve_device
+from ..distributed import CheckpointManager, latest_step, restore_checkpoint
 from ..train import AdamWConfig, adamw_init, make_train_step
 
-# the reference's other architectures, each waiting for its family's port
-LM_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "gemma3-12b",
-            "h2o-danube-1.8b", "gemma2-2b")
+# the reference's other architectures, waiting for their family's port
 GNN_ARCHS = ("graphcast", "dimenet", "equiformer-v2", "schnet")
+# rows a batch when --batch is not given: the reference's (LM, recsys)
+BATCH = {"lm": 8, "recsys": 64}
+LM_SEQ = 32
 
 
-def build(arch_name: str, reduced: bool = True, batch: int = 64,
+def build(arch_name: str, reduced: bool = True, batch=None,
           device: DeviceLike = None):
-    """-> ``(params, loss_fn, data, to_dev)`` for ``arch_name``."""
+    """-> ``(params, loss_fn, data, to_dev)`` for ``arch_name`` (the
+    reference's ``build_reduced``, and the published widths when
+    ``reduced`` is false)."""
     dev = resolve_device(device)
-    if arch_name in LM_ARCHS or arch_name in GNN_ARCHS:
-        family = "lm" if arch_name in LM_ARCHS else "gnn"
+    if arch_name in GNN_ARCHS:
         raise NotImplementedError(
-            f"{arch_name}: the {family} family comes with the port of its "
+            f"{arch_name}: the gnn family comes with the port of its "
             f"models (ROADMAP Queue 1, item 13)")
     spec = get_arch(arch_name)
     cfg = spec.make_config(reduced=reduced)
-    from ..models.recsys import din
+    batch = BATCH[spec.family] if batch is None else batch
+    gen = torch.Generator().manual_seed(0)
+    if spec.family == "lm":
+        from ..models.lm import init_params, lm_loss
 
-    params = din.init_params(torch.Generator().manual_seed(0), cfg,
-                             device=dev)
+        params = init_params(gen, cfg, device=dev)
 
-    def loss(p, b):
-        return din.loss_fn(p, b, cfg), {}
+        def loss(p, b):
+            return lm_loss(p, b, cfg)
 
-    data = din_batches(cfg.n_items, cfg.n_cates, cfg.seq_len, batch)
+        data = lm_batches(cfg.vocab, LM_SEQ, batch)
+    else:
+        from ..models.recsys import din
+
+        params = din.init_params(gen, cfg, device=dev)
+
+        def loss(p, b):
+            return din.loss_fn(p, b, cfg), {}
+
+        data = din_batches(cfg.n_items, cfg.n_cates, cfg.seq_len, batch)
 
     def to_dev(b):
         return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
@@ -64,17 +87,27 @@ def build(arch_name: str, reduced: bool = True, batch: int = 64,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="din")
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the published widths instead of the reduced "
                          "config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows a batch (default: 8 for an LM, 64 for DIN)")
     ap.add_argument("--device", default=None,
                     help="where to train (default: the GPU)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: no checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint of --ckpt-dir")
+    ap.add_argument("--crash-at", type=int, default=-1,
+                    help="inject a crash after this step (testing)")
     args = ap.parse_args(argv)
+    if args.resume and args.ckpt_dir is None:
+        ap.error("--resume needs --ckpt-dir")
 
     params, loss_fn, data, to_dev = build(args.arch, args.reduced,
                                           args.batch, args.device)
@@ -83,15 +116,38 @@ def main(argv=None):
     opt = adamw_init(params)
     step_fn = make_train_step(loss_fn, opt_cfg)
 
+    start = 0
+    if args.resume:
+        last = latest_step(args.ckpt_dir)
+        if last is not None:
+            state, _ = restore_checkpoint(
+                args.ckpt_dir, {"params": params, "opt": opt})
+            params, opt = state["params"], state["opt"]
+            start = last
+            print(f"[train] resumed from step {start}")
+
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    # skip the pipeline forward to the resume point (step-keyed data)
+    for _ in range(start):
+        next(data)
     t0 = time.perf_counter()
     metrics = {}
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = to_dev(next(data))
         params, opt, metrics = step_fn(params, opt, batch)
-        if (step + 1) % 10 == 0 or step == 0:
+        if (step + 1) % 10 == 0 or step == start:
             print(f"[train] step {step + 1} loss "
                   f"{float(metrics['loss']):.4f} "
                   f"({(time.perf_counter() - t0):.1f}s)")
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save_async(step + 1, {"params": params, "opt": opt})
+        if args.crash_at == step + 1:
+            if mgr:
+                mgr.close()
+            raise RuntimeError(f"injected crash at step {step + 1}")
+    if mgr:
+        mgr.save_async(args.steps, {"params": params, "opt": opt})
+        mgr.close()
     print(f"[train] done: {args.steps} steps in "
           f"{time.perf_counter() - t0:.1f}s")
     return params, opt, metrics

@@ -1,6 +1,6 @@
-"""Model substrate (the port of ``repro.models``): the recsys family so
-far; the LM and GNN families come with their slices."""
+"""Model substrate (the port of ``repro.models``): the recsys and LM
+families; the GNN family comes with its slice."""
 
-from . import recsys
+from . import lm, recsys
 
-__all__ = ["recsys"]
+__all__ = ["lm", "recsys"]

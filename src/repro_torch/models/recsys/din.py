@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..nn import Params, embed_init, mlp, mlp_init, tree_to
+from ..nn import Params, embed, embed_init, mlp, mlp_init, tree_to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,17 +75,12 @@ def _embed_items(params: Params, items: torch.Tensor, cfg: DINConfig):
     """(..., ) item ids -> (..., 2*embed_dim) item||category embedding.
 
     An item id outside ``[-V, V)`` embeds as NaN, as the reference's
-    ``jnp.take`` fills it; ids in range wrap.  The ids are clamped, and
-    the gathered rows of those that moved filled in place, on the device,
-    so a bad id neither syncs with the host nor fires a device-side
-    assert.  The EmbeddingBag op (``kernels.segment_bag``) keeps the same
-    rule: its plain version clamps and fills the same way, and K10 wraps
-    an id in ``[-V, 0)`` and adds NaN for one outside."""
+    ``jnp.take`` fills it; ids in range wrap (``nn.embed``).  The
+    EmbeddingBag op (``kernels.segment_bag``) keeps the same rule: its
+    plain version clamps and fills the same way, and K10 wraps an id in
+    ``[-V, 0)`` and adds NaN for one outside."""
     cates = items % cfg.n_cates
-    emb = params["item_emb"]["emb"]
-    V = emb.shape[0]
-    safe = items.clamp(-V, V - 1)
-    ie = emb[safe].masked_fill_((safe != items)[..., None], float("nan"))
+    ie = embed(params["item_emb"], items)
     ce = params["cate_emb"]["emb"][cates]
     return torch.cat([ie, ce], dim=-1)
 

@@ -22,7 +22,10 @@ dynamic index's device engine on the card, the resilient engine on the
 card (healthy: every class on the kernels with no fallback; retries
 spent with ``degraded_path="two_phase"``: one K2 and one K3 launch for
 the batch), the boolean sweep closure on the card against its CPU run,
-and DIN (apply, score_candidates) on the card against its CPU run.  Every
+DIN (apply, score_candidates) on the card against its CPU run, the five
+reduced LM configs (prefill, decode, loss, one AdamW step) on the card
+against the CPU, an LM checkpoint of card tensors restored bit for bit,
+and the training launcher's crash and resume on the card.  Every
 test needs a CUDA device and skips where there is none.
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine with only PyTorch:
@@ -1404,3 +1407,89 @@ def test_serve_launcher_on_card_matches_host(cuda, engine):
     if engine == "cluster":
         c = got["cluster"]
         assert c["n_compiles"] == c["n_compiles_warm"]
+
+
+LM_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "gemma3-12b",
+            "h2o-danube-1.8b", "gemma2-2b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_reduced_on_card_matches_cpu(cuda, no_tf32, arch):
+    """Each reduced LM config (float32) on the card against the same
+    parameters on the CPU: prefill of 16 tokens and 4 decode steps
+    (logits within 1e-4 (1 + |CPU|)), ``lm_loss``, and one AdamW step
+    (the loss within 1e-4, every parameter within 1e-4 relative in
+    norm; MoE's combine adds with atomics on the card)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.lm import (decode_step, init_params, lm_loss,
+                                       prefill)
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = get_arch(arch).make_config(reduced=True)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    b = next(lm_batches(cfg.vocab, 32, 2, seed=1))
+    step = make_train_step(lambda p, bb: lm_loss(p, bb, cfg), AdamWConfig())
+    out = []
+    for dev, params in (("cpu", cpu), (cuda, tree_to(cpu, cuda))):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        lg, cache = prefill(params, batch["tokens"][:, :16], cfg, 22)
+        seq = [lg]
+        for i in range(4):
+            lg, cache = decode_step(params, cache,
+                                    batch["tokens"][:, 16 + i], cfg)
+            seq.append(lg)
+        with torch.no_grad():
+            loss = float(lm_loss(params, batch, cfg)[0])
+        p1, _, m = step(params, adamw_init(params), batch)
+        out.append((torch.stack(seq).cpu(), loss, float(m["loss"]),
+                    [x.cpu() for x in tree_leaves(p1)]))
+    (l0, s0, t0, p0), (l1, s1, t1, p1) = out
+    assert ((l1 - l0).abs() <= 1e-4 * (1 + l0.abs())).all()
+    assert abs(s1 - s0) <= 1e-4 * (1 + abs(s0))
+    assert abs(t1 - t0) <= 1e-4 * (1 + abs(t0))
+    for got, want in zip(p1, p0):
+        err = float((got.double() - want.double()).norm())
+        assert err <= 1e-4 * max(float(want.double().norm()), 1e-30)
+
+
+def test_lm_checkpoint_from_card_tensors_restores_bit_for_bit(cuda,
+                                                              tmp_path):
+    """A checkpoint of card tensors (float32 parameters, their bf16
+    casts, an AdamW state) restores onto the card with the same dtype
+    and every bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import restore_checkpoint, save_checkpoint
+    from repro_torch.distributed.tree import walk
+    from repro_torch.models.lm import init_params
+    from repro_torch.train import adamw_init
+
+    cfg = get_arch("deepseek-v3-671b").make_config(reduced=True)
+    p = init_params(torch.Generator().manual_seed(3), cfg, device=cuda)
+    tree = {"params": p, "opt": adamw_init(p),
+            "bf16": [x.to(torch.bfloat16) for _, x in walk(p)]}
+    save_checkpoint(str(tmp_path), 1, tree)
+    back, man = restore_checkpoint(str(tmp_path), tree)
+    assert man["keys"] == [k for k, _ in walk(tree)]
+    for (ka, a), (kb, b) in zip(walk(tree), walk(back)):
+        assert ka == kb and b.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a, b), ka
+
+
+def test_train_launcher_crash_and_resume_on_card(cuda, tmp_path):
+    """The launcher on the card with the reduced gemma2: a crash at step
+    15, the resume from step 10, and a clean run end within 1e-5 at
+    step 30."""
+    from repro_torch.distributed import latest_step
+    from repro_torch.launch import train as LT
+
+    base = ["--arch", "gemma2-2b", "--steps", "30", "--ckpt-every", "10"]
+    d1, d2 = str(tmp_path / "a"), str(tmp_path / "b")
+    with pytest.raises(RuntimeError, match="injected crash at step 15"):
+        LT.main(base + ["--ckpt-dir", d1, "--crash-at", "15"])
+    assert latest_step(d1) == 10
+    params, _, resumed = LT.main(base + ["--ckpt-dir", d1, "--resume"])
+    _, _, clean = LT.main(base + ["--ckpt-dir", d2])
+    assert all(x.is_cuda for x in params["ln_f"].values())
+    assert abs(float(resumed["loss"]) - float(clean["loss"])) < 1e-5

@@ -15,7 +15,19 @@ entries differ by more: where one item's gradient contributions nearly
 cancel, the float32 residual depends on the order of the adds (XLA's
 scatter against torch's ``index_put_``), and Adam divides it by its own
 small root mean square, so the step there moves by a different amount.
+
+The launcher (``repro_torch.launch.train``): its LM arm's first loss
+equals the reference's on the same batch and converted parameters
+within 1e-5 relative; ``--ckpt-dir``/``--crash-at``/``--resume`` in
+subprocesses (``--device cpu``) for DIN and the reduced gemma2, as the
+reference's ``test_crash_resume_end_to_end`` runs them (the step-30
+loss within 1e-5 of a clean run's), and in one process, whose
+checkpoint the reference restores.
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.experimental
@@ -51,6 +63,8 @@ from repro_torch.train import (
 )
 from repro_torch.train.optim import tree_leaves
 
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
 SCHEDULES = ("cosine", "linear", "constant")
 OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 
@@ -286,13 +300,129 @@ def test_train_launcher_two_steps_on_cpu(capsys):
     assert all(moved)
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "schnet"])
+@pytest.mark.parametrize("arch", ["graphcast", "schnet"])
 def test_train_launcher_waits_for_lm_and_gnn(arch):
+    """The GNN family still waits for its port; the LM family no longer
+    does (``test_train_launcher_lm_arm_on_cpu``)."""
     with pytest.raises(NotImplementedError, match="item 13"):
         LT.main(["--arch", arch, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v3-671b"])
+def test_train_launcher_lm_arm_on_cpu(arch, capsys):
+    """The LM arm is the reference's ``build_reduced``: the reduced
+    config, ``init_params`` from seed 0, ``lm_batches(vocab, 32, 8)``;
+    its first step's loss equals the reference's first step on the same
+    batch from the same parameters (converted) within 1e-5 relative."""
+    from repro.configs import get_arch as rget
+    from repro.data import lm_batches as r_lm_batches
+    from repro.models.lm import model as RM
+    from repro_torch.convert import lm_params_from_jax
+
+    params, opt, metrics = LT.main(["--arch", arch, "--steps", "2",
+                                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[train] step 1 loss" in out and "[train] done: 2 steps" in out
+    assert int(opt.step) == 2 and np.isfinite(float(metrics["loss"]))
+    p0, loss_fn, data, to_dev = LT.build(arch, device="cpu")
+    b = next(data)
+    assert b["tokens"].shape == (8, 32)
+    rcfg = rget(arch).make_config(reduced=True)
+    rp = jax.jit(RM.init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                   rcfg)
+    want = next(r_lm_batches(rcfg.vocab, 32, 8))
+    assert all(np.array_equal(b[k], want[k]) for k in b)
+    rl = float(jax.jit(lambda p, bb: RM.lm_loss(p, bb, rcfg)[0])(
+        rp, {k: jnp.asarray(v) for k, v in want.items()}))
+    got = float(loss_fn(lm_params_from_jax(_np_tree(rp), device="cpu"),
+                        to_dev(b))[0])
+    assert got == pytest.approx(rl, rel=1e-5)
+
+
+def _launch(args, cwd):
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--steps", "30", "--ckpt-every", "10", *args], env=env, cwd=cwd,
+        capture_output=True, text=True, timeout=600)
+
+
+def _final_loss(out):
+    lines = [ln for ln in out.splitlines() if "step 30 loss" in ln]
+    return float(lines[-1].split("loss")[1].split("(")[0])
+
+
+@pytest.mark.parametrize("arch", ["din", "gemma2-2b"])
+def test_crash_resume_end_to_end(arch, tmp_path):
+    """The reference's ``test_crash_resume_end_to_end`` on the port's
+    launcher, in subprocesses: a crash injected at step 15 leaves step
+    10 committed, ``--resume`` continues from it, and the step-30 loss
+    equals an uninterrupted run's within 1e-5."""
+    from repro_torch.distributed import latest_step
+
+    d1 = str(tmp_path / "crash")
+    r1 = _launch(["--arch", arch, "--ckpt-dir", d1, "--crash-at", "15"],
+                 tmp_path)
+    assert r1.returncode != 0 and "injected crash at step 15" in r1.stderr
+    assert latest_step(d1) == 10
+    r2 = _launch(["--arch", arch, "--ckpt-dir", d1, "--resume"], tmp_path)
+    assert r2.returncode == 0, r2.stderr
+    assert "[train] resumed from step 10" in r2.stdout
+    assert "[train] step 11 loss" in r2.stdout
+    d2 = str(tmp_path / "clean")
+    r3 = _launch(["--arch", arch, "--ckpt-dir", d2], tmp_path)
+    assert r3.returncode == 0, r3.stderr
+    assert abs(_final_loss(r2.stdout) - _final_loss(r3.stdout)) < 1e-5
+    assert latest_step(d1) == latest_step(d2) == 30
+    assert sorted(os.listdir(d2)) == ["step_00000010", "step_00000020",
+                                      "step_00000030"]
+
+
+def test_launcher_checkpoint_flags_in_process(tmp_path, capsys):
+    """In one process, as ``chip_smoke.py`` drives it: the crash, the
+    resume and a clean run of the reduced gemma2; the resumed run's
+    last loss equals the clean one's exactly on the CPU, and a
+    checkpoint written by the launcher restores through the
+    reference's ``restore_checkpoint`` with the reference's keys."""
+    from repro.distributed import restore_checkpoint as r_restore
+    from repro.models.lm import model as RM
+    from repro.configs import get_arch as rget
+    from repro.train import optim as RO2
+
+    base = ["--arch", "gemma2-2b", "--steps", "30", "--ckpt-every", "10",
+            "--device", "cpu"]
+    d1, d2 = str(tmp_path / "a"), str(tmp_path / "b")
+    with pytest.raises(RuntimeError, match="injected crash at step 15"):
+        LT.main(base + ["--ckpt-dir", d1, "--crash-at", "15"])
+    _, _, resumed = LT.main(base + ["--ckpt-dir", d1, "--resume"])
+    _, _, clean = LT.main(base + ["--ckpt-dir", d2])
+    assert float(resumed["loss"]) == float(clean["loss"])
+    rcfg = rget("gemma2-2b").make_config(reduced=True)
+    tmpl = jax.eval_shape(lambda k: (lambda p: {"params": p,
+                                                "opt": RO2.adamw_init(p)})(
+        RM.init_params(k, rcfg)), jax.random.PRNGKey(0))
+    tmpl = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), tmpl)
+    state, man = r_restore(d1, tmpl)
+    assert man["step"] == 30 and int(state["opt"].step) == 30
+    with pytest.raises(SystemExit):
+        LT.main(["--arch", "din", "--resume", "--device", "cpu"])
 
 
 def test_train_launcher_asks_for_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LT.main(["--arch", "din", "--steps", "1"])
+
+
+def test_train_lm_example_on_cpu(monkeypatch, capsys):
+    """``examples/train_lm.py`` at a cut of its 120 steps: the loss
+    descends and the mid-run checkpoint restores bit for bit (its own
+    asserts)."""
+    from repro_torch.examples import train_lm
+
+    monkeypatch.setattr(train_lm, "STEPS", 30)
+    monkeypatch.setattr(train_lm, "SAVE_AT", 20)
+    losses = train_lm.main(["--device", "cpu"])
+    assert len(losses) == 30
+    assert "checkpoint roundtrip + loss descent: OK" in capsys.readouterr(
+    ).out
