@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of 2DReach serving, its baselines, the
-recsys substrate's DIN serving and training path and the LM family on
-one NVIDIA GPU.
+recsys substrate's DIN serving and training path, the LM family and the
+GNN family on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -261,6 +261,31 @@ not beside this script, it exits with code 2 and prints no result.
            in ``reduced``): ms a prefill or decode step, tokens/s, peak
            bytes, a decode step's device busy µs and top operations.
            No kernel of the port lies on this path (counts read)
+  gnn      the GNN family (``repro_torch.models.gnn``), float32 products
+           without TF32: GraphCast, DimeNet, EquiformerV2 and SchNet
+           reduced, on the launcher's molecules (8 of 12 atoms), on the
+           card against the CPU from the same parameters: the forward
+           outputs, the loss and one AdamW step (loss within 1e-5
+           relative, outputs, parameters and moments within 1e-4
+           relative in norm; EquiformerV2's last attention bias, whose
+           gradient is zero in exact arithmetic, held to be noise); each
+           at its published widths on the cells molecule (B = 128, 30
+           atoms, 64 edges), full_graph_sm (2,708 nodes, 10,556 edges,
+           f = 1,433) and minibatch_lg (``sample_blocks``, 1,024 seeds,
+           fan-outs 15 and 10, over a seeded CSR of ogb_products' 2.45M
+           nodes and mean degree; EquiformerV2 at 128 seeds, GraphCast
+           at 640: ``reduced``), the cell's own step, 2 warm-up and 5
+           timed AdamW steps, a new batch each: ms a step, graphs or
+           edges a second, peak and base bytes, every loss finite and
+           every parameter moved, one molecule step profiled per model
+           (busy share, top operations); ogb_products' four cells on
+           meta (parameter, AdamW and batch bytes) and SchNet on its
+           nodes with 1/8 of its edges, 2 steps; EquiformerV2 at l_max
+           6 on one molecule invariant under 3 rotations within 1e-3;
+           the port's ``gnn_molecules`` example; the train launcher's
+           crash and resume with SchNet (``--steps 30 --ckpt-every
+           10``, resumed within 1e-5 of a clean run).  No kernel of the
+           port lies on this path (counts read)
   profile  torch.profiler over one reach pass on each path (fused,
            two-phase, leaf scan, wavefront) and one polygon pass: device
            operations and busy time per batch, and the busy share of
@@ -343,6 +368,10 @@ every checkout of the port makes alike; phase ``build`` first, for the
 checkout's ``ptxas`` lines.
 Run it for two checkouts in turns (parent, change, change, parent) in
 one call to compare them on one card.
+
+    python3 chip_smoke.py --gnn
+
+runs only phase ``gnn`` (it builds no kernel).
 """
 
 from __future__ import annotations
@@ -4344,11 +4373,12 @@ RESUME_ARGS = ("--arch", "gemma2-2b", "--steps", "30", "--ckpt-every", "10")
 RESUME_TOL = 1e-5     # the reference's test_crash_resume_end_to_end bound
 
 
-def launcher_runs(tmp, tag):
-    """The training launcher in-process on the card (the reduced gemma2,
-    as ``examples/train_lm.py`` trains it): a crash at step 15, the
-    resume, and a clean run.  (resumed step-30 loss, clean loss, the
-    resumed run's parameters and state, what it printed)."""
+def launcher_runs(tmp, tag, run_args=RESUME_ARGS):
+    """The training launcher in-process on the card (``run_args``: the
+    reduced gemma2, as ``examples/train_lm.py`` trains it, or phase
+    gnn's SchNet): a crash at step 15, the resume, and a clean run.
+    (resumed step-30 loss, clean loss, the resumed run's parameters and
+    state, what it printed)."""
     import contextlib
     import io
 
@@ -4357,7 +4387,7 @@ def launcher_runs(tmp, tag):
 
     d1 = os.path.join(tmp, f"{tag}_crash")
     d2 = os.path.join(tmp, f"{tag}_clean")
-    args = [*RESUME_ARGS, "--device", DEVICE]
+    args = [*run_args, "--device", DEVICE]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         try:
@@ -4377,8 +4407,9 @@ def launcher_runs(tmp, tag):
     return float(resumed["loss"]), float(clean["loss"]), params, opt, text
 
 
-def launcher_resume_check():
-    """The launcher's crash and resume on the card: the resumed run's
+def launcher_resume_check(run_args=RESUME_ARGS):
+    """The launcher's crash and resume on the card (``run_args``, the
+    reduced gemma2 by default): the resumed run's
     step-30 loss within RESUME_TOL of a clean run's (measured first as
     the card runs by default; where the gap is larger, measured again
     with ``torch.use_deterministic_algorithms(True)``, and held there);
@@ -4399,7 +4430,8 @@ def launcher_resume_check():
         for det in (False, True):
             torch.use_deterministic_algorithms(det, warn_only=True)
             try:
-                r, c, params, opt, text = launcher_runs(tmp, f"det{int(det)}")
+                r, c, params, opt, text = launcher_runs(
+                    tmp, f"det{int(det)}", run_args)
             finally:
                 torch.use_deterministic_algorithms(False)
             gaps["deterministic" if det else "default"] = {
@@ -4423,7 +4455,7 @@ def launcher_resume_check():
             raise AssertionError("checkpoint from card tensors != restored")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"args": " ".join(RESUME_ARGS), "tolerance": RESUME_TOL,
+    return {"args": " ".join(run_args), "tolerance": RESUME_TOL,
             "runs": gaps, "held_with": next(reversed(gaps)),
             "checkpoint_bit_exact_leaves": len(pairs),
             "printed": [ln for ln in text.splitlines()
@@ -4685,6 +4717,477 @@ def phase_lm(ks, card):
             "self_check": self_check, "timed": timed,
             "reduced": LM_CUTS, "kernel_launches": launched,
             "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# --------------------------------------------------------------------------
+# The GNN family: four reduced configs against the CPU, each at its
+# published widths on three cells, SchNet on ogb_products' nodes
+# --------------------------------------------------------------------------
+
+GNN_ARCHS = ("graphcast", "dimenet", "equiformer-v2", "schnet")
+GNN_LOSS_TOL = 1e-5    # reduced configs, card against CPU: the loss,
+#                        relative (DIN's bound in phase train)
+GNN_TOL = 1e-4         # the forward outputs, and every parameter and
+#                        moment after one AdamW step, relative in norm
+# leaves whose gradient is zero in exact arithmetic: EquiformerV2's last
+# attention bias, a per-head shift of logits that a segment softmax
+# normalises away (see gnn_small_case)
+GNN_SHIFT_INVARIANT = "attn/l1/b"
+GNN_NOISE = 1e-6
+GNN_CELLS = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_WARMUP = 2
+GNN_STEPS = 5
+GNN_SEED = 3
+GNN_FANOUTS = (15, 10)
+GNN_SEEDS = 1024       # minibatch_lg's seed nodes a step
+# (arch, cell) -> seed nodes a step where the cell's 1,024 do not fit:
+# the activations a step keeps grow with nodes and edges (counted once
+# per save, an upper bound, by ``repro_torch.models.gnn.memory``)
+GNN_CUTS = {
+    ("equiformer-v2", "minibatch_lg"): (
+        128, "seeds 1,024 -> 128: 2.49 MB a node and 1.49 MB an edge of "
+             "saved activations (12 layers of (49, 128) irreps; "
+             "gnn.memory) is ~660 GB at 1,024 seeds; 29.6 GB measured at "
+             "64 seeds on an H100 80GB, ~59 GB at 128"),
+    ("graphcast", "minibatch_lg"): (
+        640, "seeds 1,024 -> 640: 251 KB a node and 306 KB an edge of "
+             "saved activations (16 layers of 512-wide MLPs on (E, 1,536) "
+             "concatenations; gnn.memory) is ~92 GB at 1,024 seeds; 49.0 "
+             "GB measured at 512 on an H100 80GB, ~61 GB at 640"),
+}
+OGB_CELL = "ogb_products"
+OGB_EDGE_CUT = 8       # SchNet on ogb_products: 1/8 of its edges
+OGB_STEPS = 2
+OGB_CUT = ("edges 61,859,140 -> 7,732,736 (1/8, rounded up to 512): "
+           "8.3 KB an edge and 4.0 KB a node of saved activations at f = "
+           "100 (the (E, 300) RBF and three (E, 64) filter MLPs; "
+           "gnn.memory) is ~520 GB whole; 46.6 GB measured at 1/10 on an "
+           "H100 80GB, ~57 GB at 1/8; nodes (2,449,029) whole")
+GNN_ROTATIONS = 3
+GNN_INVARIANCE_TOL = 1e-3   # the reference's test_equiformer_invariance
+GNN_RESUME_ARGS = ("--arch", "schnet", "--steps", "30", "--ckpt-every",
+                   "10")
+
+
+def gnn_module(arch):
+    import importlib
+
+    return importlib.import_module(
+        f"repro_torch.models.gnn.{arch.replace('-', '_')}")
+
+
+def gnn_small_case(arch, dev):
+    """``arch``'s reduced config on the launcher's molecules
+    (``launch.train.build``: parameters from a CPU generator, seed 0,
+    ``molecule_batches(12, 32, 8)``) on the card against the CPU: the
+    forward outputs, the loss and one AdamW step (the launcher's
+    settings).  The largest errors, and the leaf that has the largest
+    state error.
+
+    A leaf of GNN_SHIFT_INVARIANT (a bias of per-head logits that a
+    softmax over edges follows) has a gradient that is zero in exact
+    arithmetic, so each device's is rounding noise and Adam's normalised
+    step moves the leaf by about +-lr on either, in no common direction:
+    its parameter and moments are held instead to be noise, their
+    largest moment below GNN_NOISE times the largest of any leaf."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.tree import walk
+    from repro_torch.launch import train as LT
+    from repro_torch.models.gnn.common import flatten_molecules
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    mod = gnn_module(arch)
+    cfg = get_arch(arch).make_config(reduced=True)
+    out = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        params, loss_fn, data, to_dev = LT.build(arch, device=d)
+        b = to_dev(next(data))
+        if arch == "graphcast":   # the launcher's features (seed 1)
+            b["feat"] = torch.randn(
+                b["pos"].shape[:2] + (cfg.n_vars,),
+                generator=torch.Generator().manual_seed(1)).to(d)
+        with torch.no_grad():
+            fwd = mod.apply(params, flatten_molecules(b), cfg)
+        step = make_train_step(loss_fn, AdamWConfig(
+            lr=3e-3, warmup_steps=10, total_steps=100))
+        p1, o1, m = step(params, adamw_init(params), b)
+        out[where] = (fwd.cpu().double(), float(m["loss"]), {
+            k: x.cpu().double()
+            for k, x in walk({"params": p1, "m": o1.m, "v": o1.v})})
+    (f0, l0, t0), (f1, l1, t1) = out["cpu"], out["card"]
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    noisy = [k for k in t0 if k.endswith(GNN_SHIFT_INVARIANT)]
+    errs = {k: rel(t1[k], t0[k]) for k in t0 if k not in noisy}
+    worst = max(errs, key=errs.get)
+    m_max = max(float(t[k].abs().max()) for t in (t0, t1) for k in t
+                if k.startswith("m/"))
+    noise = max([float(t[k].abs().max()) / m_max for t in (t0, t1)
+                 for k in noisy if k.startswith("m/")], default=0.0)
+    rec = {"arch": arch, "forward_rel_err_norm": rel(f1, f0),
+           "loss_rel_err": abs(l1 - l0) / max(abs(l0), 1e-30),
+           "state_rel_err_norm": errs[worst], "worst_leaf": worst,
+           "shift_invariant_leaves": len(noisy) // 3,
+           "shift_invariant_moment_share": noise, "loss": l0}
+    if not (np.isfinite(l1) and rec["forward_rel_err_norm"] <= GNN_TOL
+            and rec["loss_rel_err"] <= GNN_LOSS_TOL
+            and rec["state_rel_err_norm"] <= GNN_TOL
+            and noise <= GNN_NOISE):
+        raise AssertionError(f"GNN {arch} on the card != CPU: {rec}")
+    return rec
+
+
+def products_csr(seed=GNN_SEED):
+    """A seeded CSR with ogb_products' 2,449,029 nodes and its mean
+    degree (25.3): Poisson degrees, uniform neighbours."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.core.graph import CSR
+
+    n, e = GNN_SHAPES[OGB_CELL]["n"], GNN_SHAPES[OGB_CELL]["e"]
+    rng = np.random.default_rng(seed)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(rng.poisson(e / n, n), out=indptr[1:])
+    return CSR(indptr, rng.integers(0, n, int(indptr[-1]), dtype=np.int32))
+
+
+def gnn_graph(cell, step, seeds, csr):
+    """Step ``step``'s graph of a graph cell as host arrays: positions
+    and features synthesised from the seed, full_graph_sm's 2,708 nodes
+    and 10,556 random edges, or minibatch_lg's block of ``seeds`` seed
+    nodes sampled over ``csr`` (``sample_blocks``, fan-outs 15 and 10),
+    both padded to the cell's shape (at ``seeds``) with masked edges on
+    the last node.  (arrays, real edges, real nodes)."""
+    from repro_torch.configs.base import GNN_SHAPES, round_up
+    from repro_torch.data import sample_blocks
+
+    s = GNN_SHAPES[cell]
+    rng = np.random.default_rng([GNN_SEED, step])
+    if cell == "minibatch_lg":
+        blk = sample_blocks(csr, rng.choice(csr.n, seeds, replace=False),
+                            GNN_FANOUTS, rng)
+        src = np.concatenate([l[0] for l in blk.layers])
+        dst = np.concatenate([l[1] for l in blk.layers])
+        n_real = blk.n_nodes
+        e_cell = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
+        n_pad, e_pad = round_up(seeds + e_cell), round_up(e_cell)
+    else:
+        n_real, e_real = s["n"], s["e"]
+        src = rng.integers(0, n_real, e_real)
+        dst = (src + 1 + rng.integers(0, n_real - 1, e_real)) % n_real
+        n_pad, e_pad = round_up(n_real), round_up(e_real)
+    E = len(src)
+    edge_src = np.full(e_pad, n_pad - 1, np.int32)
+    edge_dst = np.full(e_pad, n_pad - 1, np.int32)
+    edge_src[:E], edge_dst[:E] = src, dst
+    return {"pos": rng.standard_normal((n_pad, 3), dtype=np.float32) * 2,
+            "feat": rng.standard_normal((n_pad, s["f"]), dtype=np.float32),
+            "edge_src": edge_src, "edge_dst": edge_dst,
+            "edge_mask": np.arange(e_pad) < E,
+            "node_mask": np.arange(n_pad) < n_real,
+            "energy": np.float32(rng.standard_normal())}, E, n_real
+
+
+def gnn_batch(arch, graph, E, step):
+    """``graph`` (a molecule batch or ``gnn_graph``'s arrays of step
+    ``step``) with what ``arch``'s loss reads: DimeNet's triplets over
+    the ``E`` real edges (256 a molecule; 2 E rounded up to 512 on a
+    graph), GraphCast's target (0.9 times its features, the launcher's
+    rule; on molecules, features of 16 a node drawn from the seed)."""
+    from repro_torch.configs.base import (MOLECULE_TRIPLETS, MOLECULE_VARS,
+                                          gnn_triplets)
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    b = dict(graph)
+    molecule = b["pos"].ndim == 3
+    if arch == "dimenet":
+        if molecule:
+            trip = [build_triplets(s, d, b["pos"].shape[1],
+                                   MOLECULE_TRIPLETS)
+                    for s, d in zip(b["edge_src"], b["edge_dst"])]
+            trip = [np.stack(t) for t in zip(*trip)]
+        else:
+            T = gnn_triplets(len(b["edge_src"]))
+            trip = build_triplets(b["edge_src"][:E], b["edge_dst"][:E],
+                                  len(b["pos"]), T)
+        b.update(zip(("id_kj", "id_ji", "triplet_mask"), trip))
+    if arch == "graphcast":
+        if molecule:
+            rng = np.random.default_rng([GNN_SEED, step, 1])
+            b["feat"] = rng.standard_normal(
+                b["pos"].shape[:2] + (MOLECULE_VARS,)).astype(np.float32)
+        b["target"] = b["feat"] * np.float32(0.9)
+        b.pop("energy")
+    return b
+
+
+def gnn_cell(arch, cell, dev, graphs, prof):
+    """``arch`` at its published widths on ``cell``: the cell's step
+    (``Cell.build``), parameters from a CPU generator (seed 0),
+    GNN_WARMUP + GNN_STEPS AdamW steps on the card, a new batch each
+    (uploaded within the step's time): ms a step (host clock; the loss
+    read back syncs), graphs or real edges a second, the bytes allocated
+    before and at the peak, every loss finite and every parameter moved;
+    ``prof``: one more step under torch.profiler (busy µs, top
+    operations)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES, _gnn_batch_meta
+    from repro_torch.models.nn import count_params, tree_to
+    from repro_torch.train import adamw_init
+    from repro_torch.train.optim import tree_leaves
+
+    s = GNN_SHAPES[cell]
+    spec = get_arch(arch)
+    step, (p_meta, _, b_meta) = spec.cells[cell].build()
+    cfg = spec.make_config(d_feat=None if s["batched"] else s["f"],
+                           shape=cell)
+    seeds, cut = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))
+    batches = [gnn_batch(arch, g, E, i) for i, (g, E, _) in
+               enumerate(graphs)]
+    if seeds != GNN_SEEDS:   # the cell's layout at fewer seeds
+        e_cut = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
+        b_meta = _gnn_batch_meta(arch, dict(s, n=seeds + e_cut, e=e_cut))
+    got = {k: (tuple(np.shape(v)), np.asarray(v).dtype.name)
+           for k, v in batches[0].items()}
+    want = {k: (tuple(v.shape), str(v.dtype).split(".")[1])
+            for k, v in b_meta.items()}
+    if got != want:
+        raise AssertionError(f"{arch} {cell}: batch {got} != cell {want}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = start = gnn_module(arch).init_params(
+        torch.Generator().manual_seed(0), cfg, device=dev)
+    if [x.shape for x in tree_leaves(params)] != [
+            x.shape for x in tree_leaves(p_meta)]:
+        raise AssertionError(f"{arch} {cell}: parameter shapes differ")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    ms, losses = [], []
+    for i, b in enumerate(batches):
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, tree_to(
+            {k: torch.as_tensor(v) for k, v in b.items()}, dev))
+        losses.append(float(m["loss"]))          # syncs with the card
+        if i >= GNN_WARMUP:
+            ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = [not torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                   tree_leaves(start))]
+    if not (all(np.isfinite(losses)) and all(moved)
+            and int(opt.step) == len(batches)):
+        raise AssertionError(f"{arch} {cell}: losses {losses}, moved "
+                             f"{sum(moved)} of {len(moved)}")
+    med = float(np.median(ms))
+    rec = {"params": count_params(params), "ms_per_step": ms,
+           "ms_per_step_median": med, "peak_bytes": int(peak),
+           "base_bytes": int(base), "losses": losses}
+    if s["batched"]:
+        rec["graphs_per_s"] = s["batch"] / med * 1e3
+    else:
+        rec.update(nodes=int(graphs[0][2]), edges=int(graphs[0][1]),
+                   padded_edges=int(len(batches[0]["edge_src"])),
+                   edges_per_s=float(np.mean([E for _, E, _ in graphs[
+                       GNN_WARMUP:]])) / med * 1e3)
+    if cut:
+        rec.update(seeds=seeds, reduced=cut)
+    if prof:
+        dev_b = tree_to({k: torch.as_tensor(v) for k, v in
+                         batches[-1].items()}, dev)
+        busy = busy_us(lambda: step(params, opt, dev_b), 1)
+        rec.update(busy)
+        if busy["device_busy_us_per_batch"] is not None:
+            rec["busy_share"] = busy["device_busy_us_per_batch"] / (
+                med * 1e3)
+    del params, opt, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gnn_products(dev):
+    """ogb_products: the four cells built on meta (the bytes of the
+    parameters, the AdamW state and the batch); then SchNet on the
+    card at ogb_products' nodes (f = 100) with its edges cut
+    (OGB_CUT), graph and features made on the card from a seed,
+    OGB_STEPS steps: ms each, the peak."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES, round_up
+    from repro_torch.models.nn import tree_to
+    from repro_torch.train import adamw_init
+    from repro_torch.train.optim import tree_leaves
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    meta = {}
+    for arch in GNN_ARCHS:
+        _, (p, o, b) = get_arch(arch).cells[OGB_CELL].build()
+        meta[arch] = {"param_bytes": nbytes(p),
+                      "opt_bytes": nbytes(o._asdict()),
+                      "batch_bytes": nbytes(b)}
+    s = GNN_SHAPES[OGB_CELL]
+    spec = get_arch("schnet")
+    step = spec.cells[OGB_CELL].build()[0]
+    cfg = spec.make_config(d_feat=s["f"], shape=OGB_CELL)
+    N, E = round_up(s["n"]), round_up(-(-s["e"] // OGB_EDGE_CUT))
+    gen = torch.Generator(dev).manual_seed(GNN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = {"pos": torch.randn((N, 3), generator=gen, device=dev) * 2,
+         "feat": torch.randn((N, s["f"]), generator=gen, device=dev),
+         "edge_src": torch.randint(0, s["n"], (E,), generator=gen,
+                                   device=dev, dtype=torch.int32),
+         "edge_dst": torch.randint(0, s["n"], (E,), generator=gen,
+                                   device=dev, dtype=torch.int32),
+         "edge_mask": torch.ones(E, dtype=torch.bool, device=dev),
+         "node_mask": torch.arange(N, device=dev) < s["n"],
+         "energy": torch.randn((), generator=gen, device=dev)}
+    params = gnn_module("schnet").init_params(
+        torch.Generator().manual_seed(0), cfg, device=dev)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    ms, losses = [], []
+    for _ in range(OGB_STEPS):
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ogb_products schnet: losses {losses}")
+    del params, opt, b
+    torch.cuda.empty_cache()
+    return {"meta": meta, "schnet": {
+        "nodes": s["n"], "edges": E, "cell_edges": s["e"], "f": s["f"],
+        "reduced": OGB_CUT, "ms_per_step": ms, "losses": losses,
+        "edges_per_s": E / ms[-1] * 1e3, "peak_bytes": int(peak),
+        "base_bytes": int(base)}}
+
+
+def gnn_invariance(dev):
+    """EquiformerV2 at its published widths (l_max 6, 12 layers) on the
+    card: one molecule of the molecule cell's stream, its energy under
+    GNN_ROTATIONS random rotations within GNN_INVARIANCE_TOL relative."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data import molecule_batches
+
+    s = GNN_SHAPES["molecule"]
+    cfg = get_arch("equiformer-v2").make_config()
+    mod = gnn_module("equiformer-v2")
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg,
+                             device=dev)
+    m = next(molecule_batches(s["n"], s["e"], 1, seed=GNN_SEED))
+    b = {k: torch.as_tensor(v[0], device=dev) for k, v in m.items()}
+    rng = np.random.default_rng(GNN_SEED)
+    with torch.no_grad():
+        e0 = float(mod.apply(params, b, cfg))
+        es = []
+        for _ in range(GNN_ROTATIONS):
+            Q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+            if np.linalg.det(Q) < 0:
+                Q[:, 0] *= -1
+            q = torch.as_tensor(Q.T, dtype=torch.float32, device=dev)
+            es.append(float(mod.apply(params, dict(b, pos=b["pos"] @ q),
+                                      cfg)))
+    worst = max(abs(e - e0) for e in es) / max(1.0, abs(e0))
+    rec = {"config": "equiformer-v2 l_max 6, 12 layers", "energy": e0,
+           "rotated": es, "rel_err": worst, "tolerance": GNN_INVARIANCE_TOL}
+    if not worst < GNN_INVARIANCE_TOL:
+        raise AssertionError(f"EquiformerV2 not invariant: {rec}")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gnn_example():
+    """The port's ``examples/gnn_molecules.py`` on the card (its own
+    asserts: SchNet's MSE descends, EquiformerV2's energy invariant)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import gnn_molecules
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        losses, (e0, e1) = gnn_molecules.main(["--device", DEVICE])
+    return {"mse_first5": float(np.mean(losses[:5])),
+            "mse_last5": float(np.mean(losses[-5:])),
+            "equiformer_delta": abs(e0 - e1),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_gnn(ks, card):
+    """The GNN family on the card, float32 products without TF32: the
+    four reduced configs against the CPU (``gnn_small_case``); each at
+    its published widths on molecule, full_graph_sm and minibatch_lg
+    (``gnn_cell``, cut as GNN_CUTS says; one step profiled at
+    molecule); ogb_products on meta and SchNet on its nodes
+    (``gnn_products``); EquiformerV2's invariance at l_max 6, the
+    ``gnn_molecules`` example, and the train launcher's crash and resume
+    on SchNet.  No kernel of the port lies on this path: the counts are
+    reset before and read after."""
+    import torch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data import molecule_batches
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    ks.reset()
+    small = [gnn_small_case(a, dev) for a in GNN_ARCHS]
+    t1 = time.perf_counter()
+    csr = products_csr()
+    t_csr = time.perf_counter() - t1
+    ms = GNN_SHAPES["molecule"]
+    mol = molecule_batches(ms["n"], ms["e"], ms["batch"], seed=GNN_SEED)
+    graphs = {"molecule": [
+        (dict(b, node_mask=np.ones(b["pos"].shape[:2], bool)), None, None)
+        for b in (next(mol) for _ in range(GNN_WARMUP + GNN_STEPS))]}
+    cells, host_s = {}, {}
+    for arch in GNN_ARCHS:
+        for cell in GNN_CELLS:
+            seeds = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))[0]
+            key = (cell, seeds) if cell == "minibatch_lg" else cell
+            if key not in graphs:
+                t2 = time.perf_counter()
+                graphs[key] = [gnn_graph(cell, i, seeds, csr) for i in
+                               range(GNN_WARMUP + GNN_STEPS)]
+                host_s[str(key)] = round(time.perf_counter() - t2, 3)
+            cells.setdefault(arch, {})[cell] = gnn_cell(
+                arch, cell, dev, graphs[key], prof=cell == "molecule")
+    del graphs, csr
+    t3 = time.perf_counter()
+    products = gnn_products(dev)
+    t4 = time.perf_counter()
+    invariance = gnn_invariance(dev)
+    example = gnn_example()
+    resume = launcher_resume_check(GNN_RESUME_ARGS)
+    launched = {k: n for k, n in ks.counts().items() if n}
+    return {"card": card, "reduced_vs_cpu": small,
+            "tolerance": GNN_TOL, "loss_tolerance": GNN_LOSS_TOL,
+            "cells": cells, "reduced": {f"{a} {c}": why for (a, c), (_, why)
+                                        in GNN_CUTS.items()},
+            "ogb_products": products, "invariance": invariance,
+            "example": example, "launcher_resume": resume,
+            "kernel_launches": launched,
+            "tf32": torch.backends.cuda.matmul.allow_tf32,
+            "seconds": {"reduced": round(t1 - t0, 3),
+                        "products_csr": round(t_csr, 3),
+                        "host_batches": host_s,
+                        "cells": round(t3 - t1 - t_csr - sum(
+                            host_s.values()), 3),
+                        "ogb_products": round(t4 - t3, 3),
+                        "total": round(time.perf_counter() - t0, 3)}}
 
 
 # --------------------------------------------------------------------------
@@ -4992,6 +5495,8 @@ def main() -> int:
     ap.add_argument("--ab", metavar="SRC",
                     help="time K1-K7, K9, K10 and DIN's serving with "
                          "the package under SRC only (phase_ab)")
+    ap.add_argument("--gnn", action="store_true",
+                    help="run phase gnn alone (no kernel is built)")
     a = ap.parse_args()
     try:
         import torch
@@ -5017,6 +5522,9 @@ def main() -> int:
     if a.ab:
         phase_build(_build)
         phase_ab(ks, card, a.ab)
+        return 0
+    if a.gnn:
+        emit("gnn", ok=True, **phase_gnn(ks, card))
         return 0
     import scipy
 
@@ -5057,7 +5565,10 @@ def main() -> int:
                                           k9_calls, card)
     bag_paths, bag_err, bag_timed = phase_recsys(ks, card)
     errs["segment_bag"] = max(errs["segment_bag"], bag_err)
-    emit("lm", ok=True, **phase_lm(ks, card))
+    lm = phase_lm(ks, card)
+    emit("lm", ok=True, **lm)
+    gnn = phase_gnn(ks, card)
+    emit("gnn", ok=True, **gnn)
     emit("obs_trace", ok=True, **phase_obs_trace(ks, engines))
     srv = phase_serve(ks, engines, indexes)
     emit("serve", ok=True, **srv)
@@ -5128,6 +5639,9 @@ def main() -> int:
         for k, n in counts.items():
             per_path[k][f"serve {path}"] = n
     per_path["segment_bag"] = bag_paths
+    for k in KERNELS:   # the model paths launch no kernel of the port
+        per_path[k]["lm"] = lm["kernel_launches"].get(k, 0)
+        per_path[k]["gnn"] = gnn["kernel_launches"].get(k, 0)
     emit("timers", **TIMERS)
     timed = {"fused_serve": per_mode["reach"], **two, **slice3,
              "range_query": {**slice4[next(iter(engines))],

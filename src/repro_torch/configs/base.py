@@ -1,5 +1,5 @@
 """Architecture/cell registry (the port of ``repro.configs.base``: the
-LM and recsys families).
+LM, GNN and recsys families).
 
 An ``ArchSpec`` names an architecture, its family, a config factory (full
 or reduced), and its shape cells.  A ``Cell`` knows how to produce, for
@@ -120,6 +120,129 @@ def lm_cells(name: str, cfg_fn) -> Dict[str, Cell]:
             b = _lm_decode_builder(cfg_fn, s["seq"], s["batch"])
         out[shape] = Cell(arch=name, shape=shape, kind=s["kind"], builder=b)
     return out
+
+
+# ==========================================================================
+# GNN family
+# ==========================================================================
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n=2708, e=10556, f=1433,
+                          batched=False),
+    "minibatch_lg": dict(kind="train", n=1024 + 1024 * 15 + 1024 * 15 * 10,
+                         e=1024 * 15 + 1024 * 15 * 10, f=602,
+                         batched=False, sampled=True),
+    "ogb_products": dict(kind="train", n=2_449_029, e=61_859_140, f=100,
+                         batched=False),
+    "molecule": dict(kind="train", n=30, e=64, f=None, batched=True,
+                     batch=128),
+}
+MOLECULE_TRIPLETS = 256    # DimeNet's triplet budget a molecule
+MOLECULE_VARS = 16         # GraphCast's n_vars on the molecule cell
+
+
+def gnn_triplets(e: int, triplet_factor: int = 2) -> int:
+    """DimeNet's triplet budget on a graph cell of ``e`` edges."""
+    return round_up(min(triplet_factor * e, 1 << 26))
+
+
+def _gnn_batch_meta(arch: str, s: Dict, triplet_factor: int = 2):
+    """The batch of a GNN cell as ``meta`` tensors (the reference's
+    ``_gnn_batch_sds`` without its shardings): graph dims rounded up to
+    multiples of 512, padding masked."""
+    if s["batched"]:
+        B, n, e = s["batch"], s["n"], s["e"]
+
+        def bs(shape, dtype):
+            return _meta((B,) + shape, dtype)
+
+        batch = {
+            "pos": bs((n, 3), torch.float32),
+            "species": bs((n,), torch.int32),
+            "edge_src": bs((e,), torch.int32),
+            "edge_dst": bs((e,), torch.int32),
+            "edge_mask": bs((e,), torch.bool),
+            "node_mask": bs((n,), torch.bool),
+            "energy": bs((), torch.float32),
+        }
+        if arch == "dimenet":
+            T = MOLECULE_TRIPLETS
+            batch["id_kj"] = bs((T,), torch.int32)
+            batch["id_ji"] = bs((T,), torch.int32)
+            batch["triplet_mask"] = bs((T,), torch.bool)
+        if arch == "graphcast":
+            f = MOLECULE_VARS
+            batch["feat"] = bs((n, f), torch.float32)
+            batch["target"] = bs((n, f), torch.float32)
+            batch.pop("energy")
+        return batch
+    n, e, f = round_up(s["n"]), round_up(s["e"]), s["f"]
+    batch = {
+        "pos": _meta((n, 3), torch.float32),
+        "feat": _meta((n, f), torch.float32),
+        "edge_src": _meta((e,), torch.int32),
+        "edge_dst": _meta((e,), torch.int32),
+        "edge_mask": _meta((e,), torch.bool),
+        "node_mask": _meta((n,), torch.bool),
+    }
+    if arch == "graphcast":
+        batch["target"] = _meta((n, f), torch.float32)
+    else:
+        batch["energy"] = _meta((), torch.float32)
+    if arch == "dimenet":
+        T = gnn_triplets(e, triplet_factor)
+        batch["id_kj"] = _meta((T,), torch.int32)
+        batch["id_ji"] = _meta((T,), torch.int32)
+        batch["triplet_mask"] = _meta((T,), torch.bool)
+    return batch
+
+
+def _gnn_loss(arch: str, module, cfg, batched: bool):
+    def graph_energy_loss(params, batch):
+        # geometric models on feature graphs: graph-scalar regression
+        pred = module.apply(params, batch, cfg)
+        return ((pred - batch["energy"]) ** 2, {})
+
+    def graphcast_loss(params, batch):
+        return (module.loss_fn(params, batch, cfg), {})
+
+    def batched_loss(params, batch):
+        if arch == "graphcast":
+            return (module.molecule_loss(params, batch, cfg), {})
+        # the molecular losses flatten the batch themselves
+        return (module.loss_fn(params, batch, cfg), {})
+
+    if batched:
+        return batched_loss
+    if arch == "graphcast":
+        return graphcast_loss
+    return graph_energy_loss
+
+
+def _gnn_builder(name: str, module, cfg_fn, shape: str):
+    s = GNN_SHAPES[shape]
+
+    def build():
+        from ..train import AdamWConfig, adamw_init, make_train_step
+
+        # feature-graph cells need d_feat wired into the config
+        cfg = cfg_fn(d_feat=None if s["batched"] else s["f"], shape=shape)
+        p_meta = module.param_shapes(cfg)
+        o_meta = adamw_init(p_meta)
+        b_meta = _gnn_batch_meta(name, s)
+        step = make_train_step(_gnn_loss(name, module, cfg, s["batched"]),
+                               AdamWConfig())
+        return step, (p_meta, o_meta, b_meta)
+
+    return build
+
+
+def gnn_cells(name: str, module, cfg_fn) -> Dict[str, Cell]:
+    return {
+        shape: Cell(arch=name, shape=shape, kind=GNN_SHAPES[shape]["kind"],
+                    builder=_gnn_builder(name, module, cfg_fn, shape))
+        for shape in GNN_SHAPES
+    }
 
 
 # ==========================================================================

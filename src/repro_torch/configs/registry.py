@@ -1,13 +1,16 @@
-"""The ported architectures, importable by id (the reference's
-``repro.configs.registry``, in its order; the GNN configs come with
-their family's port)."""
+"""All assigned architectures, importable by id (the port of
+``repro.configs.registry``, in its order)."""
 from . import (
     deepseek_v3_671b,
+    dimenet,
     din,
+    equiformer_v2,
     gemma2_2b,
     gemma3_12b,
+    graphcast,
     h2o_danube_1_8b,
     llama4_maverick_400b_a17b,
+    schnet,
 )
 
 _MODULES = (
@@ -16,6 +19,10 @@ _MODULES = (
     gemma3_12b,
     h2o_danube_1_8b,
     gemma2_2b,
+    graphcast,
+    dimenet,
+    equiformer_v2,
+    schnet,
     din,
 )
 
@@ -31,7 +38,7 @@ def get_arch(name: str):
 
 
 def all_cells():
-    """[(arch, shape, Cell)]."""
+    """[(arch, shape, Cell)] — the 40 cells."""
     out = []
     for name in ARCHS:
         spec = get_arch(name)

@@ -16,7 +16,9 @@ dict, with each array as a tensor.  Both keep a dense layer as ``w``
 step and moments) across the same way, so training can continue from a
 state that is not zero.  :func:`lm_params_from_jax` carries an LM
 parameter tree (``repro_torch.models.lm``) across in the reference's
-layout.  Every leaf converts bit for bit, the reference's bf16 and
+layout.  :func:`gnn_params_from_jax` carries a GNN parameter tree
+(``repro_torch.models.gnn``: SchNet, DimeNet, GraphCast or
+EquiformerV2) across the same way.  Every leaf converts bit for bit, the reference's bf16 and
 float8 leaves (``ml_dtypes``, which ``torch.from_numpy`` cannot read)
 included.
 """
@@ -186,6 +188,35 @@ def lm_params_from_jax(tree, device: DeviceLike = None):
             and keys <= _LM_KEYS | _LM_OPTIONAL | segs):
         raise ValueError(f"not an LM parameter tree: keys {sorted(keys)}")
     return _tree_from_jax(tree, dev)
+
+
+# per GNN: (the keys it always has, the prefix of its numbered blocks,
+# the keys it may have)
+_GNN_TREES = {
+    "schnet": ({"out"}, "int", {"embed", "enc"}),
+    "dimenet": ({"embed", "rbf_proj", "msg_init", "out_final"}, "blk",
+                {"enc"}),
+    "graphcast": ({"enc_node", "enc_edge", "dec", "proc"}, None, set()),
+    "equiformer-v2": ({"out"}, "layer", {"embed", "enc"}),
+}
+
+
+def gnn_params_from_jax(tree, device: DeviceLike = None):
+    """The port's GNN parameters (``repro_torch.models.gnn``) from the
+    reference's tree of SchNet, DimeNet, GraphCast or EquiformerV2, on
+    ``device`` (``None``: the GPU).  The layout is kept exactly: dense
+    weights ``(d_in, d_out)``, DimeNet's ``bilin`` ``(nb, nb, d)`` and
+    GraphCast's processor ``proc`` stacked on a leading ``n_layers``
+    dim."""
+    dev = resolve_device(device)
+    keys = set(tree)
+    for need, prefix, may in _GNN_TREES.values():
+        blocks = {k for k in keys if prefix and k.startswith(prefix)
+                  and k[len(prefix):].isdigit()}
+        if (need <= keys <= need | may | blocks
+                and bool(blocks) == bool(prefix)):
+            return _tree_from_jax(tree, dev)
+    raise ValueError(f"not a GNN parameter tree: keys {sorted(keys)}")
 
 
 def _leaf_to_tensor(node, dev: torch.device, key: str) -> torch.Tensor:

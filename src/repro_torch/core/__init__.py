@@ -29,17 +29,29 @@ from .oracle import (
     rangereach_oracle_batch,
     reachable_mask,
 )
+from .polygon import (
+    convex_halfplanes,
+    points_in_convex_polygon,
+    points_in_polygon_region,
+    polygon_bbox,
+    polygon_oracle,
+    polygon_query,
+)
 from .reachability import (
     ClosureResult,
+    closure_bitset_mm,
     closure_mbr_np,
     closure_np,
     closure_torch,
 )
 from .rtree import (
     DEFAULT_FANOUT,
+    DeviceForest,
     RTreeForest,
     build_forest,
+    build_forest_device,
     query_host,
+    query_host_collect,
     query_host_collect_batch,
     query_host_count,
     query_host_knn,
@@ -60,8 +72,13 @@ __all__ = [
     "knn_reach_oracle", "polygon_reach_oracle",
     "range_collect_oracle", "range_count_oracle", "rangereach_oracle",
     "rangereach_oracle_batch", "reachable_mask",
-    "ClosureResult", "closure_mbr_np", "closure_np", "closure_torch",
-    "DEFAULT_FANOUT", "RTreeForest", "build_forest", "query_host",
+    "convex_halfplanes", "points_in_convex_polygon",
+    "points_in_polygon_region", "polygon_bbox",
+    "polygon_oracle", "polygon_query",
+    "ClosureResult", "closure_bitset_mm", "closure_mbr_np", "closure_np",
+    "closure_torch",
+    "DEFAULT_FANOUT", "DeviceForest", "RTreeForest", "build_forest",
+    "build_forest_device", "query_host", "query_host_collect",
     "query_host_collect_batch", "query_host_count", "query_host_knn",
     "query_wavefront",
     "compact_labels", "scc_np",

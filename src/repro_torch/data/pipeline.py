@@ -1,5 +1,5 @@
-"""Host-side input pipelines (the port of ``repro.data.pipeline``, the
-LM and recsys parts), shardable across data-parallel hosts.
+"""Host-side input pipelines (the port of ``repro.data.pipeline``: LM
+tokens, DIN batches, batched molecules), shardable across data-parallel hosts.
 
 Deterministic, step-keyed synthetic data: after a restart at step k,
 host h regenerates exactly the batch it would have seen, so no
@@ -93,5 +93,54 @@ def din_batches(
             "hist_mask": mask,
             "target_item": target.astype(np.int32),
             "label": label,
+        }
+        step += 1
+
+
+def molecule_batches(
+    n_nodes: int,
+    n_edges: int,
+    batch: int,
+    n_species: int = 10,
+    seed: int = 0,
+    shard: ShardInfo = ShardInfo(),
+    start_step: int = 0,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Random 3-D point-cloud molecules with radius-graph edges, padded to
+    (n_nodes, n_edges) per molecule with masked edges 0 -> 0; regression
+    target = a smooth function of pairwise distances (so message passing
+    must use geometry)."""
+    b = shard.slice_of(batch) if batch >= shard.n_hosts else batch
+    step = start_step
+    while True:
+        rng = _rng(seed, step, shard.host_id)
+        pos = rng.standard_normal((b, n_nodes, 3)).astype(np.float32) * 2.0
+        species = rng.integers(0, n_species, size=(b, n_nodes))
+        src = np.zeros((b, n_edges), dtype=np.int32)
+        dst = np.zeros((b, n_edges), dtype=np.int32)
+        for i in range(b):
+            d = np.linalg.norm(pos[i][:, None] - pos[i][None], axis=-1)
+            np.fill_diagonal(d, np.inf)
+            cand = np.argwhere(d < 3.0)
+            if len(cand) == 0:
+                cand = np.array([[0, 1]])
+            if len(cand) > n_edges:
+                cand = cand[rng.choice(len(cand), n_edges, replace=False)]
+            src[i, : len(cand)] = cand[:, 0]
+            dst[i, : len(cand)] = cand[:, 1]
+        edge_mask = ~((src == 0) & (dst == 0))
+        edge_mask[:, 0] = True
+        dvec = np.take_along_axis(pos, dst[..., None], 1) - np.take_along_axis(
+            pos, src[..., None], 1
+        )
+        dist = np.linalg.norm(dvec, axis=-1)
+        energy = (np.exp(-dist) * edge_mask).sum(1) + 0.1 * species.sum(1)
+        yield {
+            "pos": pos,
+            "species": species.astype(np.int32),
+            "edge_src": src,
+            "edge_dst": dst,
+            "edge_mask": edge_mask,
+            "energy": energy.astype(np.float32),
         }
         step += 1

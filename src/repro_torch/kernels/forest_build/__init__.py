@@ -1,6 +1,7 @@
 """Segmented-MBR reduction for the device R-tree bulk load."""
 
 from .ops import (
+    TN,
     gather_child_slots,
     level_mbr,
     mbr_reduce,
@@ -12,7 +13,7 @@ from .ops import (
 )
 
 __all__ = [
-    "gather_child_slots", "level_mbr", "mbr_reduce",
+    "TN", "gather_child_slots", "level_mbr", "mbr_reduce",
     "np_inert_plane", "seg_mbr", "seg_mbr_torch", "slot_major",
     "tile_pyramid_device",
 ]

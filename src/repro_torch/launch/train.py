@@ -1,5 +1,5 @@
 """Training launcher with checkpoint/restart fault tolerance (the port of
-``repro.launch.train``), the LM and recsys arms.
+``repro.launch.train``), its LM, GNN and recsys arms.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch h2o-danube-1.8b [--steps 100] [--lr 3e-3] [--batch B] \\
@@ -8,7 +8,9 @@
 
 Parameters come from ``init_params`` with an explicit
 ``torch.Generator`` (seed 0); batches from ``lm_batches`` (8 rows of 32
-tokens, as the reference's) or ``din_batches`` (64 rows); the step from
+tokens, as the reference's), ``din_batches`` (64 rows) or, for a GNN,
+``molecule_batches`` (8 molecules of 12 atoms and 32 edges; DimeNet's
+triplets built on the host with a budget of 128 a molecule); the step from
 ``make_train_step`` with the reference's AdamW settings (warm-up 10
 steps, cosine to ``--steps``).  ``--reduced`` (the default) selects the
 smoke-scale config, ``--full`` the published widths.  It trains on
@@ -23,7 +25,9 @@ checkpoints every ``--ckpt-every`` steps and at the end (with
 reference's lines: ``[train] resumed from step N``, ``[train] step N
 loss X (Ts)`` every 10 steps and at the first, ``[train] done``.
 
-The GNN family waits for its port (ROADMAP Queue 1 item 13).
+GraphCast regresses node features: the reference draws them inside its
+loss from ``PRNGKey(1)``, the same every step; the port draws them once
+from a ``torch.Generator`` seeded 1, with the target 0.9 times them.
 """
 
 from __future__ import annotations
@@ -31,19 +35,22 @@ from __future__ import annotations
 import argparse
 import time
 
+import importlib
+
+import numpy as np
 import torch
 
 from ..configs.registry import get_arch
-from ..data import din_batches, lm_batches
+from ..data import din_batches, lm_batches, molecule_batches
 from ..device import DeviceLike, resolve_device
 from ..distributed import CheckpointManager, latest_step, restore_checkpoint
 from ..train import AdamWConfig, adamw_init, make_train_step
 
-# the reference's other architectures, waiting for their family's port
-GNN_ARCHS = ("graphcast", "dimenet", "equiformer-v2", "schnet")
-# rows a batch when --batch is not given: the reference's (LM, recsys)
-BATCH = {"lm": 8, "recsys": 64}
+# rows (molecules for a GNN) a batch when --batch is not given: the
+# reference's
+BATCH = {"lm": 8, "recsys": 64, "gnn": 8}
 LM_SEQ = 32
+GNN_NODES, GNN_EDGES, GNN_TRIPLETS = 12, 32, 128   # a molecule
 
 
 def build(arch_name: str, reduced: bool = True, batch=None,
@@ -52,10 +59,6 @@ def build(arch_name: str, reduced: bool = True, batch=None,
     reference's ``build_reduced``, and the published widths when
     ``reduced`` is false)."""
     dev = resolve_device(device)
-    if arch_name in GNN_ARCHS:
-        raise NotImplementedError(
-            f"{arch_name}: the gnn family comes with the port of its "
-            f"models (ROADMAP Queue 1, item 13)")
     spec = get_arch(arch_name)
     cfg = spec.make_config(reduced=reduced)
     batch = BATCH[spec.family] if batch is None else batch
@@ -69,6 +72,8 @@ def build(arch_name: str, reduced: bool = True, batch=None,
             return lm_loss(p, b, cfg)
 
         data = lm_batches(cfg.vocab, LM_SEQ, batch)
+    elif spec.family == "gnn":
+        return _build_gnn(arch_name, cfg, batch, gen, dev)
     else:
         from ..models.recsys import din
 
@@ -85,6 +90,36 @@ def build(arch_name: str, reduced: bool = True, batch=None,
     return params, loss, data, to_dev
 
 
+def _build_gnn(arch_name, cfg, batch, gen, dev):
+    """The GNN arm of :func:`build`: batched molecules."""
+    mod = importlib.import_module(
+        f"..models.gnn.{arch_name.replace('-', '_')}", __package__)
+    params = mod.init_params(gen, cfg, device=dev)
+    data = molecule_batches(GNN_NODES, GNN_EDGES, batch)
+
+    def to_dev(b):
+        if arch_name == "dimenet":
+            trip = [mod.build_triplets(s, d, GNN_NODES, GNN_TRIPLETS)
+                    for s, d in zip(b["edge_src"], b["edge_dst"])]
+            b = dict(b, **{k: np.stack(v) for k, v in zip(
+                ("id_kj", "id_ji", "triplet_mask"), zip(*trip))})
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    if arch_name == "graphcast":
+        feat = torch.randn((batch, GNN_NODES, cfg.n_vars),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(dev)
+
+        def loss(p, b):
+            b = {k: v for k, v in b.items() if k != "energy"}
+            return mod.molecule_loss(p, dict(b, feat=feat,
+                                             target=feat * 0.9), cfg), {}
+    else:
+        def loss(p, b):
+            return mod.loss_fn(p, b, cfg), {}
+    return params, loss, data, to_dev
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="h2o-danube-1.8b")
@@ -95,7 +130,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--batch", type=int, default=None,
-                    help="rows a batch (default: 8 for an LM, 64 for DIN)")
+                    help="rows a batch (default: 8 for an LM or a GNN's "
+                         "molecules, 64 for DIN)")
     ap.add_argument("--device", default=None,
                     help="where to train (default: the GPU)")
     ap.add_argument("--ckpt-dir", default=None,

@@ -1,6 +1,6 @@
-"""Model substrate (the port of ``repro.models``): the recsys and LM
-families; the GNN family comes with its slice."""
+"""Model substrate (the port of ``repro.models``): the LM, GNN and
+recsys families."""
 
-from . import lm, recsys
+from . import gnn, lm, recsys
 
-__all__ = ["lm", "recsys"]
+__all__ = ["gnn", "lm", "recsys"]

@@ -563,9 +563,7 @@ def test_lm_cells_match_reference_shapes(arch):
 
 
 def test_registry_order_matches_reference():
-    gnn = {"graphcast", "dimenet", "equiformer-v2", "schnet"}
-    assert C.arch_names() == tuple(n for n in RCF.arch_names()
-                                   if n not in gnn)
+    assert C.arch_names() == RCF.arch_names()
 
 
 @pytest.mark.parametrize("seed,gb,shard,start", [

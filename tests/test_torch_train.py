@@ -301,11 +301,14 @@ def test_train_launcher_two_steps_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["graphcast", "schnet"])
-def test_train_launcher_waits_for_lm_and_gnn(arch):
-    """The GNN family still waits for its port; the LM family no longer
-    does (``test_train_launcher_lm_arm_on_cpu``)."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LT.main(["--arch", arch, "--device", "cpu"])
+def test_train_launcher_waits_for_lm_and_gnn(arch, capsys):
+    """Neither family waits any more: the GNN arm trains on the CPU
+    (``tests/test_torch_gnn.py`` holds its loss to the reference's), as
+    the LM arm does (``test_train_launcher_lm_arm_on_cpu``)."""
+    params, opt, metrics = LT.main(["--arch", arch, "--steps", "2",
+                                    "--device", "cpu"])
+    assert "[train] done: 2 steps" in capsys.readouterr().out
+    assert int(opt.step) == 2 and np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v3-671b"])
