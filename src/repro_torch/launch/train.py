@@ -27,7 +27,8 @@ loss X (Ts)`` every 10 steps and at the first, ``[train] done``.
 
 GraphCast regresses node features: the reference draws them inside its
 loss from ``PRNGKey(1)``, the same every step; the port draws them once
-from a ``torch.Generator`` seeded 1, with the target 0.9 times them.
+from a ``torch.Generator`` seeded 1 and ``to_dev`` attaches them to
+every batch as ``feat``, with the target 0.9 times them.
 """
 
 from __future__ import annotations
@@ -91,11 +92,17 @@ def build(arch_name: str, reduced: bool = True, batch=None,
 
 
 def _build_gnn(arch_name, cfg, batch, gen, dev):
-    """The GNN arm of :func:`build`: batched molecules."""
+    """The GNN arm of :func:`build`: batched molecules (GraphCast's
+    carry its features, ``feat``, the same every step)."""
     mod = importlib.import_module(
         f"..models.gnn.{arch_name.replace('-', '_')}", __package__)
     params = mod.init_params(gen, cfg, device=dev)
     data = molecule_batches(GNN_NODES, GNN_EDGES, batch)
+    extra = {}
+    if arch_name == "graphcast":
+        extra["feat"] = torch.randn(
+            (batch, GNN_NODES, cfg.n_vars),
+            generator=torch.Generator().manual_seed(1)).to(dev)
 
     def to_dev(b):
         if arch_name == "dimenet":
@@ -103,17 +110,14 @@ def _build_gnn(arch_name, cfg, batch, gen, dev):
                     for s, d in zip(b["edge_src"], b["edge_dst"])]
             b = dict(b, **{k: np.stack(v) for k, v in zip(
                 ("id_kj", "id_ji", "triplet_mask"), zip(*trip))})
-        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        return {**{k: torch.as_tensor(v, device=dev) for k, v in b.items()},
+                **extra}
 
     if arch_name == "graphcast":
-        feat = torch.randn((batch, GNN_NODES, cfg.n_vars),
-                           generator=torch.Generator().manual_seed(1)
-                           ).to(dev)
-
         def loss(p, b):
             b = {k: v for k, v in b.items() if k != "energy"}
-            return mod.molecule_loss(p, dict(b, feat=feat,
-                                             target=feat * 0.9), cfg), {}
+            return mod.molecule_loss(p, dict(b, target=b["feat"] * 0.9),
+                                     cfg), {}
     else:
         def loss(p, b):
             return mod.loss_fn(p, b, cfg), {}
