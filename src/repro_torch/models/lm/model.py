@@ -528,7 +528,9 @@ def prefill(
     layer's projections: one pass, no per-token loop."""
     B, S = tokens.shape
     x = _embed_tokens(params, tokens, cfg)
-    cache = init_cache(cfg, B, max_len, device=x.device)
+    # a meta prompt (the dry run's prefill cell) gets a meta cache
+    cache = (cache_shapes(cfg, B, max_len) if x.device.type == "meta"
+             else init_cache(cfg, B, max_len, device=x.device))
     positions = _positions(B, S, x.device)
     segs = cfg.scan_segments()
     for si, r, unit, up in _units(params, cfg):

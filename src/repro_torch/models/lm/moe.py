@@ -96,7 +96,11 @@ def _expert_ffn_local(x, w, e, w_gu, w_d, spec: MoESpec, e_start: int,
     st = flat_t[order]
     sw = flat_w[order]
     # position within the expert's group -> capacity slot
-    group_sizes = torch.bincount(se, minlength=e_local + 1)[:e_local]
+    # a scatter of ones, not ``bincount``: it has a meta kernel, and
+    # integer atomics give the same counts on every device
+    group_sizes = torch.zeros(e_local + 1, dtype=torch.int64,
+                              device=dev).scatter_add_(
+        0, se, torch.ones_like(se))[:e_local]
     group_start = torch.cumsum(group_sizes, 0) - group_sizes
     pos = torch.arange(T * k, device=dev) - group_start[
         torch.clamp(se, max=e_local - 1)]
