@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of 2DReach serving, its baselines, the
-recsys substrate's DIN serving and training path, the LM family and the
-GNN family on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of 2DReach serving, its baselines, its
+device build and SCC, the recsys substrate's DIN serving and training
+path, the LM family and the GNN family on one NVIDIA GPU, and count
+the timed model cells' roofline bounds.
 
 Run from the root of a checkout, with one card:
 
@@ -115,7 +116,21 @@ not beside this script, it exits with code 2 and prints no result.
            batches equal the host-built engine's; host and device build
            seconds (closure, forest) and the closure-product and
            segmented-MBR launches per index; each closure-product
-           launch's (f, Wm, m, W) and set bits of A
+           launch's (f, Wm, m, W) and set bits of A.  Then the closure's
+           gather arm (``kernel="gather"``): its bits and K7's equal to
+           ``closure_np`` on the build's closure inputs, no kernel
+           launched; ``device_kernel="gather"`` builds equal to the host
+           build (K8 launched, no K7), adopted, answering as the host
+           does; both arms' closure seconds (median of 3 after a
+           warm-up) and aten ops a level step
+  scc      the device SCC (``scc_torch``, trim + colouring) on the
+           card: equal to its CPU run (labels and sweep counts) on the
+           yelp x1.0 and x0.5 graphs, and at Yelp's real size
+           (``get_dataset("yelp", scale=49.72)``: 2.14M vertices) to
+           ``scc_np``'s partition labelled by each component's largest
+           vertex id; card seconds beside ``scc_np``'s, the trim,
+           propagate and mark sweeps, the colouring rounds and the peak
+           bytes
   legacy   the leaf-scan engine (``range_query_forest``) serving the
            main workload of each index in batches of 256, for the host
            build and the device build: equal to the host index on every
@@ -332,6 +347,14 @@ not beside this script, it exits with code 2 and prints no result.
            ``torch.use_deterministic_algorithms(True)`` where the gap is
            larger); a checkpoint of the resumed run's card tensors and
            their bf16 casts restored onto the card bit for bit
+  dryrun   each model cell timed above counted on meta tensors
+           (``repro_torch.analysis.count_step``) at the shapes it was
+           timed at: gemma2-2b prefill_32k (B = 1), decode_32k (B = 16)
+           and long_500k, the four GNNs on molecule, full_graph_sm and
+           minibatch_lg (GNN_CUTS' seeds, the padded sizes), DIN's
+           train_batch: FLOPs, HBM-floor bytes, the roofline bound
+           (``benchmarks.roofline``: the H100's data-sheet peak for the
+           cell's dtype, HBM3) and the measured ms over it
   timers   the profiler's retries (a window with no device rows, or a
            row whose count is not a multiple of the calls, is profiled
            again), every time taken with CUDA events because no try was
@@ -3032,7 +3055,7 @@ def phase_device_build(ks, indexes, engines):
     indexes and every closure-product launch's operands per index."""
     import torch
     from repro_torch.core import QueryEngine, build_index
-    from repro_torch.core import reachability
+    from repro_torch.core import reachability, two_d_reach
     from repro_torch.core.engine import UPLOAD_COUNTERS
     from repro_torch.kernels.forest_build import ops as fb_ops
 
@@ -3045,7 +3068,9 @@ def phase_device_build(ks, indexes, engines):
         want_k8 = idx.forest.depth + 2
         with Capture(reachability, "bitset_mm",
                      lambda a, r: a.shape[0] * r.shape[1]) as k7, \
-                Capture(fb_ops, "seg_mbr", lambda c: c.numel()) as k8:
+                Capture(fb_ops, "seg_mbr", lambda c: c.numel()) as k8, \
+                Capture(two_d_reach, "closure_bitset_mm",
+                        lambda *a, **kw: 0) as clo:
             ks.reset()
             t0 = time.perf_counter()
             dev = build_index(g, method, backend="device")
@@ -3096,10 +3121,94 @@ def phase_device_build(ks, indexes, engines):
                                "forest": ds_["t_forest"],
                                "total": ds_["t_total"],
                                "wall": dev_s}})
+        recs[-1]["gather"] = gather_arm(
+            ks, name, g, method, idx, clo.calls[0], want_k7, want_k8,
+            us, rects, host_reach)
         built[name] = dev
         del deng
     emit("device_build", ok=True, indexes=recs)
     return recs, largest, built, k7_calls
+
+
+CLOSURE_REPEATS = 3
+
+
+def gather_arm(ks, name, g, method, idx, clo_call, want_k7, want_k8, us,
+               rects, host_reach):
+    """The device closure's gather arm (``kernel="gather"``, the
+    reference's ``kernel="xla"``) beside K7's on one index: both arms'
+    bits equal to ``closure_np``'s on the build's own closure inputs, the
+    gather arm launching no kernel; ``build_index(...,
+    device_kernel="gather")`` equal to the host build and adopted by an
+    engine that answers as the host-built one (its K8 launches and its 0
+    K7 counted); each arm's closure seconds (median of CLOSURE_REPEATS
+    after a warm-up; host clock, the bits read back) and aten ops a
+    level step (``repro_torch.analysis.OpStats`` over one more call)."""
+    import torch
+    from repro_torch.analysis.op_stats import OpStats
+    from repro_torch.core import QueryEngine, build_index
+    from repro_torch.core.engine import UPLOAD_COUNTERS
+    from repro_torch.core.reachability import closure_bitset_mm, closure_np
+
+    args, kw = clo_call
+    extra = kw["extra_vertex_comp"]
+    want = closure_np(*args, extra_vertex_comp=extra)
+    rec = {"level_steps": want_k7}
+    for arm in ("bitset_mm", "gather"):
+        def call():
+            return closure_bitset_mm(*args, extra_vertex_comp=extra,
+                                     kernel=arm, device=DEVICE)
+        ks.reset()
+        got = call()                                       # warm-up
+        launched = ks.counts()
+        if not (np.array_equal(got.bits, want.bits)
+                and np.array_equal(got.interior_row, want.interior_row)):
+            raise AssertionError(f"{name}: closure kernel={arm} bits != "
+                                 f"closure_np")
+        expect = {**dict.fromkeys(KERNELS, 0),
+                  "bitset_mm": want_k7 if arm == "bitset_mm" else 0}
+        if launched != expect:
+            raise AssertionError(f"{name}: closure kernel={arm} launched "
+                                 f"{launched}, expected {expect}")
+        secs = []
+        for _ in range(CLOSURE_REPEATS):
+            t0 = time.perf_counter()
+            call()
+            secs.append(time.perf_counter() - t0)
+        with OpStats() as st:
+            call()
+        rec[arm] = {"closure_seconds": secs,
+                    "closure_seconds_median": float(np.median(secs)),
+                    "aten_ops": st.n_ops,
+                    "aten_ops_per_level": st.n_ops / max(want_k7, 1)}
+    ks.reset()
+    dev = build_index(g, method, backend="device", device_kernel="gather",
+                      device=DEVICE)
+    launches = ks.counts()
+    expect = {**dict.fromkeys(KERNELS, 0), "seg_mbr": want_k8}
+    if launches != expect:
+        raise AssertionError(f"{name}: gather build launches {launches}, "
+                             f"expected {expect}")
+    if not same_index(idx, dev) or dev.stats["closure_kernel"] != "gather":
+        raise AssertionError(f"{name}: gather device build != host build")
+    before = dict(UPLOAD_COUNTERS)
+    deng = QueryEngine(dev, device=DEVICE)
+    adopted = {k: UPLOAD_COUNTERS[k] - before[k] for k in before}
+    if adopted != {"host_uploads": 0, "device_adoptions": 1}:
+        raise AssertionError(f"{name}: gather build not adopted: "
+                             f"{adopted}")
+    got = np.concatenate([deng.query_batch(us[s:s + BATCH],
+                                           rects[s:s + BATCH])
+                          for s in range(0, len(us), BATCH)])
+    if not np.array_equal(got, host_reach):
+        raise AssertionError(f"{name}: gather-built engine answers != "
+                             f"host-built engine")
+    del deng, dev
+    torch.cuda.empty_cache()
+    rec.update(build_launches=launches, adoption=adopted,
+               faster_arm=min(("bitset_mm", "gather"), key=lambda a: rec[
+                   a]["closure_seconds_median"]))
+    return rec
 
 
 def set_bits(bm, a, r):
@@ -5203,6 +5312,164 @@ def phase_gnn(ks, card):
 
 
 # --------------------------------------------------------------------------
+# The device SCC
+# --------------------------------------------------------------------------
+
+SCC_REAL = ("yelp", 49.72)   # SPECS["yelp"].ref: 2,138,003 vertices
+
+
+def scc_card(n, edges, dev):
+    """``scc_torch`` on the card: labels, counts, seconds (host clock,
+    the labels read back), peak bytes beyond those allocated before."""
+    import torch
+    from repro_torch.core import scc_torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    counts = {}
+    t0 = time.perf_counter()
+    labels = scc_torch(n, edges, device=dev, counts=counts)
+    secs = time.perf_counter() - t0
+    return labels, counts, secs, int(torch.cuda.max_memory_allocated(dev)
+                                     - base)
+
+
+def phase_scc(ks, indexes):
+    """``scc_torch`` on the card against its CPU run on the yelp x1.0
+    and x0.5 graphs of phase main (labels and counts equal), then at
+    Yelp's real size against ``scc_np``'s components, each labelled by
+    its largest vertex id (``np.maximum.at`` on the host).  No kernel of
+    the port lies on this path (counts read)."""
+    import torch
+    from repro_torch.core import scc_np, scc_torch
+    from repro_torch.data import get_dataset
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    ks.reset()
+    graphs = {}
+    for name, (g, *_rest) in indexes.items():
+        graphs.setdefault(name.split(" ")[0], g)
+    recs = []
+    for name, g in graphs.items():
+        cpu_counts = {}
+        t1 = time.perf_counter()
+        want = scc_torch(g.n_nodes, g.edges, device="cpu",
+                         counts=cpu_counts)
+        cpu_s = time.perf_counter() - t1
+        scc_card(g.n_nodes, g.edges, dev)                  # warm-up
+        got, counts, secs, peak = scc_card(g.n_nodes, g.edges, dev)
+        if not np.array_equal(got, want) or counts != cpu_counts:
+            raise AssertionError(f"scc {name}: card != CPU ({counts} / "
+                                 f"{cpu_counts})")
+        recs.append({"graph": name, "nodes": g.n_nodes,
+                     "edges": len(g.edges), "counts": counts,
+                     "card_seconds": secs, "cpu_seconds": cpu_s,
+                     "peak_bytes": peak})
+    t1 = time.perf_counter()
+    g = get_dataset(SCC_REAL[0], scale=SCC_REAL[1])
+    gen_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    comp = scc_np(g.n_nodes, g.edges)
+    np_s = time.perf_counter() - t1
+    top = np.full(int(comp.max()) + 1, -1, np.int64)
+    np.maximum.at(top, comp, np.arange(g.n_nodes))
+    got, counts, secs, peak = scc_card(g.n_nodes, g.edges, dev)
+    if not np.array_equal(got, top[comp]):
+        raise AssertionError("scc at Yelp's real size: card labels != "
+                             "scc_np's largest ids")
+    launched = {k: n for k, n in ks.counts().items() if n}
+    return {"graphs": recs, "real": {
+        "dataset": f"{SCC_REAL[0]} x{SCC_REAL[1]}", "nodes": g.n_nodes,
+        "edges": len(g.edges), "sccs": int(comp.max()) + 1,
+        "counts": counts, "card_seconds": secs, "scc_np_seconds": np_s,
+        "generate_seconds": gen_s, "peak_bytes": peak},
+        "kernel_launches": launched,
+        "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# --------------------------------------------------------------------------
+# The dry run of the timed model cells
+# --------------------------------------------------------------------------
+
+def dryrun_row(label, fn, args, dtype, measured_ms):
+    """``fn(*args)`` counted on meta, and two floors for it on the H100
+    (data-sheet peaks): ``bound_ms``, the step as a function (its FLOPs
+    at the dtype's peak, or its inputs read once and its outputs written
+    once at HBM's rate, whichever is longer), and ``roofline_ms``, the
+    dry run's roofline (``benchmarks.roofline``: the inputs and outputs
+    plus the HBM floor, the traffic of the products, gathers and
+    scatters as the port's aten ops issue them); the measured ms over
+    each."""
+    from repro_torch.analysis.op_stats import OpStats, io_bytes
+    from repro_torch.benchmarks.roofline import HBM_BW, bound_terms
+
+    t0 = time.perf_counter()
+    with OpStats() as st:
+        out = fn(*args)
+    stats = st.stats()
+    io = sum(io_bytes(args, out).values())
+    terms = bound_terms(stats, io, dtype)
+    own = {"operations": terms["compute"], "bytes": io / HBM_BW}
+    by = max(own, key=own.get)
+    roof = max(terms, key=terms.get)
+    bound_ms, roof_ms = own[by] * 1e3, terms[roof] * 1e3
+    return {"cell": label, "dtype": dtype, "flops": stats["flops"],
+            "hbm_floor_bytes": stats["hbm_floor_bytes"], "io_bytes": io,
+            "aten_ops": stats["n_ops"], "bound_ms": bound_ms,
+            "bound_by": by, "roofline_ms": roof_ms, "roofline_by": roof,
+            "measured_ms": measured_ms,
+            "measured_over_bound": measured_ms / bound_ms,
+            "measured_over_roofline": measured_ms / roof_ms,
+            "count_seconds": round(time.perf_counter() - t0, 3)}
+
+
+def phase_dryrun(lm, gnn, train):
+    """Every model cell timed in phases lm, gnn and train, counted on
+    meta at the shapes it was timed at (the cells' own builders; the
+    GNN cuts of GNN_CUTS), with its roofline bound and measured / bound.
+    Nothing runs on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES,
+                                          _gnn_batch_meta,
+                                          _lm_decode_builder,
+                                          _lm_prefill_builder)
+
+    t0 = time.perf_counter()
+    rows = []
+    spec = get_arch(LM_FULL)
+    dtype = spec.make_config().dtype
+    for shape, B in LM_TIMED:
+        s = LM_SHAPES[shape]
+        make = (_lm_prefill_builder if s["kind"] == "prefill"
+                else _lm_decode_builder)
+        fn, args = make(spec.make_config, s["seq"], B)()
+        rows.append(dryrun_row(
+            f"{LM_FULL} {shape} B={B}", fn, args, dtype,
+            lm["timed"]["cells"][shape]["ms_median"]))
+    for arch in GNN_ARCHS:
+        for cell in GNN_CELLS:
+            step, (p, o, b) = get_arch(arch).cells[cell].build()
+            seeds = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))[0]
+            if seeds != GNN_SEEDS:
+                e_cut = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
+                b = _gnn_batch_meta(arch, dict(GNN_SHAPES[cell],
+                                               n=seeds + e_cut, e=e_cut))
+            label = f"{arch} {cell}" + (f" seeds={seeds}"
+                                        if cell == "minibatch_lg" else "")
+            rows.append(dryrun_row(
+                label, step, (p, o, b), "float32",
+                gnn["cells"][arch][cell]["ms_per_step_median"]))
+    step, args = get_arch("din").cells["train_batch"].build()
+    rows.append(dryrun_row(f"din train_batch B={train['batch']}", step,
+                           args, "float32", train["ms_per_step_median"]))
+    return {"cells": rows, "peaks": "H100 SXM data sheet: bf16 989, "
+            "float32 67 TFLOP/s, HBM3 3.35 TB/s (at 700 W)",
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# --------------------------------------------------------------------------
 # Two checkouts in turns
 # --------------------------------------------------------------------------
 
@@ -5548,6 +5815,8 @@ def main() -> int:
     emit("obs", ok=True, **phase_obs(ks, engines, indexes))
     builds, largest, built, k7_calls = phase_device_build(ks, indexes,
                                                           engines)
+    scc = phase_scc(ks, indexes)
+    emit("scc", ok=True, **scc)
     leafscan, ls_ops, k9_calls, errs4 = phase_legacy(ks, indexes, built,
                                                      results, engines)
     for k, v in (*errs4.items(),
@@ -5579,7 +5848,9 @@ def main() -> int:
     emit("obs_trace", ok=True, **phase_obs_trace(ks, engines))
     srv = phase_serve(ks, engines, indexes)
     emit("serve", ok=True, **srv)
-    emit("train", ok=True, **phase_train(ks))
+    train = phase_train(ks)
+    emit("train", ok=True, **train)
+    emit("dryrun", ok=True, **phase_dryrun(lm, gnn, train))
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, polygons, device build and leaf-scan
     # serving (host- and device-built), the two kNN runs, perf_build's
@@ -5597,6 +5868,8 @@ def main() -> int:
     for r in builds:
         for k in ("bitset_mm", "seg_mbr"):
             per_path[k][f"{r['index']} device_build"] = r["launches"][k]
+            per_path[k][f"{r['index']} device_build gather"] = r[
+                "gather"]["build_launches"][k]
     for path in ("fused", "two_phase"):
         for k, n in knn[path]["launches"].items():
             if n:
@@ -5646,7 +5919,8 @@ def main() -> int:
         for k, n in counts.items():
             per_path[k][f"serve {path}"] = n
     per_path["segment_bag"] = bag_paths
-    for k in KERNELS:   # the model paths launch no kernel of the port
+    for k in KERNELS:   # the SCC and model paths launch no kernel
+        per_path[k]["scc"] = scc["kernel_launches"].get(k, 0)
         per_path[k]["lm"] = lm["kernel_launches"].get(k, 0)
         per_path[k]["gnn"] = gnn["kernel_launches"].get(k, 0)
     emit("timers", **TIMERS)

@@ -1,6 +1,6 @@
 """The paper's benchmark harness on the port (the port of the reference's
-``benchmarks/`` scripts, all but ``roofline.py`` and ``hlo_stats.py``,
-which read the LM/GNN dry runs).
+``benchmarks/`` scripts; its ``hlo_stats.py`` re-exports the HLO
+analyser, whose counterpart is :mod:`repro_torch.analysis`).
 
 * :mod:`~repro_torch.benchmarks.paper_tables` — Tables 2-4 (graph
   statistics, build time, index size) and the paper's claims on them;
@@ -21,8 +21,10 @@ which read the LM/GNN dry runs).
   latency against its overlay size and its compaction's cost;
 * :mod:`~repro_torch.benchmarks.obs_overhead` — the analytic gate on the
   disabled obs and fault hooks' cost;
-* :mod:`~repro_torch.benchmarks.run` — the tables, Figure 3 and the
-  kernel microbenches in one report.
+* :mod:`~repro_torch.benchmarks.roofline` — the dry run's roofline terms
+  against the H100's data-sheet peaks, and each cell's model FLOPs;
+* :mod:`~repro_torch.benchmarks.run` — the tables, Figure 3, the kernel
+  microbenches and the roofline table in one report.
 
 Run one with ``PYTHONPATH=src python -m repro_torch.benchmarks.<name>``.
 Each writes only under ``results/torch/`` of the checkout.  The device

@@ -13,13 +13,13 @@ Sections:
     [kernels] the leaf-scan probe (K9, ``range_query_forest``) against
              the host descent on gowalla x0.1, and the dense closure
              product (``bitset_mm_mxu``) at d = 512, on ``--device``
+    [roofline] the dry run's roofline terms, if results/torch/dryrun
+             exists (``python -m repro_torch.launch.dryrun --all``)
 
 The tables and Figure 3's times are the host's (NumPy builds and
 descents, as in the paper); ``--device`` is where Figure 3's oracle
 gate also checks each 2DReach method's device engine (the GPU by
-default) and where the kernel section runs.  The reference's
-``[roofline]`` section (the LM/GNN/recsys dry runs) is not ported: it
-waits for the dry runs of ROADMAP Queue 1 item 13.  Writes
+default) and where the kernel section runs.  Writes
 ``results/torch/paper.json``.
 """
 
@@ -198,6 +198,16 @@ def main(argv=None) -> None:
                   f"({r['queries']} queries)")
         else:
             print(f"{r['kernel']:<26} {r['ms_per_iter']:>9.2f} ms/iter")
+
+    _section("roofline (from results/torch/dryrun, single-pod mesh)")
+    from . import roofline
+
+    rows = roofline.table()
+    if rows:
+        print(roofline.format_table(rows))
+    else:
+        print("no dry-run results yet "
+              "(run: python -m repro_torch.launch.dryrun --all)")
 
     with open(result_path("paper.json"), "w") as f:
         json.dump(rep, f, indent=1)

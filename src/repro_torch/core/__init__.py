@@ -57,7 +57,7 @@ from .rtree import (
     query_host_knn,
     query_wavefront,
 )
-from .scc import compact_labels, scc_np
+from .scc import compact_labels, same_partition, scc_np, scc_torch
 from .three_d_reach import ThreeDReachIndex, build_3dreach
 from .two_d_reach import BitRank, TwoDReachIndex, build_2dreach
 
@@ -81,7 +81,7 @@ __all__ = [
     "build_forest_device", "query_host", "query_host_collect",
     "query_host_collect_batch", "query_host_count", "query_host_knn",
     "query_wavefront",
-    "compact_labels", "scc_np",
+    "compact_labels", "same_partition", "scc_np", "scc_torch",
     "ThreeDReachIndex", "build_3dreach",
     "BitRank", "TwoDReachIndex", "build_2dreach",
 ]

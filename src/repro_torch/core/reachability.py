@@ -4,8 +4,9 @@ A copy of the host half of ``repro.core.reachability`` (the packed
 uint32 bitset helpers, :class:`ClosureResult`, ``closure_np`` and the
 GeoReach baseline's ``closure_mbr_np``) and a torch port of its device
 half: ``closure_bitset_mm``, the same fixpoint with each level's merges
-as one packed OR-AND product (K7 on the card), and ``closure_torch``,
-the boolean sweep closure of ``closure_jax``.
+as one packed OR-AND product (K7 on the card) or as a gather and a
+halving OR (``kernel="gather"``), and ``closure_torch``, the boolean
+sweep closure of ``closure_jax``.
 
 Every component's reachable spatial set is a row of a packed **uint32
 bitset matrix** ``(rows, W)`` with ``W = ceil(p / 32)`` and one column
@@ -29,6 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.bitset_mm import bitset_mm
 from .condensation import Condensation
 
+CLOSURE_KERNELS = ("bitset_mm", "gather")
 
 # --------------------------------------------------------------------------
 # Bit packing helpers
@@ -469,6 +471,7 @@ def closure_bitset_mm(
     spatial_vertex: np.ndarray,
     extra_vertex_comp: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     *,
+    kernel: str = "bitset_mm",
     device: DeviceLike = None,
     chunk_edges: int = 1 << 22,
 ) -> ClosureResult:
@@ -477,10 +480,20 @@ def closure_bitset_mm(
 
     Produces a :class:`ClosureResult` with the same bits as
     ``closure_np`` (set union is order-independent).  Level L touches
-    only its source rows and the compacted block of their unique
-    destinations (:func:`_level_step_mm`), so rows that converged at
-    deeper levels pay nothing; wide levels are cut into ``chunk_edges``
-    chunks, as ``closure_np`` cuts them."""
+    only its source rows and their destinations' rows, so rows that
+    converged at deeper levels pay nothing; wide levels are cut into
+    ``chunk_edges`` chunks, as ``closure_np`` cuts them.
+
+    kernel: ``"bitset_mm"`` — per level, pack the frontier adjacency
+            and run the OR-AND product K7 (:func:`_level_step_mm`, the
+            reference's ``kernel="pallas"``); ``"gather"`` — per level,
+            gather each edge's destination row and OR-reduce runs of
+            equal source by halving (:func:`_level_step_gather`, the
+            reference's ``kernel="xla"``)."""
+    if kernel not in CLOSURE_KERNELS:
+        raise ValueError(f"unknown closure kernel {kernel!r}; expected "
+                         f"one of {CLOSURE_KERNELS}")
+    step = _level_step_mm if kernel == "bitset_mm" else _level_step_gather
     dev = resolve_device(device)
     p, col_of_vertex, own_indptr, own_cols, interior_row, interior_ids = (
         _closure_prologue(cond, n, spatial_vertex, extra_vertex_comp))
@@ -505,7 +518,7 @@ def closure_bitset_mm(
             # a source run split across chunks ORs into its row twice
             for cs in range(s, e, chunk_edges):
                 ce = min(cs + chunk_edges, e)
-                R = _level_step_mm(
+                R = step(
                     R, edges[cs:ce, 0].astype(np.int64),
                     edges[cs:ce, 1].astype(np.int64), interior_row,
                     own_indptr, own_cols, own_cnt, dev)
@@ -520,6 +533,68 @@ def closure_bitset_mm(
         own_indptr=own_indptr,
         own_cols=own_cols,
     )
+
+
+def _component_rows(
+    R: torch.Tensor, comps: np.ndarray, interior_row: np.ndarray,
+    own_indptr: np.ndarray, own_cols: np.ndarray, own_cnt: np.ndarray,
+    device: torch.device, pad: int = 0,
+) -> torch.Tensor:
+    """The packed rows of components ``comps`` (an interior component's
+    current row of ``R``, a leaf's own columns), then ``pad`` zero rows."""
+    rows = torch.zeros((len(comps) + pad, R.shape[1]), dtype=torch.int32,
+                       device=device)
+    di = interior_row[comps]
+    im = di >= 0
+    if im.any():
+        rows[torch.as_tensor(np.nonzero(im)[0], device=device)] = R[
+            torch.as_tensor(di[im].astype(np.int64), device=device)]
+    lm = ~im & (own_cnt[comps] > 0)
+    if lm.any():
+        _leaf_row_scatter(rows, np.nonzero(lm)[0], comps[lm], own_indptr,
+                          own_cols)
+    return rows
+
+
+def _level_step_gather(
+    R: torch.Tensor, src: np.ndarray, dst: np.ndarray,
+    interior_row: np.ndarray, own_indptr: np.ndarray,
+    own_cols: np.ndarray, own_cnt: np.ndarray, device: torch.device,
+) -> torch.Tensor:
+    """One level as gather + bucketed halving-OR (the reference's
+    ``_level_step_xla``).
+
+    Contributions (one packed row per edge of the level: an interior
+    destination's current row, or a leaf destination's own columns) land
+    in a frontier matrix C with one zero row of padding; runs of equal
+    source (contiguous: the level schedule keeps the source-sorted edge
+    order) are gathered into power-of-two buckets, padded with C's zero
+    row, and OR-reduced by halving; then each bucket's source rows are
+    updated.  ``usrc`` is unique within a call, so plain indexing writes
+    each row once (``accumulate`` would add, and a sum is not an OR)."""
+    E = len(src)
+    C = _component_rows(R, dst, interior_row, own_indptr, own_cols,
+                        own_cnt, device, pad=1)
+    run_start = np.nonzero(np.r_[True, src[1:] != src[:-1]])[0]
+    usrc = src[run_start]
+    run_len = np.diff(np.r_[run_start, E])
+    lb = np.ones(len(usrc), dtype=np.int64)
+    big = run_len > 1
+    lb[big] = 1 << np.ceil(np.log2(run_len[big])).astype(np.int64)
+    for L in np.unique(lb):
+        rid = np.nonzero(lb == L)[0]
+        k = np.arange(L)
+        gi = np.where(k[None, :] < run_len[rid][:, None],
+                      run_start[rid][:, None] + k[None, :], E)
+        M = C[torch.as_tensor(gi, device=device)]          # (runs, L, W)
+        Lh = int(L)
+        while Lh > 1:
+            Lh //= 2
+            M = M[:, :Lh] | M[:, Lh:2 * Lh]
+        tr = torch.as_tensor(interior_row[usrc[rid]].astype(np.int64),
+                             device=device)
+        R[tr] = R[tr] | M[:, 0]
+    return R
 
 
 def _level_step_mm(
@@ -537,20 +612,9 @@ def _level_step_mm(
     of the level's merges.  ``src`` runs are contiguous (the level
     schedule keeps the source-sorted edge order)."""
     udst, dst_inv = np.unique(dst, return_inverse=True)
-    m = len(udst)
-    Wm = (m + 31) // 32
-    Wc = R.shape[1]
-
-    R_L = torch.zeros((m, Wc), dtype=torch.int32, device=device)
-    di = interior_row[udst]
-    im = di >= 0
-    if im.any():
-        R_L[torch.as_tensor(np.nonzero(im)[0], device=device)] = R[
-            torch.as_tensor(di[im].astype(np.int64), device=device)]
-    lm = ~im & (own_cnt[udst] > 0)
-    if lm.any():
-        _leaf_row_scatter(R_L, np.nonzero(lm)[0], udst[lm], own_indptr,
-                          own_cols)
+    Wm = (len(udst) + 31) // 32
+    R_L = _component_rows(R, udst, interior_row, own_indptr, own_cols,
+                          own_cnt, device)
 
     run_start = np.nonzero(np.r_[True, src[1:] != src[:-1]])[0]
     usrc = src[run_start]

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +114,7 @@ class TwoDReachIndex:
     vertex_tree: Optional[np.ndarray]  # (n,) int64 per-vertex pointer
     bitrank: Optional[BitRank]      # pointer variant lookup
     tree_ptrs: Optional[np.ndarray]  # compacted (n_with_tree,) int32
-    stats: Dict[str, float]
+    stats: Dict[str, Any]
     backend: str = "host"           # build backend that produced this index
 
     # -- sizes (Table 4 decomposition) ------------------------------------
@@ -179,6 +179,7 @@ def build_2dreach(
     dedup: str = "paper",
     backend: str = "host",
     device: DeviceLike = None,
+    device_kernel: Optional[str] = None,
 ) -> TwoDReachIndex:
     """Construct the 2DReach index (paper Alg. 1 + §4.1 compression).
     Produces the same arrays as ``repro.core.build_2dreach``, bit for
@@ -193,6 +194,10 @@ def build_2dreach(
              upload.
     device:  where ``backend="device"`` runs (``None``: the GPU; raises
              where CUDA is absent); ignored for ``backend="host"``.
+    device_kernel: the device closure's arm, ``"bitset_mm"`` (K7; also
+             for ``None``) or ``"gather"`` (the reference's ``"xla"``);
+             recorded as ``stats["closure_kernel"]``.  The forest's bulk
+             load is K8 either way; ignored for ``backend="host"``.
     """
     assert variant in ("base", "comp", "pointer")
     assert dedup in ("paper", "global", "none")
@@ -203,7 +208,9 @@ def build_2dreach(
     dev = resolve_device(device) if backend == "device" else None
     t_start = time.perf_counter()
     n = graph.n_nodes
-    stats: Dict[str, float] = {}
+    stats: Dict[str, Any] = {}
+    if backend == "device":
+        stats["closure_kernel"] = device_kernel or "bitset_mm"
 
     # ---- decomposition ---------------------------------------------------
     t0 = time.perf_counter()
@@ -238,7 +245,9 @@ def build_2dreach(
     with span("build.closure", cat="build", backend=backend):
         if backend == "device":
             clo = closure_bitset_mm(cond, n, spatial_ids,
-                                    extra_vertex_comp=extra, device=dev)
+                                    extra_vertex_comp=extra,
+                                    kernel=stats["closure_kernel"],
+                                    device=dev)
         else:
             clo = closure_np(cond, n, spatial_ids, extra_vertex_comp=extra)
     stats["t_closure"] = time.perf_counter() - t0

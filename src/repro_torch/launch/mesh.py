@@ -1,5 +1,13 @@
-"""The query-serving shard mesh (the port of
-``repro.launch.mesh.make_shard_mesh``).
+"""Meshes (the port of ``repro.launch.mesh``): the production and host
+meshes of the dry run, and the query-serving shard mesh.
+
+The reference's production meshes are ``jax`` meshes over a v5e pod
+(16 × 16 chips, or 2 × 16 × 16 with a ``pod`` axis).  The port runs on
+one card and lowers no SPMD program, so here a production or host mesh
+is the ``{axis: size}`` mapping that ``distributed.sharding``'s rules
+take: the dry run divides each input's bytes by it
+(``launch.dryrun.arg_bytes_per_device``).  Functions, not constants:
+importing this module touches no CUDA state.
 
 The reference lays the cluster's shards over a 1-D ``jax`` mesh with a
 ``data`` axis.  Here a mesh is the tuple of torch devices the shards are
@@ -20,8 +28,28 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import MeshAxes
 
 AXIS = "data"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """``{"data": 16, "model": 16}`` (256 chips), or with ``multi_pod``
+    ``{"pod": 2, "data": 16, "model": 16}`` (512)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def mesh_axes(multi_pod: bool = False) -> MeshAxes:
+    return MeshAxes(
+        data=("pod", "data") if multi_pod else ("data",), model="model")
+
+
+def make_host_mesh(device: DeviceLike = None) -> Dict[str, int]:
+    """``{"data": 1, "model": n}`` over the visible devices of
+    ``device``'s type (``None``: the CUDA cards)."""
+    return {"data": 1, "model": len(visible_devices(device))}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -323,4 +323,4 @@ def test_no_jax_or_repro_import():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == 15      # 10 bench + 5 resilience
+    assert int(out.stdout.strip()) == 16      # 11 bench + 5 resilience

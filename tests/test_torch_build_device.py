@@ -256,6 +256,68 @@ def test_closure_bitset_mm_matches_reference(seed, variant):
     assert got.bits.size and got.bits.any()
 
 
+def _split_runs(cond, chunk):
+    """Source runs of the level schedule that a ``chunk``-edge cut
+    splits."""
+    edges = cond.edges_by_level_desc()
+    lv = cond.level[edges[:, 0]]
+    starts = np.concatenate([[0], np.nonzero(np.diff(-lv))[0] + 1])
+    cut = {int(c) for s, e in zip(starts, np.r_[starts[1:], len(edges)])
+           for c in range(s + chunk, e, chunk)}
+    return sum(1 for c in cut if edges[c - 1, 0] == edges[c, 0])
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 1 << 22])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("variant", ["base", "comp"])
+def test_closure_gather_matches_reference(seed, variant, chunk):
+    """The gather arm (``kernel="gather"``) against the reference's
+    ``kernel="xla"`` arm, ``closure_np`` and the K7 arm, bit for bit;
+    chunks of 1 and 3 edges split source runs, which must OR into their
+    row once per chunk."""
+    rg = random_geosocial(np.random.default_rng(seed), 120, 400)
+    g = make_graph(rg.n_nodes, rg.edges, rg.coords, rg.spatial_mask)
+    cond, extra = _cond(g, variant)
+    if chunk < 4:
+        assert _split_runs(cond, chunk) > 0
+    args = (cond, g.n_nodes, g.spatial_ids)
+    got = closure_bitset_mm(*args, extra_vertex_comp=extra, device="cpu",
+                            kernel="gather", chunk_edges=chunk)
+    want = RR.closure_bitset_mm(*args, extra_vertex_comp=extra,
+                                kernel="xla", chunk_edges=chunk)
+    host = closure_np(*args, extra_vertex_comp=extra)
+    k7 = closure_bitset_mm(*args, extra_vertex_comp=extra, device="cpu")
+    for ref in (want, host, k7):
+        assert got.bits.dtype == ref.bits.dtype == np.uint32
+        assert np.array_equal(got.bits, ref.bits)
+        for f in ("interior_row", "own_indptr", "own_cols", "col_of_vertex"):
+            assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert got.bits.size and got.bits.any()
+
+
+def test_closure_gather_keeps_bit_31():
+    """A column at bit 31 of a word (int32's sign bit) passes the
+    halving OR unchanged."""
+    g = get_dataset("yelp", scale=0.05)
+    cond, extra = _cond(g, "comp")
+    args = (cond, g.n_nodes, g.spatial_ids)
+    got = closure_bitset_mm(*args, extra_vertex_comp=extra, device="cpu",
+                            kernel="gather")
+    want = closure_np(*args, extra_vertex_comp=extra)
+    assert np.array_equal(got.bits, want.bits)
+    assert (got.bits >> np.uint32(31)).any()
+
+
+def test_closure_rejects_an_unknown_kernel():
+    g = get_dataset("tiny")
+    cond, extra = _cond(g, "comp")
+    for bad in ("xla", "pallas", "nope"):
+        with pytest.raises(ValueError, match="closure kernel"):
+            closure_bitset_mm(cond, g.n_nodes, g.spatial_ids,
+                              extra_vertex_comp=extra, device="cpu",
+                              kernel=bad)
+
+
 # ------------------------------------------------------------------- forest
 def _forest_cases():
     rng = np.random.default_rng(9)
@@ -315,6 +377,51 @@ def test_device_build_matches_host(source, variant):
     assert dev.forest.device is not None and host.forest.device is None
     for k in ("t_closure", "t_forest", "t_total"):
         assert k in dev.stats
+
+
+@pytest.mark.parametrize("source", ["yelp", "seed0", "seed1", "seed2"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_gather_device_build_matches_host_and_reference(source, variant):
+    """``device_kernel="gather"`` builds the host build's index and, on
+    yelp x0.05 (the random graphs' closures are held to the reference's
+    arm above), the reference's ``device_kernel="xla"`` one; the arm is
+    in the stats."""
+    g = _graph(source)
+    host = build_2dreach(g, variant=variant)
+    dev = build_2dreach(g, variant=variant, backend="device", device="cpu",
+                        device_kernel="gather")
+    _same_index(host, dev)
+    if source == "yelp":
+        ref = R.build_2dreach(g, variant=variant, backend="device",
+                              device_kernel="xla")
+        _same_index(dev, ref)
+    assert dev.stats["closure_kernel"] == "gather"
+    assert "closure_kernel" not in host.stats
+    with pytest.raises(ValueError, match="closure kernel"):
+        build_2dreach(g, variant=variant, backend="device", device="cpu",
+                      device_kernel="xla")
+
+
+def test_default_closure_arm_is_k7(monkeypatch):
+    """``closure_bitset_mm`` with no ``kernel`` and a device build with no
+    ``device_kernel`` run K7's level step, never the gather one."""
+    import repro_torch.core.reachability as PR
+
+    calls = []
+    monkeypatch.setattr(PR, "_level_step_gather",
+                        lambda *a: calls.append(a) or a[0])
+    g = get_dataset("yelp", scale=0.05)
+    dev = build_2dreach(g, variant="comp", backend="device", device="cpu")
+    _same_index(build_2dreach(g, variant="comp"), dev)
+    assert dev.stats["closure_kernel"] == "bitset_mm"
+    cond, extra = _cond(g, "comp")
+    closure_bitset_mm(cond, g.n_nodes, g.spatial_ids,
+                      extra_vertex_comp=extra, device="cpu")
+    assert calls == []
+    closure_bitset_mm(cond, g.n_nodes, g.spatial_ids,
+                      extra_vertex_comp=extra, device="cpu",
+                      kernel="gather")
+    assert calls
 
 
 def test_engine_adopts_device_build():

@@ -652,9 +652,10 @@ def test_gnn_molecules_example_on_cpu(monkeypatch, capsys):
 # names the reference exports that the port gives under another name
 # or leaves out, by package
 RENAMED = {
+    "analysis": {"analyze_hlo"},       # -> count_step (no HLO to read)
     "core": {"closure_jax",            # -> closure_torch
              "query_jax_wavefront",    # -> query_wavefront
-             "scc_jax", "same_partition"},   # come with D1
+             "scc_jax"},               # -> scc_torch
     "distributed": {"named"},          # folded into reshard
     "kernels/forest_build": {"seg_mbr_pallas",   # -> seg_mbr (K8)
                              "seg_mbr_ref",      # -> seg_mbr_torch
@@ -662,7 +663,9 @@ RENAMED = {
 }
 # names the port exports that the reference has not
 ADDED = {
-    "core": {"closure_torch", "query_wavefront", "dedup_edges"},
+    "analysis": {"count_step"},
+    "core": {"closure_torch", "query_wavefront", "dedup_edges",
+             "scc_torch"},
     "data": {"region_for_extent"},
     "distributed": {"index_shard_specs"},
     "kernels/forest_build": {"seg_mbr", "seg_mbr_torch"},
