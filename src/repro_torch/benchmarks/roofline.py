@@ -2,7 +2,8 @@
 port of the reference's ``benchmarks/roofline.py``).
 
 Hardware model: one NVIDIA H100 SXM, the data sheet's dense peaks at its
-700 W limit (NVIDIA H100 Tensor Core GPU data sheet; not measured here):
+700 W limit (NVIDIA H100 Tensor Core GPU data sheet; published, not
+measured):
 
     bf16 tensor-core compute   989 TFLOP/s  (the LM cells' products)
     float32 without TF32        67 TFLOP/s  (the GNN and recsys cells:

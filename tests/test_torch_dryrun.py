@@ -23,9 +23,9 @@ JAX package's, on the CPU, and the two repairs the dry run needed.
 * ``model_flops`` equal to the reference's for all 40 cells.
 * ``run_cell`` at full width on meta for every cell but the LM
   ``train_4k`` ones, which run at reduced configs through the same
-  builder (the full width takes 4-18 s a cell here); prefill_32k at its
-  full width but a prompt of 4,096 (the full cell dispatches 1.3M-5.5M
-  aten ops, 19-156 s on this CPU: the recorded ``--all`` run has them).
+  builder (the full width takes 4-18 s a cell on a CPU); prefill_32k at
+  its full width but a prompt of 4,096 (the full cell dispatches
+  1.3M-5.5M aten ops, 19-178 s on a CPU: ``dryrun --all`` runs them).
   Each cell's outputs (shapes and dtypes) equal the reference's
   ``jax.eval_shape`` of its cell on a (1, 1) mesh with the inputs'
   shardings dropped (with them, JAX 0.9 refuses every cell); the MoE
