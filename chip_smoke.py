@@ -4974,6 +4974,26 @@ def products_csr(seed=GNN_SEED):
     return CSR(indptr, rng.integers(0, n, int(indptr[-1]), dtype=np.int32))
 
 
+
+def cut_edges(seeds):
+    """Edges of a minibatch_lg block at ``seeds`` seed nodes (GNN_FANOUTS:
+    every seed's 15 neighbours and their 10 each)."""
+    return seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
+
+
+def cut_cell(arch, cell, b_meta):
+    """(seeds, batch layout) of ``arch`` on ``cell`` as timed: GNN_CUTS'
+    seeds and the cell's layout at that many seeds, or GNN_SEEDS and
+    ``b_meta`` (the cell's own) where the cell is not cut."""
+    from repro_torch.configs.base import GNN_SHAPES, _gnn_batch_meta
+
+    seeds = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))[0]
+    if seeds == GNN_SEEDS:
+        return seeds, b_meta
+    e = cut_edges(seeds)
+    return seeds, _gnn_batch_meta(arch, dict(GNN_SHAPES[cell],
+                                             n=seeds + e, e=e))
+
 def gnn_graph(cell, step, seeds, csr):
     """Step ``step``'s graph of a graph cell as host arrays: positions
     and features synthesised from the seed, full_graph_sm's 2,708 nodes
@@ -4992,7 +5012,7 @@ def gnn_graph(cell, step, seeds, csr):
         src = np.concatenate([l[0] for l in blk.layers])
         dst = np.concatenate([l[1] for l in blk.layers])
         n_real = blk.n_nodes
-        e_cell = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
+        e_cell = cut_edges(seeds)
         n_pad, e_pad = round_up(seeds + e_cell), round_up(e_cell)
     else:
         n_real, e_real = s["n"], s["e"]
@@ -5055,7 +5075,7 @@ def gnn_cell(arch, cell, dev, graphs, prof):
     operations)."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import GNN_SHAPES, _gnn_batch_meta
+    from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.models.nn import count_params, tree_to
     from repro_torch.train import adamw_init
     from repro_torch.train.optim import tree_leaves
@@ -5065,12 +5085,10 @@ def gnn_cell(arch, cell, dev, graphs, prof):
     step, (p_meta, _, b_meta) = spec.cells[cell].build()
     cfg = spec.make_config(d_feat=None if s["batched"] else s["f"],
                            shape=cell)
-    seeds, cut = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))
+    cut = GNN_CUTS.get((arch, cell), (None, None))[1]
+    seeds, b_meta = cut_cell(arch, cell, b_meta)
     batches = [gnn_batch(arch, g, E, i) for i, (g, E, _) in
                enumerate(graphs)]
-    if seeds != GNN_SEEDS:   # the cell's layout at fewer seeds
-        e_cut = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
-        b_meta = _gnn_batch_meta(arch, dict(s, n=seeds + e_cut, e=e_cut))
     got = {k: (tuple(np.shape(v)), np.asarray(v).dtype.name)
            for k, v in batches[0].items()}
     want = {k: (tuple(v.shape), str(v.dtype).split(".")[1])
@@ -5431,9 +5449,7 @@ def phase_dryrun(lm, gnn, train):
     GNN cuts of GNN_CUTS), with its roofline bound and measured / bound.
     Nothing runs on the card."""
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import (GNN_SHAPES, LM_SHAPES,
-                                          _gnn_batch_meta,
-                                          _lm_decode_builder,
+    from repro_torch.configs.base import (LM_SHAPES, _lm_decode_builder,
                                           _lm_prefill_builder)
 
     t0 = time.perf_counter()
@@ -5451,11 +5467,7 @@ def phase_dryrun(lm, gnn, train):
     for arch in GNN_ARCHS:
         for cell in GNN_CELLS:
             step, (p, o, b) = get_arch(arch).cells[cell].build()
-            seeds = GNN_CUTS.get((arch, cell), (GNN_SEEDS, None))[0]
-            if seeds != GNN_SEEDS:
-                e_cut = seeds * GNN_FANOUTS[0] * (1 + GNN_FANOUTS[1])
-                b = _gnn_batch_meta(arch, dict(GNN_SHAPES[cell],
-                                               n=seeds + e_cut, e=e_cut))
+            seeds, b = cut_cell(arch, cell, b)
             label = f"{arch} {cell}" + (f" seeds={seeds}"
                                         if cell == "minibatch_lg" else "")
             rows.append(dryrun_row(

@@ -94,7 +94,10 @@ def gnn_model_flops(arch: str, shape: str) -> Optional[float]:
         for m in range(1, cfg.m_max + 1):
             so2 += 2 * 4 * ((cfg.l_max + 1 - m) * d) ** 2
         fwd = cfg.n_layers * E * (2 * 2 * wig * d + so2)
-    return 3.0 * fwd  # fwd + bwd (train cells)
+    # fwd + bwd (train cells).  A count of what autograd runs is lower
+    # for SchNet (~1.35x at ogb_products): its filter's first product
+    # takes the RBF, which needs no input gradient.
+    return 3.0 * fwd
 
 
 def recsys_model_flops(arch: str, shape: str) -> Optional[float]:
@@ -150,14 +153,22 @@ def load_records(results_dir: Optional[str] = None) -> List[Dict]:
     return recs
 
 
+def hbm_bytes(stats: Dict, io_bytes: float) -> float:
+    """The HBM traffic model: inputs and outputs (``io_bytes``) cross HBM
+    once, plus the traffic of the ops a fused program still moves
+    (products, gathers, scatters, cache writes).  The unfused count
+    (``bytes``) is only a diagnostic: eager PyTorch moves it, a fused
+    program would not."""
+    return io_bytes + stats.get("hbm_floor_bytes", stats["bytes"])
+
+
 def bound_terms(stats: Dict, io_bytes: float, dtype: str) -> Dict[str, float]:
     """Seconds of each roofline term for counts ``stats`` (``count_step``'s
     keys) whose inputs and outputs are ``io_bytes``, products in
     ``dtype``."""
     return {
         "compute": stats["flops"] / peak_flops(dtype),
-        "memory": (io_bytes + stats.get("hbm_floor_bytes", stats["bytes"]))
-        / HBM_BW,
+        "memory": hbm_bytes(stats, io_bytes) / HBM_BW,
         "collective": stats["collective_bytes"] / NVLINK_BW,
     }
 
@@ -170,11 +181,6 @@ def roofline_row(rec: Dict) -> Optional[Dict]:
     ma = rec.get("memory_analysis", {})
     io_bytes = ma.get("argument_size_in_bytes", 0) + ma.get(
         "output_size_in_bytes", 0)
-    # HBM traffic model: inputs and outputs cross HBM once, plus the
-    # traffic of the ops a fused program still moves (products, gathers,
-    # scatters, cache writes).  The unfused count ("bytes") is kept as a
-    # diagnostic: eager PyTorch moves it, a fused program would not.
-    b = io_bytes + st.get("hbm_floor_bytes", st["bytes"])
     dtype = rec.get("compute_dtype", "bfloat16")
     terms = bound_terms(st, io_bytes, dtype)
     dom = max(terms, key=terms.get)
@@ -196,7 +202,7 @@ def roofline_row(rec: Dict) -> Optional[Dict]:
             if (mf_dev and terms[dom] > 0) else None
         ),
         "flops_dev": f,
-        "bytes_dev": b,
+        "bytes_dev": hbm_bytes(st, io_bytes),
         "bytes_unfused_dev": st["bytes"],
         "coll_dev": c,
     }

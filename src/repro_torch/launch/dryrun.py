@@ -50,6 +50,7 @@ from typing import Any, Dict
 import torch
 
 from ..analysis.op_stats import OpStats, io_bytes
+from ..benchmarks.roofline import RESULTS_DIR
 from ..configs import all_cells, get_arch
 from ..distributed.sharding import (
     MeshAxes,
@@ -63,9 +64,6 @@ from ..distributed.sharding import (
 from ..distributed.tree import at, map_leaves, walk
 from .mesh import make_production_mesh, mesh_axes
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))))
-RESULTS_DIR = os.path.join(ROOT, "results", "torch", "dryrun")
 NOTES = {
     "memory_analysis": "argument and output bytes of the meta inputs and "
                        "outputs (an input written in place and returned "

@@ -28,9 +28,9 @@ from ..configs.base import (
     _lm_prefill_builder,
     _lm_train_builder,
 )
-from .dryrun import ROOT, mesh_name
+from ..benchmarks import RESULTS
 
-RESULTS_DIR = os.path.join(ROOT, "results", "torch", "perf")
+RESULTS_DIR = os.path.join(RESULTS, "perf")
 
 
 def parse_val(v: str):
@@ -66,7 +66,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--shape", required=True)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--tag", default="variant")
-    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
 
     overrides = {}
@@ -91,7 +90,6 @@ def main(argv=None) -> dict:
     rec = {
         "arch": args.arch, "shape": args.shape, "tag": args.tag,
         "overrides": overrides, "hlo_stats": stats, "n_devices": 1,
-        "mesh": mesh_name(args.multi_pod),
         "t_total_s": round(time.perf_counter() - t0, 1),
         "ok": True,
     }

@@ -341,6 +341,31 @@ def test_model_flops_match_reference():
         assert got == ref(arch, shape), (arch, shape)
 
 
+def test_schnet_count_against_model_flops():
+    """Why SchNet's model FLOPs exceed its count (a roofline share above
+    100% at ogb_products): the formula charges a backward of twice the
+    forward for every product, but the filter MLP's first layer takes the
+    RBF expansion of the distances, which needs no gradient, so autograd
+    runs only its weight gradient.  The formula also counts two of the
+    three node products an interaction makes, and leaves out the
+    encoder (whose input needs no gradient either) and the readout.  The
+    count follows what runs, product by product, on the cell itself."""
+    cfg = C.get_arch("schnet").make_config(d_feat=100)
+    s = CB.GNN_SHAPES["ogb_products"]
+    N, E = CB.round_up(s["n"]), CB.round_up(s["e"])
+    L, d, r, f = cfg.n_interactions, cfg.d_hidden, cfg.n_rbf, s["f"]
+    fn, args = C.get_arch("schnet").cells["ogb_products"].build()
+    counted = count_step(fn, *args)["flops"]
+    formula = roofline.model_flops("schnet", "ogb_products")
+    rbf_input_grad = L * E * r * d * 2
+    third_node_product = 3 * L * N * d * d * 2
+    encoder = 2 * N * f * d * 2
+    readout = 3 * (N * d * (d // 2) * 2 + N * (d // 2) * 2)
+    assert counted == (formula - rbf_input_grad + third_node_product
+                       + encoder + readout)
+    assert formula / counted > 1.35
+
+
 def test_roofline_rows_from_records(tmp_path):
     for arch, shape in (("gemma2-2b", "decode_32k"), ("schnet", "molecule"),
                         ("din", "serve_p99")):
@@ -361,6 +386,9 @@ def test_roofline_rows_from_records(tmp_path):
         assert r["t_memory_s"] == (ma["argument_size_in_bytes"]
                                    + ma["output_size_in_bytes"]
                                    + st["hbm_floor_bytes"]) / 3.35e12
+        assert r["bytes_dev"] == (ma["argument_size_in_bytes"]
+                                  + ma["output_size_in_bytes"]
+                                  + st["hbm_floor_bytes"])
         assert r["t_collective_s"] == 0
         assert r["bound_s"] == max(r["t_compute_s"], r["t_memory_s"])
         assert r["model_flops_dev"] == roofline.model_flops(arch,
