@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of 2DReach serving, its baselines, its
 device build and SCC, the recsys substrate's DIN serving and training
-path, the LM family and the GNN family on one NVIDIA GPU, and count
-the timed model cells' roofline bounds.
+path, the LM family and the GNN family on one NVIDIA GPU, count the
+timed model cells' roofline bounds, and run the expert- and
+data-parallel arms as four ranks sharing the card.
 
 Run from the root of a checkout, with one card:
 
@@ -355,6 +356,25 @@ not beside this script, it exits with code 2 and prints no result.
            train_batch: FLOPs, HBM-floor bytes, the roofline bound
            (``benchmarks.roofline``: the H100's data-sheet peak for the
            cell's dtype, HBM3) and the measured ms over it
+  mesh     the multi-rank arms: four gloo ranks sharing the card
+           (``launch.mesh.init_ranks``, spawned; gloo named, not
+           picked) train the reduced llama4-maverick and deepseek-v3 2
+           AdamW steps on (1, 4) and (2, 2) process meshes (experts
+           split over ``model``, rows over ``data``), then the same
+           ranks on the CPU: loss, grad norm and every parameter within
+           1e-5 (1 + |CPU|), and on (1, 4) of the card without a mesh;
+           the (2, 2) llama4 state checkpointed from the card ranks'
+           shards and read back whole, each shard its block bit for bit;
+           DeepSeek-V3's MoE layer at its published widths (d 7,168,
+           256 experts of 2,048, top-8, one shared, bf16, T = 4,096) on
+           (1, 4), 64 experts a rank each drawn from its own seed: ms of
+           a forward + backward on the slowest rank, each rank's peak,
+           the share in ``all_reduce``, against the layer without a mesh
+           (22.5 GB, after the ranks exit: its ms and peak) within 1e-2
+           relative in norm; then one NCCL rank on a (1, 1) mesh, bit
+           for bit equal to no mesh, and NCCL refusing two ranks on one
+           card.  gloo through the host on one card: no estimate of a
+           multi-card run
   timers   the profiler's retries (a window with no device rows, or a
            row whose count is not a multiple of the calls, is profiled
            again), every time taken with CUDA events because no try was
@@ -5482,6 +5502,456 @@ def phase_dryrun(lm, gnn, train):
 
 
 # --------------------------------------------------------------------------
+# The multi-rank arms: expert and data parallelism over a process mesh
+# --------------------------------------------------------------------------
+
+MESH_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
+MESH_SHAPES = ((1, 4), (2, 2))     # (data, model) over 4 gloo ranks
+MESH_BATCH = dict(batch=4, seq=32)
+MESH_STEPS = 2
+MESH_CKPT = ("card", 2, 2, MESH_ARCHS[0])   # the run whose state is saved
+MESH_TOL = 1e-5        # reduced configs, the card's ranks against the
+#                        same ranks on the CPU (and, on (1, 4) and on
+#                        NCCL's (1, 1), against the card without a mesh):
+#                        loss, grad_norm and every parameter after the
+#                        steps within MESH_TOL (1 + |CPU|)
+MESH_FULL = dict(d_model=7168, n_experts=256, top_k=8, d_expert=2048,
+                 n_shared=1, d_shared=2048, balance_factor=1.25,
+                 tokens=4096, mesh=(1, 4))
+MESH_FULL_TOL = 1e-2   # the full layer's output and x's gradient, the
+#                        ranks against one process, relative in norm:
+#                        bf16 rounds to 2^-9, and each output element is
+#                        a sum of 8 routed and 1 shared terms that the
+#                        ranks round as 4 partial sums and their total
+#                        where one process rounds one running sum; a few
+#                        such roundings give about 4e-3 in norm (4.37e-3
+#                        and 4.97e-3 for the output and x's gradient on an
+#                        H100 80GB HBM3 at 700 W, gloo, 4 ranks on one
+#                        card), and MESH_FULL_TOL is 2x that
+MESH_FULL_ITERS = 3
+MESH_SEED = 5
+MESH_FULL_CUT = ("DeepSeek-V3 (arXiv:2412.19437): 61 layers -> its MoE "
+                 "FFN alone, no attention (1.34 TB of bf16 weights do not "
+                 "fit); T = 4,096 tokens; (1, 4) mesh of 4 gloo ranks on "
+                 "one card")
+
+
+def mesh_gen(dev, i):
+    """The full layer's generator number ``i`` (expert e: ``i = e``; the
+    router, the shared expert, x and the output's cotangent after the
+    experts), seeded (MESH_SEED, i) on the card."""
+    import torch
+
+    return torch.Generator(dev).manual_seed(MESH_SEED * 1_000_003 + i)
+
+
+def mesh_full_spec():
+    from repro_torch.models.lm import MoESpec
+
+    c = MESH_FULL
+    return MoESpec(n_experts=c["n_experts"], top_k=c["top_k"],
+                   d_expert=c["d_expert"], n_shared=c["n_shared"],
+                   d_shared=c["d_shared"],
+                   balance_factor=c["balance_factor"])
+
+
+def mesh_full_inputs(dev, m, tp):
+    """Model rank m's of tp parameters of the full layer: its experts
+    (each drawn from its own generator, so a rank makes only its own
+    and one process, m = 0 of 1, the same 256) and its block of the
+    shared expert, the router whole; x and the output's cotangent; all
+    bf16 but the float32 router."""
+    import torch
+
+    c = MESH_FULL
+    d, f, E, T = c["d_model"], c["d_expert"], c["n_experts"], c["tokens"]
+    fs = c["d_shared"] * c["n_shared"]
+    experts = range(m * E // tp, (m + 1) * E // tp)
+    bf16 = torch.bfloat16
+    w_gu = torch.empty((len(experts), d, 2 * f), dtype=bf16, device=dev)
+    w_d = torch.empty((len(experts), f, d), dtype=bf16, device=dev)
+    for j, e in enumerate(experts):
+        g = mesh_gen(dev, e)
+        w_gu[j].normal_(generator=g).mul_(d ** -0.5)
+        w_d[j].normal_(generator=g).mul_(f ** -0.5)
+    g = mesh_gen(dev, E)
+    router = torch.randn((d, E), generator=g, device=dev) * d ** -0.5
+    g = mesh_gen(dev, E + 1)
+    sh_gu = torch.randn((d, 2, fs), generator=g, dtype=bf16,
+                        device=dev) * d ** -0.5
+    sh_d = torch.randn((fs, d), generator=g, dtype=bf16,
+                       device=dev) * fs ** -0.5
+    n = fs // tp
+    p = {"router": router, "w_gu": w_gu, "w_d": w_d,
+         "sh_gu": sh_gu[..., m * n:(m + 1) * n].clone(),
+         "sh_d": sh_d[m * n:(m + 1) * n].clone()}
+    for v in p.values():
+        v.requires_grad_(True)
+    x = torch.randn((T, d), generator=mesh_gen(dev, E + 2), dtype=bf16,
+                    device=dev).requires_grad_(True)
+    gout = torch.randn((T, d), generator=mesh_gen(dev, E + 3), dtype=bf16,
+                       device=dev)
+    return p, x, gout
+
+
+def mesh_full_step(p, x, gout, mesh):
+    """One forward and backward of the layer: (out, aux, x's gradient);
+    every parameter's gradient is made too."""
+    import torch
+    from repro_torch.models.lm.moe import moe_ffn
+
+    out, aux = moe_ffn(p, x, mesh_full_spec(), mesh=mesh)
+    grads = torch.autograd.grad([out, aux], [x, *p.values()],
+                                [gout, torch.ones_like(aux)])
+    return out.detach(), aux.detach(), grads[0]
+
+
+def mesh_full_rank(dev, pm, out_dir):
+    """This rank's share of the full layer on the (1, 4) mesh: its 64
+    experts, a warm-up and MESH_FULL_ITERS timed forward + backward
+    passes (host clock around synchronised passes, started together
+    after a barrier), then one pass with every ``all_reduce`` timed
+    (synchronised before and after) for the share spent in them.  Rank
+    0 saves the output and x's gradient for the parent to compare."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as CO
+
+    E = MESH_FULL["n_experts"]
+    tp, m = CO.axis_size(pm, "model"), CO.axis_index(pm, "model")
+    torch.cuda.reset_peak_memory_stats(dev)
+    p, x, gout = mesh_full_inputs(dev, m, tp)
+    rec = {"param_bytes": sum(v.numel() * v.element_size()
+                              for v in p.values())}
+    out, aux, gx = mesh_full_step(p, x, gout, pm)           # warm-up
+    del out, aux, gx
+    ms = []
+    for _ in range(MESH_FULL_ITERS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux, gx = mesh_full_step(p, x, gout, pm)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec.update(ms=ms, peak_bytes=int(torch.cuda.max_memory_allocated(dev)))
+    if dist.get_rank() == 0:
+        torch.save({"out": out.cpu(), "gx": gx.cpu(), "aux": aux.cpu()},
+                   os.path.join(out_dir, "full.pt"))
+    del out, aux, gx
+    spent = [0.0]
+    plain = CO._sum_
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(t, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return t
+
+    CO._sum_ = timed
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_full_step(p, x, gout, pm)
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+    finally:
+        CO._sum_ = plain
+    rec.update(all_reduce_ms=spent[0] * 1e3, instrumented_ms=whole * 1e3,
+               all_reduce_share=spent[0] / whole)
+    return rec
+
+
+def mesh_train(arch, dev, pm, ckpt=None):
+    """``arch``'s reduced config (float32; parameters from a CPU
+    generator, seed 0) trained MESH_STEPS AdamW steps on ``dev`` on one
+    batch: under the process mesh ``pm`` its parameters resharded by
+    ``lm_expert_param_spec`` and the step given the mesh, without one
+    (``pm`` None) the single-process step.  Each step's loss and global
+    grad norm, and the parameters after (this rank's shards); with
+    ``ckpt``, the state after is saved there (every rank calls it)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batches
+    from repro_torch.distributed import (MeshAxes, param_specs, reshard,
+                                         save_checkpoint)
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed.sharding import lm_expert_param_spec
+    from repro_torch.distributed.tree import walk
+    from repro_torch.models.lm import init_params, lm_loss
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    cfg = get_arch(arch).make_config(reduced=True)
+    state = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    b = next(lm_batches(cfg.vocab, MESH_BATCH["seq"], MESH_BATCH["batch"],
+                        seed=1))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    if pm is not None:
+        state = reshard(state, pm, param_specs(
+            state, lm_expert_param_spec, MeshAxes(), pm))
+    step = make_train_step(lambda p, bb: lm_loss(p, bb, cfg, mesh=pm),
+                           AdamWConfig(), mesh=pm)
+    opt = adamw_init(state)
+    rec = {"loss": [], "grad_norm": []}
+    for _ in range(MESH_STEPS):
+        state, opt, met = step(state, opt, batch)
+        rec["loss"].append(float(met["loss"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+    rec["params"] = {k: CO.local(v).detach().cpu() for k, v in walk(state)}
+    if ckpt is not None:
+        save_checkpoint(ckpt, MESH_STEPS, {"params": state, "opt": opt})
+    return rec
+
+
+def mesh_rank(rank, world, store, out_dir):
+    """One of phase mesh's gloo ranks, all four on the card: the reduced
+    configs on each mesh of MESH_SHAPES on the card (the (2, 2) llama4
+    state checkpointed, gathered from the ranks' shards) and then on the
+    CPU, then the full layer; its results saved for the parent.  A
+    failure raises, and the spawn raises in the parent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_process_mesh
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_ranks("gloo", store=store, rank=rank, world_size=world,
+                     device="cuda")
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dp, tp in MESH_SHAPES:
+            pm = make_process_mesh(dp, tp, d)
+            for arch in MESH_ARCHS:
+                ckpt = (os.path.join(out_dir, "ckpt")
+                        if (where, dp, tp, arch) == MESH_CKPT else None)
+                res[f"{where} {dp}x{tp} {arch}"] = mesh_train(arch, d, pm,
+                                                              ckpt)
+    res["full"] = mesh_full_rank(dev, make_process_mesh(
+        *MESH_FULL["mesh"], dev), out_dir)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spec_block(full, spec, coord, shape):
+    """The block of the logical tensor ``full`` that the rank at mesh
+    coordinate ``coord`` (data, model) holds under ``spec`` on a mesh of
+    ``shape``."""
+    axes = {"data": 0, "model": 1}
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            i = axes[entry]
+            n = full.shape[dim] // shape[i]
+            full = full.narrow(dim, coord[i] * n, n)
+    return full
+
+
+def mesh_err(got, want):
+    """The largest |got - want| / (1 + |want|) over two records'
+    losses, grad norms and parameters."""
+    err = max(abs(a - b) / (1 + abs(b)) for k in ("loss", "grad_norm")
+              for a, b in zip(got[k], want[k]))
+    for k, w in want["params"].items():
+        w = w.double()
+        err = max(err, float(((got["params"][k].double() - w).abs()
+                              / (1 + w.abs())).max()))
+    return err
+
+
+def mesh_checkpoint(ranks, out_dir):
+    """The checkpoint the (2, 2) card ranks saved (MESH_CKPT), read back
+    whole in this process: each rank's parameter shards equal to their
+    blocks of it, bit for bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import MeshAxes, restore_checkpoint
+    from repro_torch.distributed.sharding import lm_expert_param_spec
+    from repro_torch.models.lm import init_params
+    from repro_torch.train import adamw_init
+
+    where, dp, tp, arch = MESH_CKPT
+    cfg = get_arch(arch).make_config(reduced=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    tree, manifest = restore_checkpoint(
+        os.path.join(out_dir, "ckpt"), {"params": params,
+                                        "opt": adamw_init(params)})
+    key = f"{where} {dp}x{tp} {arch}"
+    n = 0
+    for r, res in enumerate(ranks):
+        for k, v in res[key]["params"].items():
+            saved = tree["params"]
+            for part in k.split("/"):
+                saved = saved[part]
+            want = spec_block(saved, lm_expert_param_spec(
+                k, tuple(saved.shape), MeshAxes(), tp), divmod(r, tp),
+                (dp, tp))
+            if not torch.equal(v, want):
+                raise AssertionError(f"checkpoint {k} != rank {r}'s shard")
+            n += 1
+    return {"run": key, "step": manifest["step"], "shards_equal": n}
+
+
+def mesh_full_plain(dev, out_dir):
+    """The full layer without a mesh on the card (all 256 experts, 22.5
+    GB, and their gradients): a warm-up and two timed passes, its peak,
+    and the ranks' output and x's gradient against its own."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = int(torch.cuda.memory_allocated(dev))
+    p, x, gout = mesh_full_inputs(dev, 0, 1)
+    ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux, gx = mesh_full_step(p, x, gout, None)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if i < 2:
+            del out, aux, gx
+    ranks = torch.load(os.path.join(out_dir, "full.pt"))
+
+    def rel(a, b):
+        a, b = a.float(), b.to(a.device).float()
+        return float((a - b).norm() / b.norm())
+
+    rec = {"plain_ms": ms, "plain_peak_bytes": int(
+        torch.cuda.max_memory_allocated(dev)) - base,
+        "out_rel_err": rel(ranks["out"], out),
+        "gx_rel_err": rel(ranks["gx"], gx),
+        "out_max_abs_err": float((ranks["out"].float()
+                                  - out.float().cpu()).abs().max()),
+        "aux": float(aux), "aux_ranks": float(ranks["aux"])}
+    del p, x, gout, out, aux, gx, ranks
+    torch.cuda.empty_cache()
+    if max(rec["out_rel_err"], rec["gx_rel_err"]) > MESH_FULL_TOL \
+            or rec["aux"] != rec["aux_ranks"]:
+        raise AssertionError(f"the full layer on 4 ranks != one process: "
+                             f"{rec}")
+    return rec
+
+
+def phase_mesh(ks, card):
+    """The multi-rank arms on the card: four gloo ranks sharing it
+    (spawned; the backend named, ``init_ranks``), the reduced llama4-
+    maverick and deepseek-v3 trained on (1, 4) and (2, 2) meshes against
+    the same ranks on the CPU and, on (1, 4), against the card without a
+    mesh, the (2, 2) llama4 state checkpointed from the card ranks and
+    read back; DeepSeek-V3's MoE layer at its published widths on (1, 4)
+    against the layer without a mesh; then one NCCL rank on a (1, 1)
+    mesh, bit for bit equal to no mesh, and NCCL refusing two ranks on
+    one card.  No kernel of the port lies on this path: the counts are
+    reset before and read after."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.distributed import MeshAxes
+    from repro_torch.distributed.sharding import lm_expert_param_spec
+    from repro_torch.launch.mesh import init_ranks, make_process_mesh
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    ks.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.makedirs(SCRATCH, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=SCRATCH)
+    world = MESH_SHAPES[0][0] * MESH_SHAPES[0][1]
+    mp.spawn(mesh_rank, args=(world, os.path.join(tmp, "gloo"), tmp),
+             nprocs=world, join=True)
+    t1 = time.perf_counter()
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+             for r in range(world)]
+    plain = {arch: mesh_train(arch, dev, None) for arch in MESH_ARCHS}
+    reduced = []
+    for dp, tp in MESH_SHAPES:
+        for arch in MESH_ARCHS:
+            key = f"{dp}x{tp} {arch}"
+            rec = {"arch": arch, "mesh": [dp, tp],
+                   "loss_card": ranks[0]["card " + key]["loss"],
+                   "loss_cpu": ranks[0]["cpu " + key]["loss"],
+                   "grad_norm_card": ranks[0]["card " + key]["grad_norm"],
+                   "err_vs_cpu": max(mesh_err(r["card " + key],
+                                              r["cpu " + key])
+                                     for r in ranks)}
+            if dp == 1:
+                errs = []
+                for r, res in enumerate(ranks):
+                    want = dict(plain[arch], params={
+                        k: spec_block(v, lm_expert_param_spec(
+                            k, tuple(v.shape), MeshAxes(), tp),
+                            divmod(r, tp), (dp, tp))
+                        for k, v in plain[arch]["params"].items()})
+                    errs.append(mesh_err(res["card " + key], want))
+                rec["err_vs_plain"] = max(errs)
+            reduced.append(rec)
+            if max(rec["err_vs_cpu"], rec.get("err_vs_plain", 0)) \
+                    > MESH_TOL:
+                raise AssertionError(f"mesh {key}: {rec}")
+    ckpt = mesh_checkpoint(ranks, tmp)
+    full = {"config": "deepseek-v3-671b MoE FFN, bf16", **MESH_FULL,
+            "reduced": MESH_FULL_CUT, "tolerance": MESH_FULL_TOL,
+            "ranks": [r["full"] for r in ranks]}
+    full["ms_slowest_rank"] = max(float(np.median(r["full"]["ms"]))
+                                  for r in ranks)
+    full["all_reduce_share"] = max(r["full"]["all_reduce_share"]
+                                   for r in ranks)
+    full.update(mesh_full_plain(dev, tmp))
+    t2 = time.perf_counter()
+
+    # one NCCL rank: the same training arm on a (1, 1) mesh
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        try:
+            init_ranks("nccl", store=os.path.join(d, "two"), rank=0,
+                       world_size=2)
+            refused = False
+        except ValueError:
+            refused = True
+        if not refused or dist.is_initialized():
+            raise AssertionError("nccl took two ranks on one card")
+        init_ranks("nccl", store=os.path.join(d, "nccl"), rank=0,
+                   world_size=1)
+        try:
+            pm = make_process_mesh(1, 1, dev)
+            nccl = {arch: mesh_train(arch, dev, pm) for arch in MESH_ARCHS}
+        finally:
+            dist.destroy_process_group()
+    bit_equal = {arch: nccl[arch]["loss"] == plain[arch]["loss"]
+                 and nccl[arch]["grad_norm"] == plain[arch]["grad_norm"]
+                 and all(torch.equal(v, plain[arch]["params"][k])
+                         for k, v in nccl[arch]["params"].items())
+                 for arch in MESH_ARCHS}
+    if not all(bit_equal.values()):
+        raise AssertionError(f"nccl (1, 1) != no mesh: {bit_equal}")
+    shutil.rmtree(tmp)
+    launched = {k: n for k, n in ks.counts().items() if n}
+    return {"card": card, "backend": "gloo, 4 ranks on one card",
+            "torch": torch.__version__,
+            "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+            "reduced_vs_cpu": reduced, "tolerance": MESH_TOL,
+            "steps": MESH_STEPS, "batch": MESH_BATCH, "full": full,
+            "checkpoint": ckpt,
+            "nccl": {"mesh": [1, 1], "bit_equal_to_no_mesh": bit_equal,
+                     "refuses_two_ranks_on_one_card": refused},
+            "kernel_launches": launched,
+            "spawn_seconds": round(t1 - t0, 3),
+            "compare_seconds": round(t2 - t1, 3),
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+# --------------------------------------------------------------------------
 # Two checkouts in turns
 # --------------------------------------------------------------------------
 
@@ -5863,6 +6333,8 @@ def main() -> int:
     train = phase_train(ks)
     emit("train", ok=True, **train)
     emit("dryrun", ok=True, **phase_dryrun(lm, gnn, train))
+    mesh = phase_mesh(ks, card)
+    emit("mesh", ok=True, **mesh)
     # launches on the main path, per path: each index's fused serving,
     # its two-phase serving, polygons, device build and leaf-scan
     # serving (host- and device-built), the two kNN runs, perf_build's
@@ -5931,7 +6403,8 @@ def main() -> int:
         for k, n in counts.items():
             per_path[k][f"serve {path}"] = n
     per_path["segment_bag"] = bag_paths
-    for k in KERNELS:   # the SCC and model paths launch no kernel
+    for k in KERNELS:   # the SCC, model and mesh paths launch no kernel
+        per_path[k]["mesh"] = mesh["kernel_launches"].get(k, 0)
         per_path[k]["scc"] = scc["kernel_launches"].get(k, 0)
         per_path[k]["lm"] = lm["kernel_launches"].get(k, 0)
         per_path[k]["gnn"] = gnn["kernel_launches"].get(k, 0)

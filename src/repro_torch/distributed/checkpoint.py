@@ -26,6 +26,12 @@ Layout of one checkpoint:
   close.
 * **Step-keyed data** — the pipelines are deterministic in (seed,
   step), so restore needs no data-loader state.
+* **Elastic restart** — a tree with DTensor leaves (a process mesh's
+  state) is saved as logical arrays: every rank gathers each leaf
+  (``collectives.full``) and rank 0 writes.  A template leaf
+  that is a DTensor restores onto its own mesh and placements, which
+  may be another shape's than the saver's (``elastic.reshard`` does the
+  same for a tree restored as plain tensors).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import collectives as CO
 from .tree import map_leaves, walk
 
 SHARD_BYTES = 512 * 1024 * 1024
@@ -64,11 +71,35 @@ def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in walk(tree)}
 
 
+def _gathered(tree: Any) -> Tuple[Any, bool]:
+    """The tree with every DTensor leaf gathered whole (on every rank),
+    and whether it had one."""
+    sharded = any(CO.is_dtensor(v) for _, v in walk(tree))
+    if sharded:
+        tree = map_leaves(lambda _, x: CO.full(x), tree)
+    return tree, sharded
+
+
 def save_checkpoint(directory: str, step: int, tree: Any,
                     extra: Optional[Dict] = None) -> str:
-    """Blocking save with atomic rename commit. Returns the final path."""
-    flat = _flatten(tree)
+    """Blocking save with atomic rename commit. Returns the final path.
+    A tree with DTensor leaves is saved whole by rank 0; every rank of
+    the process group calls this, and returns once it is committed."""
+    tree, sharded = _gathered(tree)
     final = os.path.join(directory, f"step_{step:08d}")
+    if sharded and torch.distributed.get_rank() != 0:
+        torch.distributed.barrier()
+        return final
+    try:
+        return _write(directory, final, step, tree, extra)
+    finally:
+        if sharded:
+            torch.distributed.barrier()
+
+
+def _write(directory: str, final: str, step: int, tree: Any,
+           extra: Optional[Dict]) -> str:
+    flat = _flatten(tree)
     tmp = f"{final}.tmp-{os.getpid()}"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -117,8 +148,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def _restore_leaf(arr: np.ndarray, ref):
-    """``arr`` in the template leaf's kind: a tensor of its dtype on its
-    device, or an array of its dtype."""
+    """``arr`` in the template leaf's kind: a DTensor placed as it is, a
+    tensor of its dtype on its device, or an array of its dtype."""
+    if CO.is_dtensor(ref):
+        return CO.distribute(torch.as_tensor(arr).to(ref.dtype),
+                             ref.device_mesh, ref.placements)
     if isinstance(ref, torch.Tensor):
         return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
     if hasattr(ref, "dtype"):
@@ -201,9 +235,14 @@ class CheckpointManager:
             )
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None):
+        """A tree with DTensor leaves is gathered on every rank (each
+        calls this) and queued by rank 0 alone."""
         if self._err is not None:
             err, self._err = self._err, None
             raise err
+        tree, sharded = _gathered(tree)
+        if sharded and torch.distributed.get_rank() != 0:
+            return
         host_tree = _host_copy(tree)             # device->host copy now
         self._q.put((step, host_tree, extra))    # blocks if one pending
 

@@ -3,10 +3,14 @@
 
 Checkpoints store *logical* (unsharded) arrays, so a job can restart on
 another mesh: ``reshard`` places a restored tree onto the mesh under
-the partition rules' specs.  The port places on one device: a mesh of
-more than one device, or with any axis of size > 1, needs the
-multi-card work of ROADMAP Queue 1 item 13 (``torch.distributed``),
-and raises ``NotImplementedError``.
+the partition rules' specs.  Onto a process mesh (a ``DeviceMesh``,
+``launch.mesh.make_process_mesh``) every leaf becomes a DTensor whose
+local shard on each rank is the block the reference's ``NamedSharding``
+gives the device at the same mesh coordinate; every rank holds the same
+logical tree, so each keeps its block with no collective.  Onto a mesh
+of one device the leaves are placed whole on it.  A single process's
+mesh of several devices (``ShardMesh``) raises ``ValueError``: one
+process holds no global sharded tensor.
 
 ``run_with_recovery`` is the supervisor loop of a training segment: it
 retries after transient failures, the segment restoring from the last
@@ -21,20 +25,25 @@ from typing import Any, Callable
 
 import torch
 
-from .sharding import mesh_sizes
+from .collectives import distribute, process_mesh
+from .sharding import placements
 from .tree import at, map_leaves
 
 
 def reshard(tree: Any, mesh, spec_tree: Any) -> Any:
-    """Place (host or device) arrays onto ``mesh`` (a ``ShardMesh``: its
-    ``devices`` and ``shape``) per ``spec_tree``, a tree of specs of
-    ``tree``'s structure."""
+    """Place (host or device) arrays onto ``mesh`` per ``spec_tree``, a
+    tree of specs of ``tree``'s structure: a process mesh (DTensor
+    leaves) or a mesh of one device (a ``ShardMesh``: its ``devices``
+    and ``shape``)."""
+    pm = process_mesh(mesh)
+    if pm is not None:
+        def place(key, x):
+            x = torch.as_tensor(x)
+            return distribute(x, pm, placements(at(spec_tree, key), pm,
+                                                tuple(x.shape)))
+
+        return map_leaves(place, tree)
     devices = tuple(mesh.devices)
-    big = {a: n for a, n in mesh_sizes(mesh).items() if n > 1}
-    if len(devices) != 1 or big:
-        raise NotImplementedError(
-            f"reshard onto {len(devices)} devices (axes {big}) waits for "
-            f"the port's multi-card work (ROADMAP Queue 1 item 13)")
 
     def put(key, x):
         x = torch.as_tensor(x)

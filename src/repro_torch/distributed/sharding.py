@@ -14,10 +14,12 @@ gemma2's 8 heads on a 17-way model axis), and specs are padded with
 leading ``None`` for stacked (segment) layer parameters, as the
 reference's ``PartitionSpec``s are.
 
-A mesh here is a ``{axis: size}`` mapping, or an object whose ``shape``
-is one (``launch.mesh.ShardMesh``); an axis it does not name has size 1.
-The reference's ``named`` (a spec tree to ``NamedSharding``s) has no
-counterpart: ``elastic.reshard`` places a tree by its specs directly.
+A mesh here is a ``{axis: size}`` mapping, an object whose ``shape``
+is one (``launch.mesh.ShardMesh``), or a process mesh (a named
+``DeviceMesh``); an axis it does not name has size 1.  The reference's
+``named`` (a spec tree to ``NamedSharding``s) has no counterpart:
+``elastic.reshard`` places a tree by its specs directly, each spec
+turned into DTensor placements by ``placements``.
 """
 
 from __future__ import annotations
@@ -32,8 +34,57 @@ Spec = Tuple
 
 
 def mesh_sizes(mesh) -> Mapping[str, int]:
-    """``{axis: size}`` of a mapping or of an object with ``shape``."""
-    return mesh if isinstance(mesh, Mapping) else mesh.shape
+    """``{axis: size}`` of a mapping, a named ``DeviceMesh`` or an object
+    with a ``shape`` mapping."""
+    if isinstance(mesh, Mapping):
+        return mesh
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return mesh.shape
+
+
+def placements(spec: Spec, mesh, shape: Tuple[int, ...]) -> Tuple:
+    """DTensor placements on the process mesh ``mesh`` (one per mesh
+    dim) of a tensor of ``shape`` under the reference's ``spec``: an
+    axis name gives ``Shard(dim)`` on that mesh dim, a tuple of names
+    ``Shard(dim)`` on each (major first, as JAX orders them, so the
+    names must come in the mesh's order), ``None`` and every mesh dim no
+    entry names ``Replicate()``.  A dim that the named axes do not
+    divide raises ``ValueError``, as JAX refuses it (DTensor would split
+    it unevenly without a word)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than "
+                         f"{len(shape)} dims")
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec}: no axis {a!r} in the "
+                                 f"mesh's {names}")
+            i = names.index(a)
+            if i in idx or not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: axis {a!r} used twice")
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} must come in the "
+                             f"mesh's order {names}")
+        n = 1
+        for i in idx:
+            n *= mesh.size(i)
+            out[i] = Shard(dim)
+        if shape[dim] % n:
+            raise ValueError(f"spec {spec}: {n} shards do not evenly "
+                             f"divide dim {dim} of shape {tuple(shape)}")
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +154,17 @@ def lm_param_spec(path: str, shape: Tuple[int, ...], axes: MeshAxes,
             return last2(m if _div(shape[-2], tp) else None, None)
         return _pad((), nd)             # router replicated
     return _pad((), nd)                 # norms, scalars
+
+
+def lm_expert_param_spec(path: str, shape: Tuple[int, ...], axes: MeshAxes,
+                         tp: int) -> Spec:
+    """The layout the port's process mesh trains in: ``lm_param_spec``
+    on the MoE leaves (routed experts over ``model``, the shared expert
+    split), every other leaf replicated (the port's dense layers are not
+    tensor-parallel)."""
+    if "/moe/" in path:
+        return lm_param_spec(path, shape, axes, tp)
+    return _pad((), len(shape))
 
 
 # --------------------------------------------------------------------------

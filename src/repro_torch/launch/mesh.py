@@ -1,5 +1,6 @@
 """Meshes (the port of ``repro.launch.mesh``): the production and host
-meshes of the dry run, and the query-serving shard mesh.
+meshes of the dry run, the query-serving shard mesh, and the process
+mesh the expert- and data-parallel arms run on.
 
 The reference's production meshes are ``jax`` meshes over a v5e pod
 (16 × 16 chips, or 2 × 16 × 16 with a ``pod`` axis).  The port runs on
@@ -18,14 +19,26 @@ device.  That is the placement rule of
 ``distributed.sharding.index_shard_specs`` (the reference's, ported):
 arenas split on the shard axis, the pointer side replicated;
 ``ShardedEngine._place`` places by that table.
+
+The reference's host mesh ``jax.make_mesh((1, n), ("data", "model"))``
+spans the devices of one process.  A PyTorch process drives one device,
+so the port's sharded arms run one process a rank: ``init_ranks`` joins
+the process group, ``make_process_mesh`` lays the ranks out as a
+``DeviceMesh`` with dims ``("data", "model")``, row-major (rank r at
+``divmod(r, model)``, as ``jax.make_mesh`` orders its devices).  The
+backend is the caller's choice and nothing picks it: ``"nccl"`` puts
+rank r on card r (NCCL refuses two ranks on one card), ``"gloo"`` runs
+on the CPU, or with ``device`` given, several ranks on one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed
 
 from ..device import DeviceLike, resolve_device
 from ..distributed.sharding import MeshAxes
@@ -93,3 +106,64 @@ def make_shard_mesh(n_dev: Optional[int] = None,
         raise ValueError(f"n_dev={n} outside [1, {len(avail)}] visible "
                          f"{avail[0].type} devices")
     return ShardMesh(tuple(avail[:n]))
+
+
+BACKENDS = ("nccl", "gloo")
+
+
+def init_ranks(backend: str, *, store: Optional[str] = None,
+               rank: Optional[int] = None, world_size: Optional[int] = None,
+               device: DeviceLike = None) -> torch.device:
+    """Join this process to the process group; returns the device its
+    tensors live on.
+
+    Without ``store`` the rank, world size and local rank are torchrun's
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; the rendezvous
+    ``env://``).  With it, ``rank`` of ``world_size`` ranks meet at the
+    file ``store`` (``file://``; local rank = rank).  ``"nccl"`` takes
+    no ``device``: local rank r runs on ``cuda:r``, and a world larger
+    than the visible cards raises ``ValueError``.  ``"gloo"`` runs on
+    the CPU unless ``device`` names a card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    if store is None:
+        rank = int(os.environ["RANK"])
+        world_size = int(os.environ["WORLD_SIZE"])
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        init = "env://"
+    else:
+        if rank is None or world_size is None:
+            raise ValueError("a file store needs rank and world_size")
+        local_rank = rank
+        init = "file://" + os.path.abspath(store)
+    if backend == "nccl":
+        if device is not None:
+            raise ValueError("nccl places rank r on cuda:r; give no device")
+        n = torch.cuda.device_count()
+        if world_size > n:
+            raise ValueError(f"nccl needs one card a rank: {world_size} "
+                             f"ranks, {n} visible card(s)")
+        dev = torch.device("cuda", local_rank)
+    else:
+        dev = torch.device("cpu") if device is None else resolve_device(
+            device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=init,
+                                         rank=rank, world_size=world_size)
+    return dev
+
+
+def make_process_mesh(data: int, model: int, device: torch.device):
+    """A ``DeviceMesh`` of dims ``("data", "model")`` and sizes ``(data,
+    model)`` over the initialised group, for tensors on ``device``'s
+    type."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = torch.distributed.get_world_size()
+    if data * model != world:
+        raise ValueError(f"a ({data}, {model}) mesh over {world} ranks")
+    return init_device_mesh(torch.device(device).type, (data, model),
+                            mesh_dim_names=("data", "model"))

@@ -21,6 +21,15 @@ Structure:
   long_500k, every step).  The cache's length lives on the host, so a
   step never waits for the card to learn where to write.
 
+Under a process mesh (``launch.mesh.make_process_mesh``) the MoE layers
+run expert-parallel over ``model`` (``moe.py``).  ``forward`` and
+``lm_loss`` take this rank's rows of a batch split over ``data``, and
+the loss is the reference's global mean: the summed NLL and the token
+count are summed over ``data`` before the division (each rank's
+backward gives its rows' share of the gradient).  ``prefill`` and
+``decode_step`` take the whole batch on every rank, as the reference's
+serving path replicates it.
+
 Token ids outside ``[-V, V)`` embed as NaN rows and ids in ``[-V, 0)``
 wrap, as the reference's ``jnp.take`` answers (``nn.embed``).  A tree's
 device is its tensors' device; ``init_params`` and ``init_cache`` take
@@ -35,6 +44,7 @@ import torch
 import torch.utils.checkpoint
 
 from ...device import DeviceLike, resolve_device
+from ...distributed import collectives as CO
 from ..nn import (ACT, Params, dense, dense_init, embed, embed_init,
                   norm_init, rmsnorm, scan_blocks, stack_init, take_rows,
                   tree_index, tree_to)
@@ -218,13 +228,16 @@ def _attn_train(p, x, cfg: LMConfig, is_local: bool, positions):
     return o.reshape(B, S, H * dh) @ p["wo"]
 
 
-def _ffn(p, h, cfg: LMConfig, is_moe: bool, mesh):
+DATA = ("data",)   # the axes a training batch's rows are split over
+
+
+def _ffn(p, h, cfg: LMConfig, is_moe: bool, mesh, data_axes=()):
     """(FFN output, aux loss or None) of the normed activations h."""
     if not is_moe:
         return _dense_ffn(p["ffn"], h, cfg.act), None
     B, S, d = h.shape
     out, a = moe_ffn(p["moe"], h.reshape(B * S, d), cfg.moe, act=cfg.act,
-                     mesh=mesh)
+                     mesh=mesh, data_axes=data_axes)
     return out.reshape(B, S, d), a
 
 
@@ -233,7 +246,7 @@ def _block_train(p, x, aux, cfg: LMConfig, flags, positions, mesh):
     h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
     x = x + _attn_train(p["attn"], h, cfg, is_local, positions)
     h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
-    out, a = _ffn(p, h, cfg, is_moe, mesh)
+    out, a = _ffn(p, h, cfg, is_moe, mesh, DATA)
     x = x + out
     if a is not None:
         aux = aux + a
@@ -311,11 +324,13 @@ def chunked_ce_loss(
     cfg: LMConfig,
     chunk: int = 512,
     label_mask: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Cross-entropy without building (B, S, V): one chunk of the
     sequence at a time, the sums carried as the reference's scan carries
     them.  A label outside ``[-V, V)`` gives a NaN term, as the
-    reference's ``take_along_axis`` does."""
+    reference's ``take_along_axis`` does.  Under a process mesh the sums
+    are the whole batch's, over ``data``."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -332,6 +347,10 @@ def chunked_ce_loss(
               else label_mask[:, c:c + chunk].to(torch.float32))
         tot = tot + ((logz - gold) * mc).sum()
         cnt = cnt + mc.sum()
+    pm = CO.process_mesh(mesh)
+    if pm is not None:
+        tot = CO.reduce_from(tot, pm, "data")
+        cnt = CO.all_reduce(cnt.detach(), pm, "data")
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -346,7 +365,7 @@ def lm_loss(
     hidden, aux = forward(params, batch["tokens"], cfg, mesh=mesh,
                           remat=remat)
     loss = chunked_ce_loss(params, hidden, batch["labels"], cfg,
-                           chunk=cfg.loss_chunk)
+                           chunk=cfg.loss_chunk, mesh=mesh)
     metrics = {"ce": loss, "aux": aux}
     if cfg.mtp_depth > 0:
         # MTP(1): predict t+2 from [h_t ; emb(label_t)] through one block
@@ -365,7 +384,8 @@ def lm_loss(
         mask = torch.ones(mtp_labels.shape, dtype=torch.float32,
                           device=lab.device)
         mask[:, -1] = 0.0
-        mtp = chunked_ce_loss(params, h2, mtp_labels, cfg, label_mask=mask)
+        mtp = chunked_ce_loss(params, h2, mtp_labels, cfg, label_mask=mask,
+                              mesh=mesh)
         metrics["mtp"] = mtp
         loss = loss + 0.3 * mtp
     loss = loss + aux

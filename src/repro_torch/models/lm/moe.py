@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN (the port of ``repro.models.lm.moe``, its
-single-device path).
+"""Mixture-of-Experts FFN with expert parallelism (the port of
+``repro.models.lm.moe``).
 
 * Routing: softmax over the router's logits in float32, the top ``k``
   experts per token (ties to the lower expert id, as ``lax.top_k``
@@ -15,18 +15,28 @@ single-device path).
   that is then cut off, and the combine an ``index_add`` of weighted
   rows per token.
 
-The reference runs the layer under ``shard_map`` over a mesh's model
-axis (experts split over it, one ``psum``); that arm needs the port's
-multi-card work (ROADMAP Queue 1 item 13), so a mesh with a ``model``
-axis raises ``NotImplementedError`` here.
+Under a process mesh (``launch.mesh.make_process_mesh``) with a
+``model`` axis of size tp, the layer is the reference's ``shard_map``
+arm, one process a rank: routing is replicated; rank m runs experts
+``[m E/tp, (m+1) E/tp)`` and its slice of the shared expert's hidden
+dim; one sum over ``model`` completes both partial outputs.  The
+crossings carry their own autograd rules (``distributed.collectives``):
+``x`` and the router enter by ``copy_to`` and the output and aux leave
+by ``reduce_from``, so attention and the residual stream get the same
+gradient on every model rank.  With ``data_axes``, ``x`` holds this
+rank's rows of a batch split over those axes: capacity comes from the
+whole batch's tokens, and the aux loss is data rank 0's, its gradient
+that of the ranks' mean (both as the reference computes them, ROADMAP
+R13).  Without a mesh, or on a mesh of one device, the local path runs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
+from ...distributed import collectives as CO
 from ..nn import ACT, Params
 from .config import MoESpec
 
@@ -129,20 +139,76 @@ def _shared_ffn(x, sh_gu, sh_d, act):
     return (ACT[act](gu[:, 0]) * gu[:, 1]) @ sh_d
 
 
+def _block(w, dim: int, tp: int, m: int, whole: bool) -> torch.Tensor:
+    """Rank m's block of ``w`` along ``dim``: cut from ``w`` when it is
+    whole, else ``w`` itself (a DTensor's local shard)."""
+    w = CO.local(w)
+    if not whole:
+        return w
+    n = w.shape[dim]
+    if n % tp:
+        raise ValueError(f"dim {dim} of {tuple(w.shape)} does not split "
+                         f"over {tp} ranks")
+    return w.narrow(dim, m * (n // tp), n // tp)
+
+
 def moe_ffn(p: Params, x: torch.Tensor, spec: MoESpec, *, act: str = "silu",
-            mesh=None, model_axis: str = "model"
+            mesh=None, model_axis: str = "model",
+            data_axes: Sequence[str] = ()
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (T, d), aux_loss) for x (T, d) tokens."""
-    if mesh is not None and model_axis in getattr(mesh, "shape", {}):
-        raise NotImplementedError(
-            "the expert-parallel arm over a model axis waits for the "
-            "port's multi-card work (ROADMAP Queue 1 item 13)")
+    """Returns (out (T, d), aux_loss) for x (T, d) tokens.  Under a
+    process mesh with ``model_axis``: expert parallelism over it, ``x``
+    this rank's rows of a batch split over ``data_axes`` (none: the
+    whole batch on every rank)."""
+    pm = CO.process_mesh(mesh)
     T, d = x.shape
     E, k = spec.n_experts, spec.top_k
-    w, e, aux = _routing(x, p["router"], spec)
-    cap = max(1, int(spec.balance_factor * T * k / E))
-    out = _expert_ffn_local(x, w, e, p["w_gu"], p["w_d"], spec, 0, E, cap,
-                            act)
+    if pm is None or model_axis not in pm.mesh_dim_names:
+        w, e, aux = _routing(x, p["router"], spec)
+        cap = max(1, int(spec.balance_factor * T * k / E))
+        out = _expert_ffn_local(x, w, e, p["w_gu"], p["w_d"], spec, 0, E,
+                                cap, act)
+        if "sh_gu" in p:
+            out = out + _shared_ffn(x, p["sh_gu"], p["sh_d"], act)
+        return out, aux
+
+    tp = CO.axis_size(pm, model_axis)
+    m = CO.axis_index(pm, model_axis)
+    if E % tp:
+        raise ValueError(f"{E} experts do not split over {tp} ranks")
+    e_local = E // tp
+    # the parameters come whole (each rank cuts its block) or as this
+    # rank's blocks (DTensors, or a trainer's local shards)
+    rows = CO.local(p["w_gu"]).shape[0]
+    if rows not in (E, e_local):
+        raise ValueError(f"w_gu has {rows} experts: neither {E} nor "
+                         f"{E}/{tp}")
+    whole = rows == E
+    if "sh_gu" in p and spec.d_shared:
+        want = spec.n_shared * spec.d_shared // (1 if whole else tp)
+        got = CO.local(p["sh_d"]).shape[0]
+        if got != want:
+            raise ValueError(f"sh_d has {got} rows, not {want}: the shared "
+                             f"expert comes whole or as this rank's "
+                             f"block, as the routed experts do")
+    n_rows = T
+    for a in data_axes:
+        n_rows *= CO.axis_size(pm, a)
+    cap = max(1, int(spec.balance_factor * n_rows * k / E))
+    x = CO.copy_to(x, pm, model_axis)
+    w, e, aux = _routing(
+        x, CO.copy_to(CO.local(p["router"]), pm, model_axis), spec)
+    out = _expert_ffn_local(
+        x, w, e, _block(p["w_gu"], 0, tp, m, whole),
+        _block(p["w_d"], 0, tp, m, whole), spec, m * e_local, e_local, cap,
+        act)
     if "sh_gu" in p:
-        out = out + _shared_ffn(x, p["sh_gu"], p["sh_d"], act)
+        # tensor-parallel shared expert: rank m's slice of the hidden
+        # dim; its partial sums complete in the routed output's sum
+        out = out + _shared_ffn(x, _block(p["sh_gu"], 2, tp, m, whole),
+                                _block(p["sh_d"], 0, tp, m, whole), act)
+    out = CO.reduce_from(out, pm, model_axis)
+    aux = CO.reduce_from(aux, pm, model_axis) / tp
+    for a in data_axes:
+        aux = CO.first_of(aux, pm, a)
     return out, aux

@@ -11,6 +11,11 @@ step + 1, the schedule at the new step, bias correction, then the
 update with decoupled weight decay on float32 copies, cast back to
 each parameter's dtype.  Leaves are visited in sorted key order, as
 ``jax.tree.leaves`` visits a dict.
+
+Under a process mesh the parameters, gradients and moments are DTensors
+(``distributed.elastic.reshard``): the clip norm is the global one (a
+leaf split over mesh dims sums its square over them, a replicated leaf
+counts once) and the update runs on each rank's shards.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..distributed import collectives as CO
 
 
 class AdamWState(NamedTuple):
@@ -94,10 +101,25 @@ def adamw_init(params: Any) -> AdamWState:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """sqrt of the sum of squares of every leaf, in float32.  A DTensor
+    leaf's square sum is its shard's, summed over the mesh dims it is
+    split over (one sum a set of dims); a replicated one counts once."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(torch.square(CO.local(x).to(torch.float32)))
+          for x in leaves]
+    split = {}
+    for i, x in enumerate(leaves):
+        dims = CO.sharded_dims(x)
+        if dims:
+            split.setdefault((id(x.device_mesh), dims), []).append(i)
+    for (_, dims), idx in split.items():
+        mesh = leaves[idx[0]].device_mesh
+        v = torch.stack([sq[i] for i in idx])
+        for dim in dims:
+            torch.distributed.all_reduce(v, group=mesh.get_group(dim))
+        for j, i in enumerate(idx):
+            sq[i] = v[j]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 @torch.no_grad()
@@ -110,17 +132,23 @@ def adamw_update(
     """-> ``(new params, new state, {"grad_norm", "lr"})``; the inputs
     are left as they are."""
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
-    step = state.step + 1
+    step = CO.local(state.step) + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
 
     def upd(p, g, m, v):
+        out = upd_local(*map(CO.local, (p, g, m, v)))
+        return tuple(CO.like(r, t) for r, t in zip((p, m, v), out))
+
+    def upd_local(p, g, m, v):
+        if scale is not None:
+            g = g * scale
         g32 = g.to(torch.float32)
         m_new = b1 * m + (1 - b1) * g32
         v_new = b2 * v + (1 - b2) * g32 * g32
@@ -133,7 +161,8 @@ def adamw_update(
                 v_new)
 
     out = tree_map(upd, params, grads, state.m, state.v)
-    return _pick(out, 0), AdamWState(step=step, m=_pick(out, 1),
+    return _pick(out, 0), AdamWState(step=CO.like(state.step, step),
+                                     m=_pick(out, 1),
                                      v=_pick(out, 2)), {
         "grad_norm": gnorm, "lr": lr,
     }

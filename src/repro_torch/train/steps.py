@@ -9,6 +9,16 @@ gradients come from ``torch.autograd.grad`` over the parameter leaves
 leading batch dimension is split into microbatches whose float32
 gradients are summed, one microbatch at a time, as the reference's
 ``lax.scan`` sums them, so peak activation memory is one microbatch.
+
+Under a process mesh (``mesh``) the step takes the whole batch on every
+rank, cuts each microbatch's rows for this rank's ``data`` coordinate
+(so ``grad_accum`` keeps its meaning), and runs ``loss_fn`` on them:
+its loss must be the whole batch's, each rank's backward giving its
+rows' share of the gradient, as ``lm_loss(..., mesh=mesh)`` does.  The
+parameters and moments may be DTensors (``distributed.elastic.reshard``,
+e.g. under ``lm_expert_param_spec``); the gradients are computed on
+the local shards and summed over ``data`` before AdamW, whose clip norm
+is global (``optim.global_norm``).
 """
 
 from __future__ import annotations
@@ -17,6 +27,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from ..distributed import collectives as CO
 from .optim import AdamWConfig, AdamWState, adamw_update, tree_leaves
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor]], Any]
@@ -35,8 +46,15 @@ def make_train_step(
     *,
     grad_accum: int = 1,
     has_metrics: bool = True,
+    mesh=None,
 ) -> Callable:
     """loss_fn(params, batch) -> scalar | (scalar, metrics dict)."""
+    pm = CO.process_mesh(mesh)
+
+    def rows(batch):
+        if pm is None:
+            return batch
+        return {k: CO.rows_of(v, pm, "data") for k, v in batch.items()}
 
     def full_loss(params, batch):
         out = loss_fn(params, batch)
@@ -47,9 +65,11 @@ def make_train_step(
         return loss, metrics
 
     def grad_fn(params, batch):
-        xs = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        xs = [CO.local(p).detach().requires_grad_(True)
+              for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = full_loss(_rebuild(params, iter(xs)), batch)
+            loss, metrics = full_loss(_rebuild(params, iter(xs)),
+                                      rows(batch))
             gs = torch.autograd.grad(loss, xs, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g
               for x, g in zip(xs, gs)]
@@ -68,7 +88,7 @@ def make_train_step(
                 n = b // grad_accum
                 return x[i * n:(i + 1) * n]
 
-            acc = [torch.zeros(p.shape, dtype=torch.float32,
+            acc = [torch.zeros(CO.local(p).shape, dtype=torch.float32,
                                device=p.device)
                    for p in tree_leaves(params)]
             loss_sum = torch.zeros((), dtype=torch.float32,
@@ -81,6 +101,10 @@ def make_train_step(
             grads = _rebuild(params, iter([a / grad_accum for a in acc]))
             loss = loss_sum / grad_accum
             metrics = {}
+        if pm is not None:
+            grads = _rebuild(params, iter([
+                CO.like(p, CO.all_reduce(g, pm, "data")) for p, g in zip(
+                    tree_leaves(params), tree_leaves(grads))]))
         new_params, new_opt, opt_metrics = adamw_update(
             opt_cfg, grads, opt_state, params
         )

@@ -21,8 +21,9 @@ on the CPU.
   split at ``SHARD_BYTES``.
 * ``run_with_recovery`` retries with the reference's backoff, re-raises
   after ``max_failures`` and never catches ``KeyboardInterrupt``;
-  ``reshard`` places on one device and waits for multi-card work
-  otherwise.
+  ``reshard`` places on one device and refuses a single process's
+  mesh of several devices (onto a process mesh:
+  ``tests/test_torch_mesh.py``).
 """
 
 import functools
@@ -454,11 +455,15 @@ def test_reshard_places_on_one_device():
 
 
 def test_reshard_waits_for_multi_card_work():
+    """A single process's mesh of several devices, or with a model axis
+    of 2, raises ``ValueError`` naming the process mesh: one process
+    holds no global sharded tensor (``reshard`` onto a process mesh:
+    ``tests/test_torch_mesh.py``)."""
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="process mesh"):
         DI.reshard({"w": torch.ones(2)}, ShardMesh((cpu, cpu)),
                    {"w": ()})
     wide = types.SimpleNamespace(devices=(cpu,), shape={"data": 1,
                                                         "model": 2})
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="process mesh"):
         DI.reshard({"w": torch.ones(2)}, wide, {"w": ()})

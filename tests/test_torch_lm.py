@@ -302,19 +302,26 @@ def test_moe_top_k_breaks_ties_to_the_lower_id():
 
 
 def test_moe_mesh_with_a_model_axis_waits():
+    """A mesh of one device runs the local path; a single process's
+    mesh of several devices, or with a model axis but no processes
+    behind it, raises ``ValueError`` naming the process mesh (the
+    expert-parallel arm runs one process a rank:
+    ``tests/test_torch_mesh.py``)."""
     from repro_torch.launch.mesh import ShardMesh
 
     spec = MoESpec(n_experts=4, top_k=1, d_expert=8)
     _, p = _moe_pair(0, spec, 8)
     x = torch.zeros(4, 8)
-    out, _ = MOE.moe_ffn(p, x, spec, mesh=ShardMesh((torch.device("cpu"),)))
+    cpu = torch.device("cpu")
+    out, _ = MOE.moe_ffn(p, x, spec, mesh=ShardMesh((cpu,)))
     assert out.shape == (4, 8)
 
     class Mesh2:
         shape = {"data": 1, "model": 2}
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        MOE.moe_ffn(p, x, spec, mesh=Mesh2())
+    for mesh in (Mesh2(), ShardMesh((cpu, cpu))):
+        with pytest.raises(ValueError, match="process mesh"):
+            MOE.moe_ffn(p, x, spec, mesh=mesh)
 
 
 # --------------------------------------------------- the model, per arch
