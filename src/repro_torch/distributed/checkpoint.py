@@ -28,7 +28,8 @@ Layout of one checkpoint:
   step), so restore needs no data-loader state.
 * **Elastic restart** — a tree with DTensor leaves (a process mesh's
   state) is saved as logical arrays: every rank gathers each leaf
-  (``collectives.full``) and rank 0 writes.  A template leaf
+  (``collectives.full``) and rank 0 writes (``save_checkpoint``; the
+  asynchronous writer takes no DTensor leaves).  A template leaf
   that is a DTensor restores onto its own mesh and placements, which
   may be another shape's than the saver's (``elastic.reshard`` does the
   same for a tree restored as plain tensors).
@@ -151,8 +152,11 @@ def _restore_leaf(arr: np.ndarray, ref):
     """``arr`` in the template leaf's kind: a DTensor placed as it is, a
     tensor of its dtype on its device, or an array of its dtype."""
     if CO.is_dtensor(ref):
-        return CO.distribute(torch.as_tensor(arr).to(ref.dtype),
-                             ref.device_mesh, ref.placements)
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(torch.as_tensor(arr).to(ref.dtype),
+                                 ref.device_mesh, ref.placements,
+                                 src_data_rank=None)
     if isinstance(ref, torch.Tensor):
         return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
     if hasattr(ref, "dtype"):
@@ -235,14 +239,14 @@ class CheckpointManager:
             )
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None):
-        """A tree with DTensor leaves is gathered on every rank (each
-        calls this) and queued by rank 0 alone."""
+        """A tree with DTensor leaves raises ``ValueError``: a process
+        mesh's state is saved by ``save_checkpoint`` on every rank."""
         if self._err is not None:
             err, self._err = self._err, None
             raise err
-        tree, sharded = _gathered(tree)
-        if sharded and torch.distributed.get_rank() != 0:
-            return
+        if any(CO.is_dtensor(v) for _, v in walk(tree)):
+            raise ValueError("save_async takes no DTensor leaves: save a "
+                             "process mesh's state with save_checkpoint")
         host_tree = _host_copy(tree)             # device->host copy now
         self._q.put((step, host_tree, extra))    # blocks if one pending
 

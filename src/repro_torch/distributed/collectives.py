@@ -184,39 +184,14 @@ def sharded_dims(x) -> Tuple[int, ...]:
     return tuple(i for i, p in enumerate(x.placements) if p.is_shard())
 
 
-def distribute(x: torch.Tensor, mesh, places) -> Any:
-    """The logical tensor ``x``, the same on every rank, as a DTensor on
-    ``mesh`` with ``places`` (one per mesh dim): each rank keeps its own
-    block, with no collective.  A tensor dim split over several mesh
-    dims is split by the first, then each block by the next (major
-    first, as ``distributed.sharding.placements`` orders them)."""
-    from torch.distributed.tensor import DTensor
-
-    shard = x
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(places):
-        if p.is_shard():
-            n = shard.shape[p.dim] // mesh.size(i)
-            shard = shard.narrow(p.dim, coord[i] * n, n)
-    dev = _mesh_device(mesh)
-    return DTensor.from_local(shard.contiguous().to(dev), mesh, places,
-                              run_check=False, shape=x.shape,
-                              stride=torch.empty(x.shape,
-                                                 device="meta").stride())
-
-
-def _mesh_device(mesh) -> torch.device:
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
-
-
 def full(x) -> Any:
     """A DTensor's logical tensor, on its device (a collective: every
     rank of its mesh calls it); any other value as it is.  The blocks
     are gathered by plain ``all_gather``s, the last mesh dim first,
-    undoing ``distribute``'s order, as every other crossing here is a
-    plain collective."""
+    undoing DTensor's order (mesh dim 0 major).  DTensor's own
+    ``full_tensor`` kills a gloo rank on a CUDA mesh (SIGSEGV, torch
+    2.11: ``python -m repro_torch.launch.dtensor_probe``), where
+    these plain gathers run."""
     if not is_dtensor(x):
         return x
     t = x.to_local()

@@ -25,7 +25,7 @@ from typing import Any, Callable
 
 import torch
 
-from .collectives import distribute, process_mesh
+from .collectives import process_mesh
 from .sharding import placements
 from .tree import at, map_leaves
 
@@ -37,10 +37,13 @@ def reshard(tree: Any, mesh, spec_tree: Any) -> Any:
     and ``shape``)."""
     pm = process_mesh(mesh)
     if pm is not None:
+        from torch.distributed.tensor import distribute_tensor
+
         def place(key, x):
             x = torch.as_tensor(x)
-            return distribute(x, pm, placements(at(spec_tree, key), pm,
-                                                tuple(x.shape)))
+            return distribute_tensor(
+                x, pm, placements(at(spec_tree, key), pm, tuple(x.shape)),
+                src_data_rank=None)
 
         return map_leaves(place, tree)
     devices = tuple(mesh.devices)

@@ -403,6 +403,16 @@ def test_checkpoint_restores_on_another_mesh(runs, mesh):
                                       v.numpy())
 
 
+@pytest.mark.parametrize("mesh", R.RESTORE_MESHES)
+def test_save_async_refuses_dtensor_leaves(runs, mesh):
+    """The asynchronous writer takes no DTensor leaves: every rank of
+    the restored tree's mesh is told to use ``save_checkpoint``."""
+    for r, _, _ in _ranks(mesh):
+        msg = str(runs.ranks[r][f"restore/{mesh}/save_async"])
+        assert msg.startswith("ValueError") and "save_checkpoint" in msg, \
+            msg
+
+
 # ------------------------------------------------- one process, no ranks
 
 def _named_mesh(shape):

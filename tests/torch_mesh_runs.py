@@ -196,7 +196,8 @@ def _port_restore(pm, mesh_name, z, res, ckpt):
     """The (2, 2) checkpoint restored onto this mesh: a template of
     zeros placed by ``lm_expert_param_spec`` here."""
     import torch
-    from repro_torch.distributed import (MeshAxes, param_specs, reshard,
+    from repro_torch.distributed import (CheckpointManager, MeshAxes,
+                                         param_specs, reshard,
                                          restore_checkpoint)
     from repro_torch.distributed.sharding import lm_expert_param_spec
     from repro_torch.distributed import collectives as CO
@@ -216,6 +217,14 @@ def _port_restore(pm, mesh_name, z, res, ckpt):
         full = CO.full(v)
         if pm.get_rank() == 0:
             res[f"{key}/full/{k}"] = full.numpy()
+    mgr = CheckpointManager(os.path.join(ckpt, "async"))
+    try:
+        mgr.save_async(2, tree)
+        res[f"{key}/save_async"] = np.asarray("no error")
+    except ValueError as e:
+        res[f"{key}/save_async"] = np.asarray(f"ValueError: {e}")
+    finally:
+        mgr.close()
 
 
 def _port_serve(pm, arch, z, res):
