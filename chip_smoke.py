@@ -5502,10 +5502,11 @@ def phase_dryrun(lm, gnn, train):
 
 
 # --------------------------------------------------------------------------
-# The multi-rank arms: expert and data parallelism over a process mesh
+# The multi-rank arms: tensor, expert and data parallelism over a process
+# mesh
 # --------------------------------------------------------------------------
 
-MESH_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
+MESH_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "gemma2-2b")
 MESH_SHAPES = ((1, 4), (2, 2))     # (data, model) over 4 gloo ranks
 MESH_BATCH = dict(batch=4, seq=32)
 MESH_STEPS = 2
@@ -5538,6 +5539,27 @@ MESH_FULL_CUT = ("DeepSeek-V3 (arXiv:2412.19437): 61 layers -> its MoE "
                  "FFN alone, no attention (1.34 TB of bf16 weights do not "
                  "fit); T = 4,096 tokens; (1, 4) mesh of 4 gloo ranks on "
                  "one card")
+# gemma2-2b at its published widths (arXiv:2408.00118: d 2,304, 8 heads
+# and 4 KV heads of 256, d_ff 9,216, vocab 256,000, bf16) cut to 2
+# layers (one local, one global), tensor-parallel under lm_param_spec on
+# (1, 4): one forward, backward and AdamW step of B x S tokens
+MESH_TP = dict(arch="gemma2-2b", n_layers=2, batch=2, seq=4096, mesh=(1, 4),
+               seed=7)
+MESH_TP_CUT = ("gemma2-2b (arXiv:2408.00118): 26 layers -> 2 (one local, "
+               "one global); 2 x 4,096 tokens; (1, 4) mesh of 4 gloo ranks "
+               "on one card")
+MESH_TP_ITERS = 3
+MESH_TP_LOSS_TOL = 2e-3   # the ranks' loss against one process, relative
+MESH_TP_GRAD_TOL = 5e-2   # each gradient leaf's block, relative in norm:
+#                           both runs round every bf16 product and partial
+#                           sum, in other orders (the ranks sum 4 bf16
+#                           partials of wo's and the FFN's outputs), and
+#                           attention's q/k gradients, differences of
+#                           softmax terms, amplify it: 1.7e-2 on the
+#                           CPU's 4 gloo ranks at d 256 (8 heads of 32,
+#                           S 256); MESH_TP_GRAD_TOL is ~3x that.  Each
+#                           run's own distance from float32 is recorded
+#                           beside it
 
 
 def mesh_gen(dev, i):
@@ -5672,17 +5694,16 @@ def mesh_train(arch, dev, pm, ckpt=None):
     """``arch``'s reduced config (float32; parameters from a CPU
     generator, seed 0) trained MESH_STEPS AdamW steps on ``dev`` on one
     batch: under the process mesh ``pm`` its parameters resharded by
-    ``lm_expert_param_spec`` and the step given the mesh, without one
-    (``pm`` None) the single-process step.  Each step's loss and global
-    grad norm, and the parameters after (this rank's shards); with
-    ``ckpt``, the state after is saved there (every rank calls it)."""
+    ``lm_param_spec``, the moments by ``opt_state_specs`` (ZeRO-1) and
+    the step given the mesh, without one (``pm`` None) the
+    single-process step.  Each step's loss and global grad norm, and the
+    parameters after (this rank's shards); with ``ckpt``, the state
+    after is saved there (every rank calls it)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import lm_batches
-    from repro_torch.distributed import (MeshAxes, param_specs, reshard,
-                                         save_checkpoint)
+    from repro_torch.distributed import save_checkpoint
     from repro_torch.distributed import collectives as CO
-    from repro_torch.distributed.sharding import lm_expert_param_spec
     from repro_torch.distributed.tree import walk
     from repro_torch.models.lm import init_params, lm_loss
     from repro_torch.train import AdamWConfig, adamw_init, make_train_step
@@ -5692,12 +5713,12 @@ def mesh_train(arch, dev, pm, ckpt=None):
     b = next(lm_batches(cfg.vocab, MESH_BATCH["seq"], MESH_BATCH["batch"],
                         seed=1))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
-    if pm is not None:
-        state = reshard(state, pm, param_specs(
-            state, lm_expert_param_spec, MeshAxes(), pm))
+    if pm is None:
+        opt = adamw_init(state)
+    else:
+        state, opt = mesh_placed(state, pm)
     step = make_train_step(lambda p, bb: lm_loss(p, bb, cfg, mesh=pm),
                            AdamWConfig(), mesh=pm)
-    opt = adamw_init(state)
     rec = {"loss": [], "grad_norm": []}
     for _ in range(MESH_STEPS):
         state, opt, met = step(state, opt, batch)
@@ -5706,6 +5727,255 @@ def mesh_train(arch, dev, pm, ckpt=None):
     rec["params"] = {k: CO.local(v).detach().cpu() for k, v in walk(state)}
     if ckpt is not None:
         save_checkpoint(ckpt, MESH_STEPS, {"params": state, "opt": opt})
+    return rec
+
+
+def mesh_placed(params, pm):
+    """``params`` ``reshard``ed by ``lm_param_spec`` onto ``pm`` and a
+    zero AdamW state placed by ``opt_state_specs`` (ZeRO-1)."""
+    from repro_torch.distributed import (MeshAxes, lm_param_spec,
+                                         opt_state_specs, param_specs,
+                                         reshard)
+    from repro_torch.train import adamw_init
+
+    specs = param_specs(params, lm_param_spec, MeshAxes(), pm)
+    opt = adamw_init(params)
+    return reshard(params, pm, specs), reshard(opt, pm, opt_state_specs(
+        opt, params, specs, MeshAxes(), pm))
+
+
+def mesh_tp_config():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(
+        get_arch(MESH_TP["arch"]).make_config(dtype="bfloat16"),
+        n_layers=MESH_TP["n_layers"])
+
+
+def mesh_tp_inputs(dev):
+    """The full-width case's parameters, drawn on the card from a seeded
+    generator (the same on every rank and in one process), and its
+    batch."""
+    import torch
+    from repro_torch.data import lm_batches
+    from repro_torch.models.lm import init_params
+
+    cfg = mesh_tp_config()
+    params = init_params(torch.Generator(dev).manual_seed(MESH_TP["seed"]),
+                         cfg, device=dev)
+    b = next(lm_batches(cfg.vocab, MESH_TP["seq"], MESH_TP["batch"],
+                        seed=MESH_TP["seed"]))
+    return cfg, params, {k: torch.as_tensor(v, device=dev)
+                         for k, v in b.items()}
+
+
+def mesh_tp_grads(params, batch, cfg, pm):
+    """(loss, {path: gradient}) of ``lm_loss`` on this rank's leaves (its
+    rows of the batch under ``pm``)."""
+    import torch
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed.tree import map_leaves
+    from repro_torch.models.lm import lm_loss
+
+    xs = {}
+    loc = map_leaves(lambda k, v: xs.setdefault(
+        k, CO.local(v).detach().requires_grad_(True)), params)
+    if pm is not None:
+        batch = {k: CO.rows_of(v, pm, "data") for k, v in batch.items()}
+    loss, _ = lm_loss(loc, batch, cfg, mesh=pm)
+    gs = torch.autograd.grad(loss, list(xs.values()))
+    return float(loss.detach()), dict(zip(xs, gs))
+
+
+# the crossings' plain forms, timed one by one for a step's collective share
+MESH_CROSSINGS = ("_sum_", "_max_", "_gather", "_scatter_sum", "_bcast")
+
+
+def mesh_tp_counted(mesh=None):
+    """The full-width case's step counted on meta for rank 0 of ``mesh``
+    (``{axis: size}``; default MESH_TP's) on a counting mesh, or in one
+    process with ``mesh`` {}: FLOPs, unfused bytes and the collectives'
+    bytes by kind (what each live rank's tally must equal)."""
+    import torch
+    from repro_torch.analysis.op_stats import OpStats
+    from repro_torch.distributed.collectives import CountingMesh
+    from repro_torch.models.lm import lm_loss, param_shapes
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    if mesh is None:
+        mesh = dict(zip(("data", "model"), MESH_TP["mesh"]))
+    cfg = mesh_tp_config()
+    cm = CountingMesh(mesh) if mesh else None
+    params = param_shapes(cfg)
+    state, opt = (mesh_placed(params, cm) if cm is not None
+                  else (params, adamw_init(params)))
+    batch = {k: torch.empty((MESH_TP["batch"], MESH_TP["seq"]),
+                            dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg, mesh=cm),
+                           AdamWConfig(), mesh=cm)
+    with OpStats() as st:
+        step(state, opt, batch)
+    stats = st.stats()
+    return {"flops": stats["flops"], "bytes": stats["bytes"],
+            "collectives": stats["collectives"]}
+
+
+def mesh_tp_rank(dev, pm, out_dir):
+    """This rank's share of gemma2-2b's two full-width layers on (1, 4):
+    its loss and gradient blocks (saved for the parent), a warm-up and
+    MESH_TP_ITERS timed AdamW steps (host clock around synchronised
+    steps, started together after a barrier), then one step with every
+    collective timed (synchronised before and after) and its bytes
+    tallied by kind."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, batch = mesh_tp_inputs(dev)
+    state, opt = mesh_placed(params, pm)
+    del params
+    torch.cuda.empty_cache()
+    loss, grads = mesh_tp_grads(state, batch, cfg, pm)
+    torch.save({"loss": loss, "grads": {k: g.cpu() for k, g in
+                                        grads.items()}},
+               os.path.join(out_dir, f"tp{dist.get_rank()}.pt"))
+    del grads
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg, mesh=pm),
+                           AdamWConfig(), mesh=pm)
+    peak = int(torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, opt, met = step(state, opt, batch)                # warm-up
+    ms = []
+    for _ in range(MESH_TP_ITERS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, opt, met = step(state, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    spent = [0.0]
+    plain = {n: getattr(CO, n) for n in MESH_CROSSINGS}
+
+    def timed(fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    for n, fn in plain.items():
+        setattr(CO, n, timed(fn))
+    try:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CO.Tally() as tally:
+            state, opt, met = step(state, opt, batch)
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+    finally:
+        for n, fn in plain.items():
+            setattr(CO, n, fn)
+    rec = {"loss": loss, "ms": ms, "collective_ms": spent[0] * 1e3,
+           "instrumented_ms": whole * 1e3,
+           "collective_share": spent[0] / whole, "tally": tally.bytes,
+           "peak_bytes": max(peak, int(torch.cuda.max_memory_allocated(
+               dev))),
+           "step_peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+           "step_loss": float(met["loss"])}
+    del state, opt, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_tp_plain(dev, out_dir, ranks):
+    """The full-width case in one process on the card: its bf16 loss and
+    gradients against the ranks' (each rank's block, relative in norm),
+    both against a float32 run of the same parameters, and its AdamW
+    step's ms (a warm-up and two timed) and peak (above what the process
+    held before)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.distributed import MeshAxes, lm_param_spec
+    from repro_torch.distributed.tree import map_leaves
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = int(torch.cuda.memory_allocated(dev))
+    cfg, params, batch = mesh_tp_inputs(dev)
+    loss, grads = mesh_tp_grads(params, batch, cfg, None)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    loss32, grads32 = mesh_tp_grads(
+        map_leaves(lambda _, v: v.float(), params), batch, f32, None)
+    dp, tp = MESH_TP["mesh"]
+    tp_ranks = [torch.load(os.path.join(out_dir, f"tp{r}.pt"))
+                for r in range(dp * tp)]
+
+    def rel(a, b):
+        a, b = a.to(dev).float(), b.float()
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    worst = {"ranks_vs_plain": (0.0, ""), "ranks_vs_f32": (0.0, ""),
+             "plain_vs_f32": (0.0, "")}
+
+    def note(key, err, what):
+        if err > worst[key][0]:
+            worst[key] = (err, what)
+
+    for k, g in grads.items():
+        spec = lm_param_spec(k, tuple(g.shape), MeshAxes(), tp)
+        note("plain_vs_f32", rel(g, grads32[k]), k)
+        for r, res in enumerate(tp_ranks):
+            coord = divmod(r, tp)
+            note("ranks_vs_plain", rel(res["grads"][k], spec_block(
+                g, spec, coord, (dp, tp))), f"{k} rank {r}")
+            note("ranks_vs_f32", rel(res["grads"][k], spec_block(
+                grads32[k], spec, coord, (dp, tp))), f"{k} rank {r}")
+    del grads, grads32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg),
+                           AdamWConfig())
+    opt = adamw_init(params)
+    ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"plain_ms": ms, "plain_peak_bytes": int(
+        torch.cuda.max_memory_allocated(dev)) - base,
+        "loss_plain": loss, "loss_f32": loss32,
+        "loss_ranks": [r["loss"] for r in tp_ranks],
+        "loss_rel_err": max(abs(r["loss"] - loss) / abs(loss)
+                            for r in tp_ranks),
+        "grad_rel_err": worst["ranks_vs_plain"],
+        "grad_rel_err_ranks_vs_f32": worst["ranks_vs_f32"],
+        "grad_rel_err_plain_vs_f32": worst["plain_vs_f32"],
+        "loss_tolerance": MESH_TP_LOSS_TOL,
+        "grad_tolerance": MESH_TP_GRAD_TOL}
+    del params, opt, batch, tp_ranks
+    torch.cuda.empty_cache()
+    if rec["loss_rel_err"] > MESH_TP_LOSS_TOL \
+            or rec["grad_rel_err"][0] > MESH_TP_GRAD_TOL:
+        raise AssertionError(f"gemma2-2b on 4 ranks != one process: {rec}")
     return rec
 
 
@@ -5737,6 +6007,8 @@ def mesh_rank(rank, world, store, out_dir):
                                                               ckpt)
     res["full"] = mesh_full_rank(dev, make_process_mesh(
         *MESH_FULL["mesh"], dev), out_dir)
+    res["tp"] = mesh_tp_rank(dev, make_process_mesh(*MESH_TP["mesh"], dev),
+                             out_dir)
     res["kernel_launches"] = ks.counts()
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
@@ -5774,8 +6046,8 @@ def mesh_checkpoint(ranks, out_dir):
     blocks of it, bit for bit."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.distributed import MeshAxes, restore_checkpoint
-    from repro_torch.distributed.sharding import lm_expert_param_spec
+    from repro_torch.distributed import (MeshAxes, lm_param_spec,
+                                         restore_checkpoint)
     from repro_torch.models.lm import init_params
     from repro_torch.train import adamw_init
 
@@ -5793,7 +6065,7 @@ def mesh_checkpoint(ranks, out_dir):
             saved = tree["params"]
             for part in k.split("/"):
                 saved = saved[part]
-            want = spec_block(saved, lm_expert_param_spec(
+            want = spec_block(saved, lm_param_spec(
                 k, tuple(saved.shape), MeshAxes(), tp), divmod(r, tp),
                 (dp, tp))
             if not torch.equal(v, want):
@@ -5849,13 +6121,16 @@ def mesh_full_plain(dev, out_dir):
 def phase_mesh(ks, card):
     """The multi-rank arms on the card: four gloo ranks sharing it
     (spawned; the backend named, ``init_ranks``), the reduced llama4-
-    maverick and deepseek-v3 trained on (1, 4) and (2, 2) meshes against
-    the same ranks on the CPU and, on (1, 4), against the card without a
-    mesh, the (2, 2) llama4 state checkpointed from the card ranks and
-    read back; DeepSeek-V3's MoE layer at its published widths on (1, 4)
-    against the layer without a mesh; then one NCCL rank on a (1, 1)
-    mesh, bit for bit equal to no mesh, and NCCL refusing two ranks on
-    one card.  No kernel of the port lies on this path: the counts are
+    maverick, deepseek-v3 and gemma2-2b trained tensor-parallel under
+    ``lm_param_spec`` (ZeRO-1 moments) on (1, 4) and (2, 2) meshes
+    against the same ranks on the CPU and, on (1, 4), against the card
+    without a mesh, the (2, 2) llama4 state checkpointed from the card
+    ranks and read back; DeepSeek-V3's MoE layer at its published widths
+    on (1, 4) against the layer without a mesh; gemma2-2b's two
+    full-width layers on (1, 4) (ms a step on the slowest rank, the
+    collective share and bytes by kind, peaks) against one process; then
+    one NCCL rank on a (1, 1) mesh, bit for bit equal to no mesh, and
+    NCCL refusing two ranks on one card.  No kernel of the port lies on this path: the counts are
     reset before and read after, in this process and in each rank, and
     their sum is the phase's."""
     import shutil
@@ -5864,8 +6139,7 @@ def phase_mesh(ks, card):
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
-    from repro_torch.distributed import MeshAxes
-    from repro_torch.distributed.sharding import lm_expert_param_spec
+    from repro_torch.distributed import MeshAxes, lm_param_spec
     from repro_torch.launch.mesh import init_ranks, make_process_mesh
 
     t0 = time.perf_counter()
@@ -5899,7 +6173,7 @@ def phase_mesh(ks, card):
                 errs = []
                 for r, res in enumerate(ranks):
                     want = dict(plain[arch], params={
-                        k: spec_block(v, lm_expert_param_spec(
+                        k: spec_block(v, lm_param_spec(
                             k, tuple(v.shape), MeshAxes(), tp),
                             divmod(r, tp), (dp, tp))
                         for k, v in plain[arch]["params"].items()})
@@ -5919,6 +6193,24 @@ def phase_mesh(ks, card):
     full["all_reduce_share"] = max(r["full"]["all_reduce_share"]
                                    for r in ranks)
     full.update(mesh_full_plain(dev, tmp))
+    tp_rec = {"config": "gemma2-2b, bf16", **MESH_TP,
+              "reduced": MESH_TP_CUT,
+              "ranks": [r["tp"] for r in ranks],
+              "ms_slowest_rank": max(float(np.median(r["tp"]["ms"]))
+                                     for r in ranks),
+              "collective_share": max(r["tp"]["collective_share"]
+                                      for r in ranks),
+              "tally": ranks[0]["tp"]["tally"],
+              "peak_bytes": [r["tp"]["peak_bytes"] for r in ranks],
+              "step_peak_bytes": [r["tp"]["step_peak_bytes"]
+                                  for r in ranks]}
+    tp_rec["counted"] = {"rank 0": mesh_tp_counted(),
+                         "one process": mesh_tp_counted({})}
+    if any(r["tp"]["tally"] != tp_rec["counted"]["rank 0"]["collectives"]
+           for r in ranks):
+        raise AssertionError("a rank's collective tally != the counting "
+                             "mesh's")
+    tp_rec.update(mesh_tp_plain(dev, tmp, ranks))
     t2 = time.perf_counter()
 
     # one NCCL rank: the same training arm on a (1, 1) mesh
@@ -5957,7 +6249,7 @@ def phase_mesh(ks, card):
             "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
             "reduced_vs_cpu": reduced, "tolerance": MESH_TOL,
             "steps": MESH_STEPS, "batch": MESH_BATCH, "full": full,
-            "checkpoint": ckpt,
+            "tensor_parallel": tp_rec, "checkpoint": ckpt,
             "nccl": {"mesh": [1, 1], "bit_equal_to_no_mesh": bit_equal,
                      "refuses_two_ranks_on_one_card": refused},
             "kernel_launches": launched,

@@ -24,10 +24,15 @@ layers is counted once per iteration by construction:
                       a view such as a cache slice), the counterpart of
                       the reference's dot / gather / scatter /
                       dynamic-(update-)slice set
-    collective_bytes — 0: the port runs a step on one device and issues
-                      no collective, so there is nothing to count (the
-                      reference reads all-gather / all-reduce / ... out
-                      of a 256- or 512-way SPMD program)
+    collective_bytes — the bytes of every crossing of a mesh axis the
+                      step makes (``distributed.collectives``' tally:
+                      each collective's result on this rank, the
+                      reference's convention), ``collectives`` the same
+                      by kind.  0 and ``{}`` for a step on one device;
+                      a step on a ``CountingMesh`` counts rank 0's
+                      share of a 256- or 512-way mesh, as the reference
+                      reads all-gather / all-reduce / ... out of its
+                      SPMD program
 
 Validated against known-FLOPs programs in ``tests/test_torch_dryrun.py``.
 """
@@ -39,6 +44,8 @@ from typing import Any, Callable, Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from ..distributed.collectives import Tally
 
 aten = torch.ops.aten
 
@@ -107,7 +114,18 @@ class OpStats(TorchDispatchMode):
         self.bytes = 0.0
         self.hbm_floor = 0.0
         self.n_ops = 0
+        self.tally = Tally()
         self._memo: Dict[Any, Any] = {}
+
+    def __enter__(self):
+        self.tally.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self.tally.__exit__(*exc)
 
     def _run(self, func, args, kwargs):
         if not _functional(func):
@@ -150,13 +168,16 @@ class OpStats(TorchDispatchMode):
         return out
 
 
-    def stats(self) -> Dict[str, float]:
+    def stats(self) -> Dict[str, Any]:
         """The reference's ``analyze_hlo`` keys: ``flops``, ``bytes``,
         ``hbm_floor_bytes`` and ``collective_bytes`` (0 on one device),
-        plus ``n_ops``, the aten ops dispatched."""
+        plus ``collectives`` (bytes by kind) and ``n_ops``, the aten ops
+        dispatched."""
         return {"flops": float(self.flops), "bytes": float(self.bytes),
                 "hbm_floor_bytes": float(self.hbm_floor),
-                "collective_bytes": 0.0, "n_ops": self.n_ops}
+                "collective_bytes": float(self.tally.bytes.get("total", 0)),
+                "collectives": dict(self.tally.bytes),
+                "n_ops": self.n_ops}
 
 
 def _tensors(tree) -> list:

@@ -11,8 +11,17 @@ one device:
                  storage (the reference's ``ShapeDtypeStruct``s); a train
                  cell's are the parameters, the AdamW state and a batch
 
-The reference also attaches a mesh sharding to each input; the port
-serves from one device, so a cell carries none.
+The reference attaches a mesh sharding to each input.  A cell built
+with no mesh is the whole step on one device; an LM cell built with a
+process or counting mesh (``build(mesh)``: ``collectives.CountingMesh``
+for rank 0 of the production mesh) is one rank's step under
+``lm_param_spec``: its parameters ``reshard``ed by it (this rank's
+blocks), a train cell's AdamW moments by ``opt_state_specs`` (ZeRO-1)
+and its whole batch (the step cuts its rows), a serving cell's tokens
+and cache cut to this rank's rows where the data axes divide the batch
+(the reference's token spec), the cache in the port's layout under the
+mesh (``init_cache``).  The GNN and recsys cells take no mesh
+(``mlp_param_spec``'s tensor parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -36,10 +45,11 @@ class Cell:
     arch: str
     shape: str
     kind: str
-    builder: Callable[[], Tuple[Callable, Tuple]]
+    builder: Callable[..., Tuple[Callable, Tuple]]
 
-    def build(self):
-        return self.builder()
+    def build(self, mesh=None):
+        """(step, inputs) on one device, or with ``mesh`` one rank's."""
+        return self.builder() if mesh is None else self.builder(mesh)
 
 
 @dataclasses.dataclass
@@ -63,48 +73,85 @@ LM_SHAPES = {
 }
 
 
+def _lm_params(cfg, mesh):
+    """The parameters on meta: whole, or this rank's blocks under
+    ``lm_param_spec`` (and their specs)."""
+    from ..distributed import lm_param_spec, param_specs, reshard
+    from ..models.lm import param_shapes
+
+    p_meta = param_shapes(cfg)
+    if mesh is None:
+        return p_meta, p_meta, None
+    specs = param_specs(p_meta, lm_param_spec, _axes(mesh), mesh)
+    return p_meta, reshard(p_meta, mesh, specs), specs
+
+
+def _axes(mesh):
+    from ..distributed import MeshAxes
+
+    names = mesh.mesh_dim_names
+    return MeshAxes(data=tuple(a for a in ("pod", "data") if a in names))
+
+
+def _rows(batch: int, mesh) -> int:
+    """A serving batch's rows on one rank: split over the data axes where
+    they divide it (the reference's token spec), else all of them."""
+    if mesh is None:
+        return batch
+    n = _axes(mesh).data_size(mesh)
+    return batch // n if batch % n == 0 and batch >= n else batch
+
+
 def _lm_train_builder(cfg_fn, seq, batch):
-    def build():
-        from ..models.lm import lm_loss, param_shapes
+    def build(mesh=None):
+        from ..distributed import opt_state_specs, reshard
+        from ..models.lm import lm_loss
         from ..train import AdamWConfig, adamw_init, make_train_step
 
         cfg = cfg_fn()
-        p_meta = param_shapes(cfg)
-        o_meta = adamw_init(p_meta)
+        p_meta, params, specs = _lm_params(cfg, mesh)
+        opt = adamw_init(p_meta)
+        if mesh is not None:
+            opt = reshard(opt, mesh, opt_state_specs(
+                opt, p_meta, specs, _axes(mesh), mesh))
         b_meta = {"tokens": _meta((batch, seq), torch.int32),
                   "labels": _meta((batch, seq), torch.int32)}
         step = make_train_step(
-            lambda p, b: lm_loss(p, b, cfg, remat=True), AdamWConfig())
-        return step, (p_meta, o_meta, b_meta)
+            lambda p, b: lm_loss(p, b, cfg, mesh=mesh, remat=True),
+            AdamWConfig(), mesh=mesh)
+        return step, (params, opt, b_meta)
 
     return build
 
 
 def _lm_prefill_builder(cfg_fn, seq, batch):
-    def build():
-        from ..models.lm import param_shapes, prefill
+    def build(mesh=None):
+        from ..models.lm import prefill
 
         cfg = cfg_fn()
 
         def fn(params, tokens):
-            return prefill(params, tokens, cfg, max_len=seq)
+            return prefill(params, tokens, cfg, max_len=seq, mesh=mesh)
 
-        return fn, (param_shapes(cfg), _meta((batch, seq), torch.int32))
+        return fn, (_lm_params(cfg, mesh)[1],
+                    _meta((_rows(batch, mesh), seq), torch.int32))
 
     return build
 
 
 def _lm_decode_builder(cfg_fn, seq, batch):
-    def build():
-        from ..models.lm import cache_shapes, decode_step, param_shapes
+    def build(mesh=None):
+        from ..models.lm import cache_shapes, decode_step
 
         cfg = cfg_fn()
 
         def fn(params, cache, token):
-            return decode_step(params, cache, token, cfg)
+            return decode_step(params, cache, token, cfg, mesh=mesh)
 
-        return fn, (param_shapes(cfg), cache_shapes(cfg, batch, seq),
-                    _meta((batch,), torch.int32))
+        b = _rows(batch, mesh)
+        return fn, (_lm_params(cfg, mesh)[1],
+                    cache_shapes(cfg, b, seq, mesh),
+                    _meta((b,), torch.int32))
 
     return build
 

@@ -25,6 +25,7 @@ from typing import Any, Callable
 
 import torch
 
+from . import collectives as CO
 from .collectives import process_mesh
 from .sharding import placements
 from .tree import at, map_leaves
@@ -34,8 +35,17 @@ def reshard(tree: Any, mesh, spec_tree: Any) -> Any:
     """Place (host or device) arrays onto ``mesh`` per ``spec_tree``, a
     tree of specs of ``tree``'s structure: a process mesh (DTensor
     leaves) or a mesh of one device (a ``ShardMesh``: its ``devices``
-    and ``shape``)."""
+    and ``shape``), or a counting mesh (rank 0's blocks).  A spec naming
+    an axis the mesh lacks, or a dim its axes do not divide, raises
+    ``ValueError`` (``sharding.placements``)."""
     pm = process_mesh(mesh)
+    if isinstance(pm, CO.CountingMesh):
+        def cut(key, x):
+            spec = at(spec_tree, key)
+            placements(spec, pm, tuple(x.shape))      # the same refusals
+            return CO.place_block(CO.block(x, pm, spec), pm, spec)
+
+        return map_leaves(cut, tree)
     if pm is not None:
         from torch.distributed.tensor import distribute_tensor
 

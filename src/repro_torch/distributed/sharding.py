@@ -119,6 +119,10 @@ def _div(n: int, k: int) -> bool:
 
 def lm_param_spec(path: str, shape: Tuple[int, ...], axes: MeshAxes,
                   tp: int) -> Spec:
+    """The LM family's layout, the reference's rule: the layout
+    ``elastic.reshard`` places, and the process mesh trains and serves
+    in (``models.lm.model``'s Megatron pairing, ``moe.py``'s experts),
+    with ``opt_state_specs`` placing the moments (ZeRO-1)."""
     nd = len(shape)
     m = axes.model
 
@@ -158,10 +162,10 @@ def lm_param_spec(path: str, shape: Tuple[int, ...], axes: MeshAxes,
 
 def lm_expert_param_spec(path: str, shape: Tuple[int, ...], axes: MeshAxes,
                          tp: int) -> Spec:
-    """The layout the port's process mesh trains in: ``lm_param_spec``
-    on the MoE leaves (routed experts over ``model``, the shared expert
-    split), every other leaf replicated (the port's dense layers are not
-    tensor-parallel)."""
+    """``lm_param_spec`` on the MoE leaves (routed experts over
+    ``model``, the shared expert split), every other leaf replicated:
+    expert parallelism alone.  The model follows either layout leaf by
+    leaf."""
     if "/moe/" in path:
         return lm_param_spec(path, shape, axes, tp)
     return _pad((), len(shape))

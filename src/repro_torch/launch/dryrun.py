@@ -6,15 +6,17 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
 The reference lowers and compiles each cell for a 256- or 512-chip TPU
-pod and reads XLA's memory, cost and collective analyses.  The port runs
-on one card and lowers no SPMD program: it builds the port's ``Cell``
-(inputs as ``meta`` tensors), runs its step once under
+pod and reads XLA's memory, cost and collective analyses.  The port
+compiles no SPMD program: it builds the port's ``Cell`` (inputs as
+``meta`` tensors), runs its step once under
 :func:`repro_torch.analysis.count_step` (autograd included for train
-cells) and records:
+cells), and for an LM cell also rank 0's step of the production mesh
+on a ``collectives.CountingMesh``, and records:
 
     n_devices            1: the count is of the whole cell's step on one
                          device, so ``flops`` and the byte counts are
-                         that device's
+                         that device's (``benchmarks.roofline`` reads
+                         these one-card fields)
     flops, bytes_accessed, hlo_stats
                          the counts (``hlo_stats`` under the reference's
                          name, so ``benchmarks.roofline`` reads both
@@ -29,7 +31,18 @@ cells) and records:
                          once).  A meta run allocates nothing, so its
                          peak is not measured and there is no
                          ``temp_size_in_bytes``
-    collectives          {}: one card issues no collective
+    mesh_step            LM cells: rank 0's step of the production mesh
+                         (``n_devices`` 256 or 512), its inputs cut to
+                         rank 0's blocks by ``lm_param_spec``, ZeRO-1's
+                         ``opt_state_specs`` and the batch spec, run under
+                         ``OpStats`` on the counting mesh: ``flops``,
+                         ``bytes_accessed`` and ``collectives`` (bytes by
+                         kind, the reference's names) per device
+    collectives          LM cells: ``mesh_step``'s, the bytes every
+                         crossing of a mesh axis moves per device, under
+                         the reference's key and kind names (counted by
+                         the code the ranks run, not measured on NCCL);
+                         GNN and recsys cells: {}
     outputs              the step's output leaves, (key path, shape, dtype)
 
 Results land in ``results/torch/dryrun/<arch>__<shape>__<mesh>.json``;
@@ -50,6 +63,7 @@ from typing import Any, Dict
 import torch
 
 from ..analysis.op_stats import OpStats, io_bytes
+from ..distributed.collectives import CountingMesh
 from ..benchmarks.roofline import RESULTS_DIR
 from ..configs import all_cells, get_arch
 from ..distributed.sharding import (
@@ -69,8 +83,12 @@ NOTES = {
                        "outputs (an input written in place and returned "
                        "counts once); a meta run allocates nothing, so its "
                        "peak (temp) is not measured",
-    "collectives": "the one-card port lowers no SPMD program and issues no "
-                   "collective",
+    "collectives": "LM cells: mesh_step's collectives, the bytes of each "
+                   "collective's result on rank 0 of the production mesh "
+                   "(the reference's convention) under lm_param_spec and "
+                   "ZeRO-1, tallied by the crossings the process mesh's "
+                   "ranks run, not measured on NCCL; GNN and recsys cells: "
+                   "{}, their mlp_param_spec tensor parallelism is queued",
 }
 
 
@@ -165,6 +183,19 @@ def _leaves(out) -> list:
             for path, x in walk(out) if isinstance(x, torch.Tensor)]
 
 
+def mesh_step(cell, mesh) -> Dict[str, Any]:
+    """Rank 0's step of ``cell`` on the mesh ``mesh`` (``{axis: size}``)
+    counted on a counting mesh: per device ``flops``, ``bytes_accessed``
+    and ``collectives`` (bytes by kind and ``total``)."""
+    fn, args = cell.build(CountingMesh(mesh))
+    with OpStats() as st:
+        fn(*args)
+    stats = st.stats()
+    return {"n_devices": math.prod(mesh.values()), "flops": stats["flops"],
+            "bytes_accessed": stats["bytes"],
+            "collectives": stats["collectives"], "ok": True}
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool = False,
              save: bool = True) -> Dict[str, Any]:
     """Count one cell's step on meta and record it (saved under
@@ -197,6 +228,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
         rec["arg_bytes_per_device"] = arg_bytes_per_device(
             cell.kind, spec.family, args, mesh, axes)
         rec["collectives"] = {}
+        if spec.family == "lm":
+            rec["mesh_step"] = mesh_step(cell, mesh)
+            rec["collectives"] = rec["mesh_step"]["collectives"]
         rec["notes"] = NOTES
         rec["outputs"] = _leaves(out)
         rec["t_count_s"] = round(time.perf_counter() - t0, 2)

@@ -1,14 +1,15 @@
 """Meshes (the port of ``repro.launch.mesh``): the production and host
 meshes of the dry run, the query-serving shard mesh, and the process
-mesh the expert- and data-parallel arms run on.
+mesh the expert-, tensor- and data-parallel arms run on.
 
 The reference's production meshes are ``jax`` meshes over a v5e pod
-(16 × 16 chips, or 2 × 16 × 16 with a ``pod`` axis).  The port runs on
-one card and lowers no SPMD program, so here a production or host mesh
-is the ``{axis: size}`` mapping that ``distributed.sharding``'s rules
-take: the dry run divides each input's bytes by it
-(``launch.dryrun.arg_bytes_per_device``).  Functions, not constants:
-importing this module touches no CUDA state.
+(16 × 16 chips, or 2 × 16 × 16 with a ``pod`` axis).  Here a production
+or host mesh is the ``{axis: size}`` mapping that ``distributed.
+sharding``'s rules take: the dry run divides each input's bytes by it
+(``launch.dryrun.arg_bytes_per_device``) and counts rank 0's step of
+it on a ``collectives.CountingMesh`` (``launch.dryrun.mesh_step``: its
+FLOPs, bytes and the bytes each kind of collective moves per device).
+Functions, not constants: importing this module touches no CUDA state.
 
 The reference lays the cluster's shards over a 1-D ``jax`` mesh with a
 ``data`` axis.  Here a mesh is the tuple of torch devices the shards are

@@ -21,14 +21,42 @@ Structure:
   long_500k, every step).  The cache's length lives on the host, so a
   step never waits for the card to learn where to write.
 
-Under a process mesh (``launch.mesh.make_process_mesh``) the MoE layers
-run expert-parallel over ``model`` (``moe.py``).  ``forward`` and
-``lm_loss`` take this rank's rows of a batch split over ``data``, and
-the loss is the reference's global mean: the summed NLL and the token
-count are summed over ``data`` before the division (each rank's
-backward gives its rows' share of the gradient).  ``prefill`` and
-``decode_step`` take the whole batch on every rank, as the reference's
-serving path replicates it.
+Under a process mesh (``launch.mesh.make_process_mesh``, or a
+``collectives.CountingMesh``) the layers follow the parameters' layout
+leaf by leaf, as ``distributed.sharding.lm_param_spec`` places them:
+a split leaf arrives as this rank's block (a DTensor's local shard, or
+the block itself), a replicated one whole, and each layer reads which
+from the leaf's width.  The Megatron pairing over ``model``:
+
+* attention: the column-split projections (``wq``/``wk``/``wv``, MLA's
+  ``wq_b``/``wkv_b``) give this rank's columns.  Where they fall on
+  whole heads (``H`` and ``KV`` divide by tp; MLA: ``H``), attention
+  runs on this rank's heads; where they do not (a head split between
+  ranks), their outputs are gathered over ``model`` and attention runs
+  on all heads, replicated.  Either way ``o``'s columns for this rank
+  meet the row-split ``wo`` and ``reduce_from`` completes the sum.
+  The split projections' input enters by ``copy_to``; the replicated
+  ones (``wq_a``, ``wkv_a``, the norms) take it as it is.
+* the dense FFN: ``w_gu`` split on ``f``, ``w_d`` on its rows, then
+  ``reduce_from``.  The MoE layers run expert-parallel (``moe.py``).
+* the embedding split on the vocabulary: each rank looks up the ids in
+  its range, zeros for the rest, and ``reduce_from`` sums the parts.
+* the head (``lm_head/w`` split on the vocabulary, or tied to the
+  embedding): a vocab-parallel cross-entropy (the maximum over
+  ``model`` with no gradient, the sum of ``exp`` and the gold logit
+  through ``reduce_from``); ``logits`` are gathered whole.
+
+``forward`` and ``lm_loss`` take this rank's rows of a batch split over
+the data axes, and the loss is the reference's global mean: the summed
+NLL and the token count are summed over them before the division (each
+rank's backward gives its rows' share of the gradient).  ``prefill`` and
+``decode_step`` serve the rows they are given (the whole batch, or a
+data rank's rows) and return whole logits on every rank.  The cache
+under a mesh: where the heads fall whole on a rank, each rank keeps its
+KV heads' slice of ``k``/``v`` (``KV / tp`` heads); otherwise, and for
+MLA's latent ``ckv``/``kpe``, the cache stays whole on every rank
+(``init_cache(..., mesh=...)``).  With whole leaves, no mesh, or a
+model axis of one, no crossing of ``model`` is made.
 
 Token ids outside ``[-V, V)`` embed as NaN rows and ids in ``[-V, 0)``
 wrap, as the reference's ``jnp.take`` answers (``nn.embed``).  A tree's
@@ -45,7 +73,7 @@ import torch.utils.checkpoint
 
 from ...device import DeviceLike, resolve_device
 from ...distributed import collectives as CO
-from ..nn import (ACT, Params, dense, dense_init, embed, embed_init,
+from ..nn import (ACT, Params, dense, dense_init, embed_init,
                   norm_init, rmsnorm, scan_blocks, stack_init, take_rows,
                   tree_index, tree_to)
 from ..nn import softcap as _softcap
@@ -168,8 +196,60 @@ def param_shapes(cfg: LMConfig) -> Params:
 # blocks
 # --------------------------------------------------------------------------
 
-def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig):
-    x = embed(params["embed"], tokens)
+MODEL = "model"
+DATA = ("pod", "data")   # the axes a training batch's rows are split over
+
+
+def _model(mesh):
+    """(process mesh or None, tp, this rank's coordinate on ``model``)."""
+    pm = CO.process_mesh(mesh)
+    if pm is None:
+        return None, 1, 0
+    return pm, CO.axis_size(pm, MODEL), CO.axis_index(pm, MODEL)
+
+
+def _locals(params: Params) -> Params:
+    """Every leaf as this rank holds it (a DTensor's local shard)."""
+    if isinstance(params, dict):
+        return {k: _locals(v) for k, v in params.items()}
+    return CO.local(params)
+
+
+def _is_block(w: torch.Tensor, dim: int, full: int, tp: int, what: str
+              ) -> bool:
+    """Whether ``w`` holds this rank's block of ``full`` entries on
+    ``dim`` (split over ``model``) rather than all of them; any other
+    width raises."""
+    n = w.shape[dim]
+    if n == full:
+        return False
+    if tp > 1 and n * tp == full:
+        return True
+    raise ValueError(f"{what}: dim {dim} of {tuple(w.shape)} is neither "
+                     f"{full} nor its block over {tp} model ranks")
+
+
+def _lookup(emb: torch.Tensor, ids: torch.Tensor, vocab: int, mesh
+            ) -> torch.Tensor:
+    """Rows ``ids`` of the embedding (``take_rows``' rule: ``[-V, 0)``
+    wraps, outside ``[-V, V)`` a row of NaN).  Split on the vocabulary,
+    each rank contributes its range's rows and zeros for the rest, and
+    ``reduce_from`` sums the parts."""
+    pm, tp, m = _model(mesh)
+    if not _is_block(emb, -2, vocab, tp, "embed/emb"):
+        return take_rows(emb, ids)
+    n = emb.shape[-2]
+    safe = ids.clamp(-vocab, vocab - 1)
+    loc = safe % vocab - m * n
+    mine = (loc >= 0) & (loc < n)
+    rows = emb[loc.clamp(0, n - 1)].masked_fill(~mine[..., None], 0.0)
+    x = CO.reduce_from(rows, pm, MODEL)
+    return x.masked_fill((safe != ids)[..., None], float("nan"))
+
+
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
+                  mesh=None):
+    x = _lookup(params["embed"]["emb"], tokens, cfg.vocab, mesh)
     if cfg.embed_scale:
         # the factor rounded to the activations' dtype first, as the
         # reference's jnp.asarray(sqrt(d), x.dtype)
@@ -177,46 +257,114 @@ def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig):
     return x
 
 
-def _dense_ffn(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def _dense_ffn(p: Params, x: torch.Tensor, act: str, d_ff: int,
+               mesh=None) -> torch.Tensor:
+    """The GLU FFN; under a mesh ``w_gu`` split on ``f`` and ``w_d`` on
+    its rows (both or neither), the partial sums completed over
+    ``model``."""
+    pm, tp, _ = _model(mesh)
     d, _, f = p["w_gu"].shape
+    split = _is_block(p["w_gu"], -1, d_ff, tp, "ffn/w_gu")
+    if split != _is_block(p["w_d"], -2, d_ff, tp, "ffn/w_d"):
+        raise ValueError("ffn: w_gu and w_d must be split over model "
+                         "together")
+    if split:
+        x = CO.copy_to(x, pm, MODEL)
     gu = (x @ p["w_gu"].reshape(d, 2 * f)).unflatten(-1, (2, f))
     h = ACT[act](gu[..., 0, :]) * gu[..., 1, :]
-    return h @ p["w_d"]
+    out = h @ p["w_d"]
+    return CO.reduce_from(out, pm, MODEL) if split else out
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def _attn_train(p, x, cfg: LMConfig, is_local: bool, positions):
-    B, S, d = x.shape
+def _heads(p, cfg: LMConfig, tp: int):
+    """Attention's layout under ``tp`` model ranks: (which projections
+    arrive as this rank's columns, whether ``wo`` arrives as its rows,
+    whether they fall on whole heads, so that each rank runs its own)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.attn == "mla":
         m = cfg.mla
+        cols = {"wq_b": H * (m.qk_nope + m.qk_rope),
+                "wkv_b": H * (m.qk_nope + m.v_head)}
+        rows, divides = H * m.v_head, H % tp == 0
+    else:
+        cols = {"wq": H * dh, "wk": KV * dh, "wv": KV * dh}
+        rows, divides = H * dh, H % tp == 0 and KV % tp == 0
+    split = {k: _is_block(p[k], -1, n, tp, f"attn/{k}")
+             for k, n in cols.items()}
+    split_o = _is_block(p["wo"], -2, rows, tp, "attn/wo")
+    return split, split_o, divides and split_o and all(split.values())
+
+
+def _gathered(t: torch.Tensor, split: bool, pm) -> torch.Tensor:
+    """A column-split projection's output joined over ``model``."""
+    return CO.all_gather(t, pm, MODEL, -1) if split else t
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, split_o: bool,
+              own_heads: bool, pm, m: int) -> torch.Tensor:
+    """``o @ wo``: with ``wo`` split on its rows, this rank's columns of
+    ``o`` (its heads' own, or cut from all heads, which enter by
+    ``copy_to``) meet them and ``reduce_from`` completes the sum."""
+    if not split_o:
+        return o @ wo
+    if not own_heads:
+        n = wo.shape[-2]
+        o = CO.copy_to(o, pm, MODEL).narrow(-1, m * n, n)
+    return CO.reduce_from(o @ wo, pm, MODEL)
+
+
+def _attn_train(p, x, cfg: LMConfig, is_local: bool, positions, mesh=None):
+    B, S, d = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pm, tp, mi = _model(mesh)
+    split, split_o, own = _heads(p, cfg, tp)
+    if cfg.attn == "mla":
+        m = cfg.mla
         qk = m.qk_nope + m.qk_rope
-        q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
-        q = q.reshape(B, S, H, qk)
+        q_a = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
+        if split["wq_b"]:
+            q_a = CO.copy_to(q_a, pm, MODEL)
         kv_a = x @ p["wkv_a"]
         ckv = rmsnorm(p["kv_norm"], kv_a[..., : m.kv_lora], cfg.norm_eps)
         kpe = kv_a[..., m.kv_lora:]
-        kv = (ckv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope + m.v_head)
+        if split["wkv_b"]:
+            ckv = CO.copy_to(ckv, pm, MODEL)
+        if own:
+            # k_pe feeds only this rank's heads
+            kpe = CO.copy_to(kpe, pm, MODEL)
+        q, kv = q_a @ p["wq_b"], ckv @ p["wkv_b"]
+        h = H // tp if own else H
+        if not own:
+            q = _gathered(q, split["wq_b"], pm)
+            kv = _gathered(kv, split["wkv_b"], pm)
+        q = q.reshape(B, S, h, qk)
+        kv = kv.reshape(B, S, h, m.qk_nope + m.v_head)
         k_nope, v = kv[..., : m.qk_nope], kv[..., m.qk_nope:]
         q_pe = rope(q[..., m.qk_nope:], positions, cfg.rope_theta)
         k_pe = rope(kpe[:, :, None, :], positions, cfg.rope_theta)
         q = torch.cat([q[..., : m.qk_nope], q_pe], dim=-1)
-        k = torch.cat([k_nope, k_pe.expand(B, S, H, m.qk_rope)], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(B, S, h, m.qk_rope)], dim=-1)
         scale = (m.qk_nope + m.qk_rope) ** -0.5
         o = flash_attention(
             q, k, v, causal=True, softcap=cfg.attn_softcap,
             blk_q=cfg.blk_q, blk_k=cfg.blk_k, scale=scale,
             block_skip=cfg.attn_block_skip,
         )
-        return o.reshape(B, S, H * m.v_head) @ p["wo"]
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        return _out_proj(o.reshape(B, S, h * m.v_head), p["wo"], split_o,
+                         own, pm, mi)
+    xc = CO.copy_to(x, pm, MODEL) if any(split.values()) else x
+    q, k, v = ((xc if split[n] else x) @ p[n] for n in ("wq", "wk", "wv"))
+    h, kvh = (H // tp, KV // tp) if own else (H, KV)
+    if not own:
+        q, k, v = (_gathered(t, split[n], pm)
+                   for t, n in ((q, "wq"), (k, "wk"), (v, "wv")))
+    q = rope(q.reshape(B, S, h, dh), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, kvh, dh), positions, cfg.rope_theta)
+    v = v.reshape(B, S, kvh, dh)
     if is_local and cfg.window is not None and cfg.window < S:
         o = banded_attention(q, k, v, window=cfg.window,
                              softcap=cfg.attn_softcap,
@@ -225,16 +373,13 @@ def _attn_train(p, x, cfg: LMConfig, is_local: bool, positions):
         o = flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap,
                             blk_q=cfg.blk_q, blk_k=cfg.blk_k,
                             block_skip=cfg.attn_block_skip)
-    return o.reshape(B, S, H * dh) @ p["wo"]
-
-
-DATA = ("data",)   # the axes a training batch's rows are split over
+    return _out_proj(o.reshape(B, S, h * dh), p["wo"], split_o, own, pm, mi)
 
 
 def _ffn(p, h, cfg: LMConfig, is_moe: bool, mesh, data_axes=()):
     """(FFN output, aux loss or None) of the normed activations h."""
     if not is_moe:
-        return _dense_ffn(p["ffn"], h, cfg.act), None
+        return _dense_ffn(p["ffn"], h, cfg.act, cfg.d_ff, mesh), None
     B, S, d = h.shape
     out, a = moe_ffn(p["moe"], h.reshape(B * S, d), cfg.moe, act=cfg.act,
                      mesh=mesh, data_axes=data_axes)
@@ -244,7 +389,7 @@ def _ffn(p, h, cfg: LMConfig, is_moe: bool, mesh, data_axes=()):
 def _block_train(p, x, aux, cfg: LMConfig, flags, positions, mesh):
     is_local, is_moe = flags
     h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-    x = x + _attn_train(p["attn"], h, cfg, is_local, positions)
+    x = x + _attn_train(p["attn"], h, cfg, is_local, positions, mesh)
     h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
     out, a = _ffn(p, h, cfg, is_moe, mesh, DATA)
     x = x + out
@@ -279,7 +424,8 @@ def forward(
     unit's activations in the backward pass (``torch.utils.checkpoint``
     per unit, the reference's ``jax.checkpoint`` of the scan body)."""
     B, S = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
+    params = _locals(params)
+    x = _embed_tokens(params, tokens, cfg, mesh)
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -304,17 +450,46 @@ def forward(
     return x, aux
 
 
-def _head_weight(params, cfg: LMConfig):
+def _head_weight(params, cfg: LMConfig, tp: int = 1):
+    """(the head's (d, V) weight or this rank's columns of it, whether
+    it is split over ``model``)."""
     if cfg.tie_embeddings:
-        return params["embed"]["emb"].T
-    return params["lm_head"]["w"]
+        w = CO.local(params["embed"]["emb"]).T
+    else:
+        w = CO.local(params["lm_head"]["w"])
+    return w, _is_block(w, -1, cfg.vocab, tp, "the head")
 
 
-def logits(params: Params, hidden: torch.Tensor, cfg: LMConfig
+def logits(params: Params, hidden: torch.Tensor, cfg: LMConfig, mesh=None
            ) -> torch.Tensor:
-    """Float32 logits of hidden states (..., d), final softcap applied."""
-    out = (hidden @ _head_weight(params, cfg)).to(torch.float32)
-    return _softcap(out, cfg.final_softcap)
+    """Float32 logits of hidden states (..., d), final softcap applied;
+    whole on every rank (a head split on the vocabulary is gathered)."""
+    pm, tp, _ = _model(mesh)
+    w, split = _head_weight(params, cfg, tp)
+    if split:
+        hidden = CO.copy_to(hidden, pm, MODEL)
+    out = _softcap((hidden @ w).to(torch.float32), cfg.final_softcap)
+    return _gathered(out, split, pm)
+
+
+def _nll_split(lg: torch.Tensor, labels: torch.Tensor, vocab: int, pm,
+               m: int) -> torch.Tensor:
+    """-log p(label) from this rank's columns ``lg`` of the logits (split
+    on the vocabulary over ``model``): the maximum over the ranks with
+    no gradient, the sum of ``exp`` and the gold logit (from the rank
+    that holds it) through one ``reduce_from``.  A label outside
+    ``[-V, V)`` gives NaN, ``[-V, 0)`` wraps."""
+    n = lg.shape[-1]
+    mx = CO.max_over(lg.amax(-1), pm, MODEL)
+    se = torch.exp(lg - mx[..., None]).sum(-1)
+    safe = labels.clamp(-vocab, vocab - 1)
+    loc = safe % vocab - m * n
+    mine = (loc >= 0) & (loc < n)
+    gold = torch.gather(lg, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+    gold = torch.where(mine, gold, 0.0)
+    se, gold = CO.reduce_from(torch.stack([se, gold]), pm, MODEL)
+    gold = gold.masked_fill(safe != labels, float("nan"))
+    return torch.log(se) + mx - gold
 
 
 def chunked_ce_loss(
@@ -330,27 +505,35 @@ def chunked_ce_loss(
     sequence at a time, the sums carried as the reference's scan carries
     them.  A label outside ``[-V, V)`` gives a NaN term, as the
     reference's ``take_along_axis`` does.  Under a process mesh the sums
-    are the whole batch's, over ``data``."""
+    are the whole batch's, over the data axes, and a head split on the
+    vocabulary gives the vocab-parallel cross-entropy (``_nll_split``)."""
     B, S, d = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the loss "
                          f"chunk {chunk}")
+    pm, tp, m = _model(mesh)
+    w, split = _head_weight(params, cfg, tp)
+    if split:
+        hidden = CO.copy_to(hidden, pm, MODEL)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(0, S, chunk):
-        lg = logits(params, hidden[:, c:c + chunk], cfg)
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = take_rows(lg, labels[:, c:c + chunk, None].long(), dim=-1
-                         )[..., 0]
-        mc = (torch.ones_like(logz) if label_mask is None
+        lg = _softcap((hidden[:, c:c + chunk] @ w).to(torch.float32),
+                      cfg.final_softcap)
+        lab = labels[:, c:c + chunk].long()
+        if split:
+            nll = _nll_split(lg, lab, cfg.vocab, pm, m)
+        else:
+            nll = torch.logsumexp(lg, dim=-1) - take_rows(
+                lg, lab[..., None], dim=-1)[..., 0]
+        mc = (torch.ones_like(nll) if label_mask is None
               else label_mask[:, c:c + chunk].to(torch.float32))
-        tot = tot + ((logz - gold) * mc).sum()
+        tot = tot + (nll * mc).sum()
         cnt = cnt + mc.sum()
-    pm = CO.process_mesh(mesh)
     if pm is not None:
-        tot = CO.reduce_from(tot, pm, "data")
-        cnt = CO.all_reduce(cnt.detach(), pm, "data")
+        tot = CO.reduce_from(tot, pm, DATA)
+        cnt = CO.all_reduce(cnt.detach(), pm, DATA)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -362,6 +545,7 @@ def lm_loss(
     mesh=None,
     remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    params = _locals(params)
     hidden, aux = forward(params, batch["tokens"], cfg, mesh=mesh,
                           remat=remat)
     loss = chunked_ce_loss(params, hidden, batch["labels"], cfg,
@@ -370,7 +554,8 @@ def lm_loss(
     if cfg.mtp_depth > 0:
         # MTP(1): predict t+2 from [h_t ; emb(label_t)] through one block
         mp = params["mtp"]
-        emb_next = embed(params["embed"], batch["labels"])
+        emb_next = _lookup(params["embed"]["emb"], batch["labels"],
+                           cfg.vocab, mesh)
         h2 = dense(mp["proj"], torch.cat([hidden, emb_next], -1))
         pos = _positions(h2.shape[0], h2.shape[1], h2.device)
         h2, _ = _block_train(
@@ -402,7 +587,24 @@ def _cache_len_for(cfg: LMConfig, is_local: bool, max_len: int) -> int:
     return max_len
 
 
-def _cache_tree(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, Any]:
+def _kv_heads(cfg: LMConfig, mesh, attn: Optional[Params] = None) -> int:
+    """The KV heads a rank's cache holds under ``mesh``: ``KV / tp``
+    where the heads fall whole on a rank, else all ``KV``.  Whole heads:
+    those of the attention parameters ``attn`` where given, else
+    ``lm_param_spec``'s layout (it splits every projection where ``H``
+    and ``KV`` divide by tp)."""
+    _, tp, _ = _model(mesh)
+    if cfg.attn == "mla":
+        return cfg.n_kv_heads
+    if attn is not None:
+        own = _heads(attn, cfg, tp)[2]
+    else:
+        own = cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+    return cfg.n_kv_heads // tp if own else cfg.n_kv_heads
+
+
+def _cache_tree(cfg: LMConfig, batch: int, max_len: int, kv_heads: int
+                ) -> Dict[str, Any]:
     dt = _dtype(cfg)
     cache: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
                                                 device="cpu")}
@@ -422,7 +624,7 @@ def _cache_tree(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, Any]:
                                        dtype=dt),
                 }
             else:
-                shape = (*lead, batch, L, cfg.n_kv_heads, cfg.head_dim)
+                shape = (*lead, batch, L, kv_heads, cfg.head_dim)
                 seg[f"u{j}"] = {"k": torch.zeros(shape, dtype=dt),
                                 "v": torch.zeros(shape, dtype=dt)}
         cache[f"seg{si}"] = seg
@@ -430,35 +632,53 @@ def _cache_tree(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, Any]:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
+               device: DeviceLike = None, mesh=None) -> Dict[str, Any]:
     """The reference's cache tree, zeroed on ``device`` (``None``: the
     GPU): ``len`` (a 0-d int32 tensor, kept on the host) and per segment
     and unit ``k``/``v`` (B, L, KV, dh) or MLA's ``ckv``/``kpe`` (B, L,
     ·), with the segment's leading rep dim.  L is ``max_len``, or the
-    window on SWA layers (a ring)."""
+    window on SWA layers (a ring).  Under ``mesh`` a rank's ``k``/``v``
+    hold its ``KV / tp`` heads where the heads fall whole on a rank."""
     dev = resolve_device(device)
     with torch.device(dev):
-        return _cache_tree(cfg, batch, max_len)
+        return _cache_tree(cfg, batch, max_len, _kv_heads(cfg, mesh))
 
 
-def cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> Dict[str, Any]:
+def cache_shapes(cfg: LMConfig, batch: int, max_len: int, mesh=None
+                 ) -> Dict[str, Any]:
     """``init_cache``'s tree as ``meta`` tensors (``len`` stays a host
     tensor)."""
     with torch.device("meta"):
-        return _cache_tree(cfg, batch, max_len)
+        return _cache_tree(cfg, batch, max_len, _kv_heads(cfg, mesh))
 
 
-def _attn_decode(p, x, cfg: LMConfig, is_local: bool, lc, pos: int):
+def _check_cache(own: bool, cfg: LMConfig, tp: int, kv: int) -> None:
+    want = cfg.n_kv_heads // tp if own else cfg.n_kv_heads
+    if kv != want:
+        raise ValueError(f"a cache of {kv} KV heads where this rank's "
+                         f"attention keeps {want} (init_cache(..., "
+                         f"mesh=...) for the parameters' layout)")
+
+
+def _attn_decode(p, x, cfg: LMConfig, is_local: bool, lc, pos: int,
+                 mesh=None):
     """Single-token attention against a cache slice ``lc`` (no leading
     rep dim), whose row for this token is written in place.  Returns
     the attention output (B, 1, d)."""
     B = x.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pm, tp, mi = _model(mesh)
+    split, split_o, own = _heads(p, cfg, tp)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.attn == "mla":
         m = cfg.mla
+        h = H // tp if own else H
         q = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps) @ p["wq_b"]
-        q = q.reshape(B, 1, H, m.qk_nope + m.qk_rope)
+        wkv_b = p["wkv_b"]
+        if not own:
+            q = _gathered(q, split["wq_b"], pm)
+            wkv_b = _gathered(wkv_b, split["wkv_b"], pm)
+        q = q.reshape(B, 1, h, m.qk_nope + m.qk_rope)
         q_pe = rope(q[..., m.qk_nope:], positions, cfg.rope_theta)
         q_nope = q[..., : m.qk_nope]
         kv_a = x @ p["wkv_a"]
@@ -470,9 +690,9 @@ def _attn_decode(p, x, cfg: LMConfig, is_local: bool, lc, pos: int):
         ckv[:, slot] = ckv_t[:, 0]
         kpe[:, slot] = kpe_t[:, 0]
         # weight absorption: score = q_nope . (W_uk^T) . ckv
-        wkv_b = p["wkv_b"].reshape(m.kv_lora, H, m.qk_nope + m.v_head)
-        w_uk = wkv_b[..., : m.qk_nope]          # (kv_lora, H, qk_nope)
-        w_uv = wkv_b[..., m.qk_nope:]           # (kv_lora, H, v_head)
+        wkv_b = wkv_b.reshape(m.kv_lora, h, m.qk_nope + m.v_head)
+        w_uk = wkv_b[..., : m.qk_nope]          # (kv_lora, h, qk_nope)
+        w_uv = wkv_b[..., m.qk_nope:]           # (kv_lora, h, v_head)
         q_abs = torch.einsum("bthn,lhn->bthl", q_nope, w_uk)
         s = torch.einsum("bthl,bsl->bhs", q_abs, ckv)
         s = s + torch.einsum("bthr,bsr->bhs", q_pe, kpe)
@@ -482,14 +702,18 @@ def _attn_decode(p, x, cfg: LMConfig, is_local: bool, lc, pos: int):
         pr = torch.softmax(s.to(torch.float32), dim=-1)
         ctx = torch.einsum("bhs,bsl->bhl", pr, ckv.to(torch.float32))
         o = torch.einsum("bhl,lhv->bhv", ctx, w_uv.to(torch.float32))
-        o = o.reshape(B, 1, H * m.v_head).to(x.dtype)
-        return o @ p["wo"]
-    q = (x @ p["wq"]).reshape(B, 1, H, dh)
-    k_t = (x @ p["wk"]).reshape(B, 1, KV, dh)
-    v_t = (x @ p["wv"]).reshape(B, 1, KV, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k_t = rope(k_t, positions, cfg.rope_theta)
+        o = o.reshape(B, 1, h * m.v_head).to(x.dtype)
+        return _out_proj(o, p["wo"], split_o, own, pm, mi)
+    q, k_t, v_t = (x @ p[n] for n in ("wq", "wk", "wv"))
+    h, kvh = (H // tp, KV // tp) if own else (H, KV)
+    if not own:
+        q, k_t, v_t = (_gathered(t, split[n], pm)
+                       for t, n in ((q, "wq"), (k_t, "wk"), (v_t, "wv")))
+    q = rope(q.reshape(B, 1, h, dh), positions, cfg.rope_theta)
+    k_t = rope(k_t.reshape(B, 1, kvh, dh), positions, cfg.rope_theta)
+    v_t = v_t.reshape(B, 1, kvh, dh)
     k, v = lc["k"], lc["v"]
+    _check_cache(own, cfg, tp, k.shape[2])
     L = k.shape[1]
     ring = is_local and cfg.window is not None
     slot = min(pos % L if ring else pos, L - 1)
@@ -497,7 +721,7 @@ def _attn_decode(p, x, cfg: LMConfig, is_local: bool, lc, pos: int):
     v[:, slot] = v_t[:, 0]
     o = decode_attention(q, k, v, cache_len=pos + 1,
                          softcap=cfg.attn_softcap, ring=ring)
-    return o.reshape(B, 1, H * dh) @ p["wo"]
+    return _out_proj(o.reshape(B, 1, h * dh), p["wo"], split_o, own, pm, mi)
 
 
 def _seg_cache(cache, si: int, r: int, n_rep: int):
@@ -518,7 +742,8 @@ def decode_step(
     The cache is written in place (its ``len`` moves on by one) and
     returned."""
     pos = int(cache["len"])
-    x = _embed_tokens(params, token[:, None], cfg)
+    params = _locals(params)
+    x = _embed_tokens(params, token[:, None], cfg, mesh)
     segs = cfg.scan_segments()
     for si, r, unit, up in _units(params, cfg):
         uc = _seg_cache(cache, si, r, segs[si][1])
@@ -526,12 +751,12 @@ def decode_step(
             p = up[f"u{j}"]
             h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
             x = x + _attn_decode(p["attn"], h, cfg, is_local, uc[f"u{j}"],
-                                 pos)
+                                 pos, mesh)
             h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
             x = x + _ffn(p, h, cfg, is_moe, mesh)[0]
     cache["len"] = torch.tensor(pos + 1, dtype=torch.int32)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return logits(params, x[:, 0], cfg), cache
+    return logits(params, x[:, 0], cfg, mesh), cache
 
 
 @torch.no_grad()
@@ -547,10 +772,13 @@ def prefill(
     cache).  The train-path forward plus the cache filled from each
     layer's projections: one pass, no per-token loop."""
     B, S = tokens.shape
-    x = _embed_tokens(params, tokens, cfg)
-    # a meta prompt (the dry run's prefill cell) gets a meta cache
-    cache = (cache_shapes(cfg, B, max_len) if x.device.type == "meta"
-             else init_cache(cfg, B, max_len, device=x.device))
+    params = _locals(params)
+    x = _embed_tokens(params, tokens, cfg, mesh)
+    # the cache in the layout of the first layer's attention; a meta
+    # prompt (the dry run's prefill cell) gets a meta cache
+    first = next(_units(params, cfg))[3]["u0"]["attn"]
+    with torch.device(x.device):
+        cache = _cache_tree(cfg, B, max_len, _kv_heads(cfg, mesh, first))
     positions = _positions(B, S, x.device)
     segs = cfg.scan_segments()
     for si, r, unit, up in _units(params, cfg):
@@ -558,20 +786,24 @@ def prefill(
         for j, (is_local, is_moe) in enumerate(unit):
             p = up[f"u{j}"]
             h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-            x = x + _attn_train(p["attn"], h, cfg, is_local, positions)
+            x = x + _attn_train(p["attn"], h, cfg, is_local, positions,
+                                mesh)
             _extract_cache(p["attn"], h, cfg, is_local, positions,
-                           uc[f"u{j}"])
+                           uc[f"u{j}"], mesh)
             h = rmsnorm(p["ln_ffn"], x, cfg.norm_eps)
             x = x + _ffn(p, h, cfg, is_moe, mesh)[0]
     cache["len"] = torch.tensor(S, dtype=torch.int32)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return logits(params, x[:, -1], cfg), cache
+    return logits(params, x[:, -1], cfg, mesh), cache
 
 
-def _extract_cache(p, h, cfg: LMConfig, is_local: bool, positions, lc):
+def _extract_cache(p, h, cfg: LMConfig, is_local: bool, positions, lc,
+                   mesh=None):
     """Recompute a prompt's (cheap) KV projections into the cache slice
     ``lc``, in place: its last min(S, L) tokens, in slots 0.. on linear
-    layers and in slot ``position % L`` on ring layers."""
+    layers and in slot ``position % L`` on ring layers.  Under a mesh,
+    this rank's KV heads where the heads fall whole on a rank, else all
+    of them (a split projection's output gathered)."""
     B, S, _ = h.shape
     if cfg.attn == "mla":
         m = cfg.mla
@@ -583,9 +815,16 @@ def _extract_cache(p, h, cfg: LMConfig, is_local: bool, positions, lc):
         lc["ckv"][:, :n] = ckv[:, S - n:]
         lc["kpe"][:, :n] = kpe[:, S - n:]
         return
-    KV, dh = cfg.n_kv_heads, cfg.head_dim
-    k = rope((h @ p["wk"]).reshape(B, S, KV, dh), positions, cfg.rope_theta)
-    v = (h @ p["wv"]).reshape(B, S, KV, dh)
+    pm, tp, _ = _model(mesh)
+    split, _, own = _heads(p, cfg, tp)
+    dh = cfg.head_dim
+    kvh = cfg.n_kv_heads // tp if own else cfg.n_kv_heads
+    _check_cache(own, cfg, tp, lc["k"].shape[2])
+    k, v = h @ p["wk"], h @ p["wv"]
+    if not own:
+        k, v = _gathered(k, split["wk"], pm), _gathered(v, split["wv"], pm)
+    k = rope(k.reshape(B, S, kvh, dh), positions, cfg.rope_theta)
+    v = v.reshape(B, S, kvh, dh)
     L = lc["k"].shape[1]
     n = min(S, L)
     if is_local and cfg.window is not None:

@@ -12,10 +12,15 @@ update with decoupled weight decay on float32 copies, cast back to
 each parameter's dtype.  Leaves are visited in sorted key order, as
 ``jax.tree.leaves`` visits a dict.
 
-Under a process mesh the parameters, gradients and moments are DTensors
-(``distributed.elastic.reshard``): the clip norm is the global one (a
-leaf split over mesh dims sums its square over them, a replicated leaf
-counts once) and the update runs on each rank's shards.
+Under a process mesh the parameters, gradients and moments are placed
+leaves (``distributed.elastic.reshard``: DTensors, or a counting mesh's
+blocks): the clip norm is the global one (a leaf split over mesh axes
+sums its square over them, a replicated leaf counts once) and the update
+runs on each rank's shards.  ZeRO-1 (``sharding.opt_state_specs``): where
+a leaf's moments, and its gradient with them (``steps``), are split over
+the data axes on a dim its parameter keeps whole, the rank updates the
+block of the parameter they cover and gathers the parameter back over
+those axes.
 """
 
 from __future__ import annotations
@@ -101,25 +106,36 @@ def adamw_init(params: Any) -> AdamWState:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32.  A DTensor
-    leaf's square sum is its shard's, summed over the mesh dims it is
-    split over (one sum a set of dims); a replicated one counts once."""
+    """sqrt of the sum of squares of every leaf, in float32.  A placed
+    leaf's square sum is its shard's, summed over the mesh axes it is
+    split over (one sum a set of axes, one axis at a time); a replicated
+    one counts once."""
     leaves = tree_leaves(tree)
     sq = [torch.sum(torch.square(CO.local(x).to(torch.float32)))
           for x in leaves]
     split = {}
     for i, x in enumerate(leaves):
-        dims = CO.sharded_dims(x)
-        if dims:
-            split.setdefault((id(x.device_mesh), dims), []).append(i)
-    for (_, dims), idx in split.items():
-        mesh = leaves[idx[0]].device_mesh
+        axes = CO.spec_axes(CO.spec_of(x))
+        if axes:
+            mesh = CO.mesh_of(x)
+            split.setdefault((id(mesh), axes), (mesh, []))[1].append(i)
+    for (_, axes), (mesh, idx) in split.items():
         v = torch.stack([sq[i] for i in idx])
-        for dim in dims:
-            torch.distributed.all_reduce(v, group=mesh.get_group(dim))
+        for a in axes:
+            CO.all_reduce(v, mesh, a)
         for j, i in enumerate(idx):
             sq[i] = v[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def zero1_dim(p, m) -> Optional[Tuple[int, Any]]:
+    """(dim, axes) where the moment ``m`` is split over ``axes`` and its
+    parameter ``p`` whole (ZeRO-1), or ``None``."""
+    ps, ms = CO.spec_of(p), CO.spec_of(m)
+    for i, entry in enumerate(ms):
+        if entry is not None and (i >= len(ps) or ps[i] is None):
+            return i, entry
+    return None
 
 
 @torch.no_grad()
@@ -143,7 +159,18 @@ def adamw_update(
     bc2 = 1 - b2 ** step.to(torch.float32)
 
     def upd(p, g, m, v):
-        out = upd_local(*map(CO.local, (p, g, m, v)))
+        pl, gl, ml, vl = map(CO.local, (p, g, m, v))
+        z = zero1_dim(p, m)
+        if z is None:
+            out = upd_local(pl, gl, ml, vl)
+        else:
+            # ZeRO-1: the block the moments cover, then the whole
+            # parameter back over the data axes
+            dim, axes = z
+            mesh, b = CO.mesh_of(m), ml.shape[dim]
+            blk = pl.narrow(dim, CO.axis_index(mesh, axes) * b, b)
+            out = upd_local(blk, gl, ml, vl)
+            out = (CO.all_gather(out[0], mesh, axes, dim), *out[1:])
         return tuple(CO.like(r, t) for r, t in zip((p, m, v), out))
 
     def upd_local(p, g, m, v):

@@ -15,10 +15,15 @@ rank, cuts each microbatch's rows for this rank's ``data`` coordinate
 (so ``grad_accum`` keeps its meaning), and runs ``loss_fn`` on them:
 its loss must be the whole batch's, each rank's backward giving its
 rows' share of the gradient, as ``lm_loss(..., mesh=mesh)`` does.  The
-parameters and moments may be DTensors (``distributed.elastic.reshard``,
-e.g. under ``lm_expert_param_spec``); the gradients are computed on
-the local shards and summed over ``data`` before AdamW, whose clip norm
-is global (``optim.global_norm``).
+parameters and moments are placed leaves (``distributed.elastic.
+reshard``: DTensors on a process mesh, rank 0's blocks on a counting
+mesh), e.g. the parameters by ``lm_param_spec`` and the moments by
+``opt_state_specs`` (ZeRO-1).  The gradients are computed on the local
+shards and summed over the data axes: where a leaf's moments are split
+over them (ZeRO-1), as a ``reduce-scatter`` to the moments' block, else
+by an ``all-reduce``.  AdamW then updates the block its moments cover
+and gathers the parameter back over the data axes (``optim``); its clip
+norm is global (``optim.global_norm``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,10 @@ from typing import Any, Callable, Dict
 import torch
 
 from ..distributed import collectives as CO
-from .optim import AdamWConfig, AdamWState, adamw_update, tree_leaves
+from .optim import (AdamWConfig, AdamWState, adamw_update, tree_leaves,
+                    zero1_dim)
+
+DATA = ("pod", "data")     # the axes a batch's rows are split over
 
 LossFn = Callable[[Any, Dict[str, torch.Tensor]], Any]
 
@@ -54,7 +62,7 @@ def make_train_step(
     def rows(batch):
         if pm is None:
             return batch
-        return {k: CO.rows_of(v, pm, "data") for k, v in batch.items()}
+        return {k: CO.rows_of(v, pm, DATA) for k, v in batch.items()}
 
     def full_loss(params, batch):
         out = loss_fn(params, batch)
@@ -103,8 +111,9 @@ def make_train_step(
             metrics = {}
         if pm is not None:
             grads = _rebuild(params, iter([
-                CO.like(p, CO.all_reduce(g, pm, "data")) for p, g in zip(
-                    tree_leaves(params), tree_leaves(grads))]))
+                _data_sum(p, g, m, pm) for p, g, m in zip(
+                    tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(opt_state.m))]))
         new_params, new_opt, opt_metrics = adamw_update(
             opt_cfg, grads, opt_state, params
         )
@@ -114,6 +123,17 @@ def make_train_step(
         return new_params, new_opt, metrics
 
     return step
+
+
+def _data_sum(p, g: torch.Tensor, m, pm):
+    """A gradient's sum over the data axes, placed as its moment ``m``:
+    the moment's block by a reduce-scatter where ZeRO-1 splits it over
+    them, else whole by an all-reduce."""
+    z = zero1_dim(p, m)
+    if z is None:
+        return CO.like(m, CO.all_reduce(g, pm, DATA))
+    dim, axes = z
+    return CO.like(m, CO.reduce_scatter(g, pm, axes, dim))
 
 
 def make_eval_step(loss_fn: LossFn, has_metrics: bool = True) -> Callable:

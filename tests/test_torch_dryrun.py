@@ -31,6 +31,13 @@ JAX package's, on the CPU, and the two repairs the dry run needed.
   shardings dropped (with them, JAX 0.9 refuses every cell); the MoE
   cells of llama4-maverick and deepseek-v3 are left out where the
   reference's cell does not trace (its expert-parallel arm on the mesh).
+* ``mesh_step``: every LM cell also counts rank 0's step of the
+  production mesh on a counting mesh (``lm_param_spec``, ZeRO-1); its
+  record is ok, its per-device FLOPs at or below the one-card count,
+  and its collectives (the record's top-level ``collectives``) non-empty
+  under the reference's kind names.  The GNN and DIN records keep
+  ``collectives == {}``, and the roofline reads every record with its
+  one-card terms unchanged.
 """
 
 import dataclasses
@@ -59,6 +66,7 @@ from repro_torch.analysis.op_stats import OpStats
 from repro_torch.benchmarks import roofline
 from repro_torch.configs import base as CB
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import KINDS
 from repro_torch.distributed.tree import walk
 from repro_torch.launch import dryrun, mesh as M, perf_lm
 from repro_torch.models.lm import MoESpec, attention as A
@@ -434,7 +442,8 @@ def test_run_cell_matches_reference_outputs(arch, shape, prefill_cut):
     rec = dryrun.run_cell(arch, shape, save=False)
     assert rec["ok"], rec.get("error")
     assert rec["flops"] > 0 and rec["hlo_stats"]["hbm_floor_bytes"] > 0
-    assert rec["n_devices"] == 1 and rec["collectives"] == {}
+    assert rec["n_devices"] == 1
+    _check_collectives(rec)
     assert 0 < rec["arg_bytes_per_device"] < rec["memory_analysis"][
         "argument_size_in_bytes"]
     assert rec["compute_dtype"] == ("bfloat16" if rec["family"] == "lm"
@@ -446,6 +455,46 @@ def test_run_cell_matches_reference_outputs(arch, shape, prefill_cut):
         assert arch in MOE_ARCHS, (arch, shape)
         return
     assert _port_outputs(rec) == want
+
+
+def _check_collectives(rec):
+    """An LM record's ``mesh_step`` (ok, 256 devices, FLOPs at or below
+    the one-card count, collectives under the reference's kinds) is its
+    top-level ``collectives``; a GNN or DIN record keeps ``{}``."""
+    if rec["family"] != "lm":
+        assert rec["collectives"] == {} and "mesh_step" not in rec
+        assert "queued" in rec["notes"]["collectives"]
+        return
+    ms = rec["mesh_step"]
+    assert ms["ok"] and ms["n_devices"] == 256
+    assert 0 < ms["flops"] <= rec["flops"]
+    assert ms["collectives"]["total"] > 0
+    assert set(ms["collectives"]) <= {"total", *KINDS}
+    assert ms["collectives"]["total"] == sum(
+        v for k, v in ms["collectives"].items() if k != "total")
+    assert rec["collectives"] == ms["collectives"]
+    assert rec["hlo_stats"]["collective_bytes"] == 0
+
+
+LM_TRAIN = [(a, s) for a, s, c in C.all_cells()
+            if c.kind == "train" and C.get_arch(a).family == "lm"]
+
+
+@pytest.mark.parametrize("arch,shape", LM_TRAIN)
+def test_lm_train_cells_count_the_production_mesh_step(arch, shape):
+    """The LM train_4k cells at their full widths: the one-card count
+    and rank 0's step of the (16, 16) mesh, its ZeRO-1 update included
+    (a reduce-scatter of the gradients, an all-gather of the
+    parameters over ``data``); the roofline's row reads the one-card
+    fields alone."""
+    rec = dryrun.run_cell(arch, shape, save=False)
+    assert rec["ok"], rec.get("error")
+    _check_collectives(rec)
+    assert {"all-reduce", "all-gather", "reduce-scatter"} <= set(
+        rec["collectives"])
+    bare = {k: v for k, v in rec.items() if k != "mesh_step"}
+    bare["collectives"] = {}
+    assert roofline.roofline_row(rec) == roofline.roofline_row(bare)
 
 
 @pytest.mark.parametrize("arch", [a for a in C.arch_names()

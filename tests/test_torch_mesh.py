@@ -1,16 +1,21 @@
 """The port's multi-rank arms (``launch.mesh.init_ranks`` /
 ``make_process_mesh``, ``distributed.collectives``, ``sharding.
 placements``, ``elastic.reshard`` onto a process mesh, the MoE layer's
-expert-parallel arm, ``lm_loss`` and ``make_train_step`` under a mesh,
-DTensor checkpoints) on four gloo ranks on the CPU, held to the
-reference on four forced CPU devices (Auto axes: ROADMAP R12).
+expert-parallel arm, the LM family tensor-parallel under
+``lm_param_spec`` with ZeRO-1 moments: ``lm_loss``, ``make_train_step``,
+``prefill`` and ``decode_step`` under a mesh, the vocab-parallel lookup
+and loss, the collectives' tally and the counting mesh, DTensor
+checkpoints) on four gloo ranks on the CPU, held to the reference on
+four forced CPU devices (Auto axes: ROADMAP R12), its parameters placed
+by its own ``lm_param_spec`` and ``named``.
 
 Both sides run once per module, in processes of their own and at the
 same time (``tests/torch_mesh_runs.py``): ``XLA_FLAGS`` must be set
 before JAX is imported, which this process has done already, and the
 port's ranks are spawned.  Every input is made here: the MoE layer's
 with NumPy from a seed, the reduced LM configs' parameters by the
-reference's ``init_params``.
+reference's ``init_params`` (gemma2's also untied, for the vocab-split
+head).
 
 Tolerances: the MoE layer's output, aux and every gradient within 2e-5;
 the LM losses, gradients, the AdamW step's norm, moments and parameters
@@ -19,6 +24,7 @@ PyTorch, one process against four).  ``reshard``'s shards, the
 checkpoint and the ranks' agreement are exact.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -42,11 +48,13 @@ from repro.models.lm import model as RM
 from repro.models.lm import moe as RMOE
 from repro.models.lm.config import MoESpec as RMoESpec
 from repro_torch.distributed import collectives as CO
-from repro_torch.distributed import restore_checkpoint
+from repro_torch.distributed import MeshAxes, restore_checkpoint
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.tree import walk
+from repro_torch import configs as C
 from repro_torch.launch import mesh as LM
 from repro_torch.models.lm import MoESpec
+from repro_torch.models.lm import model as LMM
 from repro_torch.models.lm import moe as MOE
 from repro_torch.train import adamw_init
 
@@ -84,6 +92,13 @@ def runs(tmp_path_factory):
         batch = next(RP.lm_batches(rcfg.vocab, R.S, R.B, seed=3))
         for k in ("tokens", "labels"):
             z[f"lm/{arch}/batch/{k}"] = np.asarray(batch[k])
+    for tied in (1, 0):
+        rcfg = dataclasses.replace(RCF.get_arch(R.VOCAB_ARCH).make_config(
+            reduced=True), tie_embeddings=bool(tied))
+        rp = jax.jit(RM.init_params, static_argnums=1)(
+            jax.random.PRNGKey(1), rcfg)
+        for path, v in walk(jax.tree.map(np.asarray, rp)):
+            z[f"vocab/{tied}/params/{path}"] = v
     inputs = str(tmp / "inputs.npz")
     np.savez(inputs, **z)
     script = os.path.join(HERE, "torch_mesh_runs.py")
@@ -144,9 +159,39 @@ def _lm_split(path, shape, tp):
     return next((i for i, s in enumerate(spec) if s is not None), None)
 
 
-def _my_block(want, path, m, tp):
+def _expert_block(want, path, m, tp):
     dim = _lm_split(path, want.shape, tp)
     return want if dim is None else _block(want, dim, m, tp)
+
+
+def _lm_spec(path, shape, dp, tp):
+    """The spec a leaf of ``{"params", "opt"}`` or a gradient is placed
+    by: ``lm_param_spec`` for a parameter or a gradient (summed over
+    ``data``), ZeRO-1's for a moment (``zero1_specs``: also over
+    ``data`` on its first replicated dim ``data`` divides)."""
+    moment = path.startswith(("opt/.m/", "opt/.v/"))
+    for pre in ("params/", "opt/.m/", "opt/.v/"):
+        if path.startswith(pre):
+            path = path[len(pre):]
+    if path == "opt/.step":
+        return ()
+    mesh = {"data": dp, "model": tp}
+    spec = SH.lm_param_spec(path, shape, MeshAxes(), tp)
+    if moment:
+        tree = {"w": torch.empty(shape, device="meta")}
+        spec = SH.zero1_specs(tree, {"w": spec}, MeshAxes(), mesh)["w"]
+    return spec
+
+
+def _my_block(want, path, d, m, dp, tp):
+    """Rank (d, m)'s block of the logical ``want`` under ``_lm_spec``."""
+    for dim, entry in enumerate(_lm_spec(path, want.shape, dp, tp)):
+        if entry is not None:
+            axes = (entry,) if isinstance(entry, str) else entry
+            for a in axes:
+                n, i = (dp, d) if a == "data" else (tp, m)
+                want = _block(want, dim, i, n)
+    return want
 
 
 # ----------------------------------------------------------- the MoE layer
@@ -279,15 +324,16 @@ def test_lm_loss_and_grads_match_reference(runs, arch, mesh):
     dp, tp = R.MESHES[mesh]
     ref = runs.ref
     grads = _lm_leaves(ref, f"{key}/grad")
-    assert len(grads) > 20
+    assert len(grads) == len(list(walk(R.tree_from(
+        runs.inputs, f"lm/{arch}/params/"))))
     for r, d, m in _ranks(mesh):
         got = runs.ranks[r]
         _close(got[f"{key}/loss"], ref[f"{key}/loss"], "loss")
         for k, v in _lm_leaves(ref, f"{key}/metrics").items():
             _close(got[f"{key}/metrics/{k}"], v, k)
         for path, want in grads.items():
-            _close(got[f"{key}/grad/{path}"], _my_block(want, path, m, tp),
-                   path)
+            _close(got[f"{key}/grad/{path}"],
+                   _my_block(want, path, d, m, 1, tp), path)
 
 
 @pytest.mark.parametrize("mesh", R.LM_MESHES)
@@ -308,8 +354,8 @@ def test_train_step_matches_reference(runs, arch, mesh):
         _close(got[f"{key}/grad_norm"], ref[f"{key}/grad_norm"], "norm")
         for path, want in leaves.items():
             if path not in ("loss", "grad_norm"):
-                _close(got[f"{key}/{path}"], _my_block(want, path, m, tp),
-                       path)
+                _close(got[f"{key}/{path}"],
+                       _my_block(want, path, d, m, dp, tp), path)
 
 
 def test_train_step_grad_accum_matches_reference(runs):
@@ -319,14 +365,14 @@ def test_train_step_grad_accum_matches_reference(runs):
     its ``lax.scan`` over microbatches."""
     mesh, arch, _ = R.ACCUM
     key = f"lm/{mesh}/{arch}/accum"
-    tp = R.MESHES[mesh][1]
+    dp, tp = R.MESHES[mesh]
     ref = runs.ref
     leaves = _lm_leaves(ref, key)
     assert len(leaves) > 20
-    for r, _, m in _ranks(mesh):
+    for r, d, m in _ranks(mesh):
         for path, want in leaves.items():
             _close(runs.ranks[r][f"{key}/{path}"],
-                   _my_block(want, path, m, tp), path)
+                   _my_block(want, path, d, m, dp, tp), path)
 
 
 @pytest.mark.parametrize("arch", R.LM_ARCHS)
@@ -339,6 +385,185 @@ def test_prefill_and_decode_on_a_model_axis(runs, arch):
     for got in runs.ranks:
         np.testing.assert_allclose(got[f"serve/{arch}"], want, rtol=1e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", R.LM_ARCHS)
+def test_prefill_and_decode_with_each_ranks_kv_heads(runs, arch):
+    """``prefill`` and 4 ``decode_step``s on (2, 2), where every arch's
+    heads fall whole on a rank: each rank's cache holds its KV heads
+    (KV / 2; MLA's latent cache whole), and every rank's logits equal
+    the reference's on its (2, 2) mesh within 1e-5 (1 + |ref|); on
+    (1, 4) the KV 2 caches stay whole."""
+    key = R.serve_key(R.SERVE_SPLIT_MESH, arch)
+    cfg = C.get_arch(arch).make_config(reduced=True)
+    for got in runs.ranks:
+        _close(got[key], runs.ref[key], key)
+        if cfg.attn != "mla":
+            assert int(got[f"{key}/kv_heads"]) == cfg.n_kv_heads // 2
+            assert int(got[f"serve/{arch}/kv_heads"]) == cfg.n_kv_heads
+
+
+# the attention arm of each case: True where the heads fall whole on a
+# rank, False where a split projection cuts a head (its outputs gathered)
+HEAD_ARMS = [
+    ("llama4-maverick-400b-a17b", True, (1, 4), False),  # wk: half a head
+    ("gemma2-2b", True, (1, 4), False),                  # wk: half a head
+    ("deepseek-v3-671b", True, (1, 4), True),            # MLA, 4 heads
+    ("llama4-maverick-400b-a17b", True, (2, 2), True),
+    ("gemma2-2b", True, (2, 2), True),
+    ("gemma2-2b", False, (1, 4), True),      # published: 8 heads, KV 4
+    ("gemma2-2b", False, (16, 16), False),   # wq's 2,048: half a head
+]
+
+
+@pytest.mark.parametrize("arch,reduced,shape,whole", HEAD_ARMS)
+def test_head_arms_are_pinned(arch, reduced, shape, whole):
+    """Which arm each layout runs: the blocks ``reshard`` cuts by
+    ``lm_param_spec`` (rank 0's, on a counting mesh) split every
+    projection, and fall on whole heads or cut one; the cache keeps
+    ``KV / tp`` heads only where they fall whole."""
+    from repro_torch.distributed import lm_param_spec, param_specs, reshard
+
+    cfg = C.get_arch(arch).make_config(reduced=reduced)
+    cm = CO.CountingMesh(dict(zip(("data", "model"), shape)))
+    meta = LMM.param_shapes(cfg)
+    params = reshard(meta, cm, param_specs(meta, lm_param_spec,
+                                           MeshAxes(), cm))
+    split, split_o, own = LMM._heads(params["seg0"]["u0"]["attn"], cfg,
+                                     shape[1])
+    assert all(split.values()) and split_o and own == whole
+    if cfg.attn != "mla":
+        kv = cfg.n_kv_heads // shape[1] if whole else cfg.n_kv_heads
+        assert LMM.cache_shapes(cfg, 2, 8, cm)["seg0"]["u0"]["k"].shape[
+            -2] == kv
+
+
+@pytest.mark.parametrize("tied", [1, 0])
+def test_vocab_parallel_ids_outside_the_vocabulary(runs, tied):
+    """gemma2 on (1, 4), the embedding (and the untied head) split on the
+    vocabulary: token ids outside [-V, V) give NaN where the reference's
+    ``forward`` does (its rows and the positions after them), ids in
+    [-V, 0) wrap, and the rest agrees within 1e-5 (1 + |ref|); a label
+    outside [-V, V) makes the loss NaN in both, labels in [-V, 0) wrap."""
+    key = f"vocab/{tied}"
+    want = runs.ref[f"{key}/hidden"]
+    nan = np.isnan(want)
+    for r, c, v in R.BAD_TOKENS:
+        assert nan[r, c].all() == (not -R.V <= v < R.V)
+    for got in runs.ranks:
+        h = got[f"{key}/hidden"]
+        np.testing.assert_array_equal(np.isnan(h), nan)
+        _close(np.where(nan, 0, h), np.where(nan, 0, want), "hidden")
+        for name in R.BAD_LABELS:
+            lw, lg = runs.ref[f"{key}/loss/{name}"], got[f"{key}/loss/{name}"]
+            assert np.isnan(lw) == (name != "wrap") == np.isnan(lg), name
+            if name == "wrap":
+                _close(lg, lw, name)
+
+
+def _tally_of(res, mesh, arch):
+    pre = f"tally/{mesh}/{arch}/"
+    return {k[len(pre):]: int(v) for k, v in res.items()
+            if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("mesh,arch", R.TALLY_CASES)
+def test_live_tally_equals_the_counting_mesh(runs, mesh, arch):
+    """One train step's collective bytes, kind by kind, on each of the
+    four gloo ranks equal the counting mesh's for the same config, mesh
+    shape and batch (rank 0's blocks, no process group)."""
+    cfg, params, batch = R.lm_inputs(runs.inputs, arch)
+    dp, tp = R.MESHES[mesh]
+    want = R.lm_step_tally(cfg, params, batch, CO.CountingMesh(
+        {"data": dp, "model": tp}))
+    assert want["total"] > 0 and want["all-reduce"] > 0
+    assert ("reduce-scatter" in want) == (dp > 1)
+    for res in runs.ranks:
+        assert _tally_of(res, mesh, arch) == want
+
+
+def test_hand_count_of_a_forward_on_a_model_axis():
+    """The reduced gemma2-2b's forward and loss on (1, 4), B = 4, S = 32,
+    float32, counted by hand: the embedding's lookup (rows summed over
+    the vocabulary's 4 blocks) and each layer's ``wo`` and FFN
+    ``reduce_from``, a (B, S, d) all-reduce each; KV 2 cuts a head on 4
+    ranks, so each layer gathers q, k and v whole; the loss reduces its
+    row maxima and its (sum of exp, gold) pair."""
+    from repro_torch.distributed import lm_param_spec, param_specs, reshard
+
+    cfg = C.get_arch("gemma2-2b").make_config(reduced=True)
+    B, S, f32 = 4, 32, 4
+    d, H, KV, dh, n_layers = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, cfg.n_layers)
+    cm = CO.CountingMesh({"data": 1, "model": 4})
+    meta = LMM.param_shapes(cfg)
+    params = reshard(meta, cm, param_specs(meta, lm_param_spec, MeshAxes(),
+                                           cm))
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with torch.no_grad(), CO.Tally() as t:
+        LMM.lm_loss(params, batch, cfg, mesh=cm)
+    act = B * S * d * f32
+    embed = act
+    layer_reduce = 2 * act                                  # wo, FFN
+    layer_gather = B * S * (H * dh + 2 * KV * dh) * f32     # q, k, v
+    loss = B * S * f32 + 2 * B * S * f32                    # max; exp, gold
+    want = {"all-reduce": embed + n_layers * layer_reduce + loss,
+            "all-gather": n_layers * layer_gather}
+    want["total"] = sum(want.values())
+    assert t.bytes == want
+    assert want == {"all-reduce": 296448, "all-gather": 262144,
+                    "total": 558592}
+
+
+def test_counting_mesh_crossings_and_tally():
+    """Each crossing on a counting mesh returns the live result's shape
+    and tallies its bytes by kind (a backward crossing when autograd
+    runs it); an axis the mesh lacks or of one rank crosses nothing, and
+    outside a ``Tally`` nothing is counted."""
+    cm = CO.CountingMesh({"data": 2, "model": 4})
+    x = torch.ones(3, 8, requires_grad=True)
+    n = 3 * 8 * 4
+    CO.reduce_from(x, cm, "model")                      # no tally open
+    with CO.Tally() as t:
+        assert CO.reduce_from(x, cm, "model").shape == (3, 8)
+        g = CO.all_gather(x, cm, "model", 1)
+        assert g.shape == (3, 32)
+        assert CO.reduce_scatter(x.detach(), cm, "data", 1).shape == (3, 4)
+        assert not CO.max_over(x, cm, "model").requires_grad
+        CO.first_of(x, cm, "data")
+        (gx,) = torch.autograd.grad(CO.copy_to(x, cm, "model").sum()
+                                    + g.sum(), x)
+        assert CO.all_reduce(x.detach(), cm, ("pod", "model")).shape == (
+            3, 8)
+    assert torch.equal(gx, torch.full((3, 8), 2.0))   # sum's + own block
+    assert t.bytes == {"all-reduce": 4 * n, "all-gather": 4 * n,
+                       "reduce-scatter": n // 2,
+                       "collective-permute": n, "total": 19 * n // 2}
+    one = CO.CountingMesh({"data": 1, "model": 4})
+    with CO.Tally() as t:
+        assert CO.all_reduce(x, one, "data") is x
+        assert CO.all_gather(x, one, "pod", 0) is x
+    assert t.bytes == {}
+
+
+def test_reshard_onto_a_counting_mesh():
+    """``reshard`` onto a counting mesh: rank 0's block of each leaf,
+    recorded with its spec; the process mesh's refusals (an axis the
+    mesh lacks, a dim its axes do not divide)."""
+    from repro_torch.distributed import reshard
+
+    cm = CO.CountingMesh({"data": 2, "model": 4})
+    x = torch.arange(32.0).reshape(4, 8)
+    out = reshard({"a": x, "b": x}, cm, {"a": ("data", "model"),
+                                         "b": ()})
+    assert torch.equal(out["a"], x[:2, :2]) and out["b"] is x
+    assert CO.spec_of(out["a"]) == ("data", "model")
+    assert CO.mesh_of(out["a"]) is cm and CO.spec_of(out["b"]) == ()
+    with pytest.raises(ValueError, match="no axis"):
+        reshard({"a": x}, cm, {"a": ("pod",)})
+    with pytest.raises(ValueError, match="evenly divide"):
+        reshard({"a": torch.zeros(6)}, cm, {"a": ("model",)})
 
 
 # ------------------------------------------------------ reshard, checkpoint
@@ -378,10 +603,11 @@ def test_checkpoint_saved_on_2x2_holds_the_trained_state(runs):
     saved, manifest = _saved(runs)
     assert manifest["step"] == 1
     key = f"lm/2x2/{R.CKPT_ARCH}/step"
-    for r, _, m in _ranks("2x2"):
+    for r, d, m in _ranks("2x2"):
         for path, v in saved.items():
-            np.testing.assert_array_equal(runs.ranks[r][f"{key}/{path}"],
-                                          _my_block(v.numpy(), path, m, 2))
+            np.testing.assert_array_equal(
+                runs.ranks[r][f"{key}/{path}"],
+                _my_block(v.numpy(), path, d, m, 2, 2))
 
 
 @pytest.mark.parametrize("mesh", R.RESTORE_MESHES)
@@ -396,8 +622,9 @@ def test_checkpoint_restores_on_another_mesh(runs, mesh):
         got = runs.ranks[r]
         assert int(got[f"{key}/step"]) == 1
         for path, v in saved.items():
-            np.testing.assert_array_equal(got[f"{key}/local/{path}"],
-                                          _my_block(v.numpy(), path, m, tp))
+            np.testing.assert_array_equal(
+                got[f"{key}/local/{path}"],
+                _expert_block(v.numpy(), path, m, tp))
     for path, v in saved.items():
         np.testing.assert_array_equal(runs.ranks[0][f"{key}/full/{path}"],
                                       v.numpy())

@@ -28,11 +28,22 @@ import numpy as np
 MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}   # (data, model)
 LM_MESHES = ("1x4", "2x2")
 SERVE_MESH = "1x4"
+SERVE_SPLIT_MESH = "2x2"            # whole heads: each rank's cache its KV's
 RESTORE_MESHES = ("1x4", "4x1")     # the (2, 2) checkpoint restored here
-LM_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
+# the LM family under lm_param_spec: on (1, 4) llama4's KV 2 and gemma2's
+# KV 2 split a head (the gather arm), deepseek's MLA 4 heads fall whole;
+# on (2, 2) every one falls on whole heads
+LM_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v3-671b", "gemma2-2b")
 CKPT_ARCH = LM_ARCHS[0]
 ACCUM = ("2x2", LM_ARCHS[0], 2)     # mesh, arch, grad_accum of one more step
+TALLY_CASES = (("1x4", "gemma2-2b"), ("2x2", LM_ARCHS[0]))
 B, S, PROMPT, DECODE = 4, 32, 16, 4
+# the vocab-parallel lookup and loss on (1, 4), gemma2 tied and untied:
+# token and label ids outside [-V, V) give NaN, ids in [-V, 0) wrap
+VOCAB_ARCH, VOCAB_MESH, V = "gemma2-2b", "1x4", 512
+BAD_TOKENS = ((0, 5, V), (1, 9, -V - 1), (2, 3, -3))   # (row, col, id)
+BAD_LABELS = {"over": ((1, 7, V + 5),), "under": ((3, 30, -V - 2),),
+              "wrap": ((0, 4, -2), (2, 20, -V))}
 # the MoE layer alone: 32 tokens of width 16, 8 experts of 16, top 2;
 # the shared expert's 24 splits over 1, 2 and 4 model ranks
 MOE = dict(n_experts=8, top_k=2, d_expert=16)
@@ -140,24 +151,59 @@ def _port_moe(pm, z, shared, bf, res, key):
         res[f"{key}/grad/{k}"] = CO.all_reduce(g, pm, "data").numpy()
 
 
-def _port_lm(pm, mesh_name, arch, z, res, ckpt):
+def lm_placed(params, mesh):
+    """The parameters ``reshard``ed by ``lm_param_spec`` onto ``mesh``
+    (a process or counting mesh), and AdamW's zero state placed by
+    ``opt_state_specs`` (ZeRO-1: the moments split over ``data`` too)."""
+    from repro_torch.distributed import (MeshAxes, lm_param_spec,
+                                         opt_state_specs, param_specs,
+                                         reshard)
+    from repro_torch.train import adamw_init
+
+    specs = param_specs(params, lm_param_spec, MeshAxes(), mesh)
+    opt = adamw_init(params)
+    return reshard(params, mesh, specs), reshard(opt, mesh, opt_state_specs(
+        opt, params, specs, MeshAxes(), mesh))
+
+
+def lm_inputs(z, arch):
+    """The reduced config, parameters and batch of ``arch``."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.distributed import (MeshAxes, param_specs, reshard,
-                                         save_checkpoint)
-    from repro_torch.distributed.sharding import lm_expert_param_spec
-    from repro_torch.distributed import collectives as CO
-    from repro_torch.distributed.tree import map_leaves, walk
-    from repro_torch.models.lm import lm_loss
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.distributed.tree import map_leaves
 
     cfg = get_arch(arch).make_config(reduced=True)
     params = map_leaves(lambda _, v: torch.as_tensor(v),
                         tree_from(z, f"lm/{arch}/params/"))
     batch = {k: torch.as_tensor(z[f"lm/{arch}/batch/{k}"])
              for k in ("tokens", "labels")}
-    dt = reshard(params, pm, param_specs(params, lm_expert_param_spec,
-                                         MeshAxes(), pm))
+    return cfg, params, batch
+
+
+def lm_step_tally(cfg, params, batch, mesh):
+    """The bytes by kind of one train step's crossings on ``mesh``."""
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    dt, opt = lm_placed(params, mesh)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg, mesh=mesh),
+                           AdamWConfig(**ADAMW), mesh=mesh)
+    with CO.Tally() as t:
+        step(dt, opt, batch)
+    return t.bytes
+
+
+def _port_lm(pm, mesh_name, arch, z, res, ckpt):
+    import torch
+    from repro_torch.distributed import save_checkpoint
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed.tree import map_leaves, walk
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    cfg, params, batch = lm_inputs(z, arch)
+    dt, opt = lm_placed(params, pm)
     key = f"lm/{mesh_name}/{arch}"
     xs = {}
     local = map_leaves(lambda k, v: xs.setdefault(
@@ -174,7 +220,7 @@ def _port_lm(pm, mesh_name, arch, z, res, ckpt):
 
     step = make_train_step(lambda p, b: lm_loss(p, b, cfg, mesh=pm),
                            AdamWConfig(**ADAMW), mesh=pm)
-    p1, o1, m = step(dt, adamw_init(dt), batch)
+    p1, o1, m = step(dt, opt, batch)
     res[f"{key}/step/loss"] = m["loss"].numpy()
     res[f"{key}/step/grad_norm"] = m["grad_norm"].numpy()
     for k, v in walk({"params": p1, "opt": o1}):
@@ -185,11 +231,50 @@ def _port_lm(pm, mesh_name, arch, z, res, ckpt):
         step = make_train_step(lambda p, b: lm_loss(p, b, cfg, mesh=pm),
                                AdamWConfig(**ADAMW), grad_accum=ACCUM[2],
                                mesh=pm)
-        p2, o2, m = step(dt, adamw_init(dt), batch)
+        p2, o2, m = step(dt, opt, batch)
         res[f"{key}/accum/loss"] = m["loss"].numpy()
         res[f"{key}/accum/grad_norm"] = m["grad_norm"].numpy()
         for k, v in walk({"params": p2, "opt": o2}):
             res[f"{key}/accum/{k}"] = CO.local(v).numpy()
+    if (mesh_name, arch) in TALLY_CASES:
+        for kind, n in lm_step_tally(cfg, params, batch, pm).items():
+            res[f"tally/{mesh_name}/{arch}/{kind}"] = np.asarray(n)
+
+
+def _port_vocab(pm, z, res):
+    """The vocab-parallel lookup and loss on ids outside the vocabulary:
+    ``forward``'s hidden states for BAD_TOKENS, and ``lm_loss`` for each
+    case of BAD_LABELS, the head tied and untied."""
+    import dataclasses
+
+    import torch
+    from repro_torch.distributed import (MeshAxes, lm_param_spec,
+                                         param_specs, reshard)
+    from repro_torch.distributed.tree import map_leaves
+    from repro_torch.models.lm import forward, lm_loss
+
+    cfg, _, batch = lm_inputs(z, VOCAB_ARCH)
+    for tied in (True, False):
+        c = dataclasses.replace(cfg, tie_embeddings=tied)
+        params = map_leaves(lambda _, v: torch.as_tensor(v), tree_from(
+            z, f"vocab/{int(tied)}/params/"))
+        dt = reshard(params, pm, param_specs(params, lm_param_spec,
+                                             MeshAxes(), pm))
+        toks = bad_ids(batch["tokens"], BAD_TOKENS)
+        key = f"vocab/{int(tied)}"
+        res[f"{key}/hidden"] = forward(dt, toks, c, mesh=pm)[0].numpy()
+        for name, bad in BAD_LABELS.items():
+            b = dict(batch, labels=bad_ids(batch["labels"], bad))
+            res[f"{key}/loss/{name}"] = lm_loss(
+                dt, b, c, mesh=pm)[0].detach().numpy()
+
+
+def bad_ids(ids, cases):
+    """``ids`` with the (row, col, id) ``cases`` written in."""
+    ids = ids.clone() if hasattr(ids, "clone") else ids.copy()
+    for r, c, v in cases:
+        ids[r, c] = v
+    return ids
 
 
 def _port_restore(pm, mesh_name, z, res, ckpt):
@@ -227,26 +312,31 @@ def _port_restore(pm, mesh_name, z, res, ckpt):
         mgr.close()
 
 
-def _port_serve(pm, arch, z, res):
-    """Prefill and decode with the whole parameters on every rank (each
-    cuts its experts) and the whole batch (the serving path)."""
+def serve_key(mesh_name: str, arch: str) -> str:
+    return (f"serve/{arch}" if mesh_name == SERVE_MESH
+            else f"serve/{mesh_name}/{arch}")
+
+
+def _port_serve(pm, arch, z, res, key):
+    """Prefill and decode with the parameters under ``lm_param_spec``
+    (this rank's blocks) and the whole batch (the serving path); the
+    cache's KV heads, this rank's or all."""
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.distributed.tree import map_leaves
     from repro_torch.models.lm import decode_step, prefill
 
-    cfg = get_arch(arch).make_config(reduced=True)
-    params = map_leaves(lambda _, v: torch.as_tensor(v),
-                        tree_from(z, f"lm/{arch}/params/"))
-    toks = torch.as_tensor(z[f"lm/{arch}/batch/tokens"])
+    cfg, params, batch = lm_inputs(z, arch)
+    params, toks = lm_placed(params, pm)[0], batch["tokens"]
     lg, cache = prefill(params, toks[:, :PROMPT], cfg,
                         max_len=PROMPT + DECODE + 2, mesh=pm)
+    if cfg.attn != "mla":
+        res[f"{key}/kv_heads"] = np.asarray(
+            cache["seg0"]["u0"]["k"].shape[-2])
     steps = [lg]
     for i in range(DECODE):
         lg, cache = decode_step(params, cache, toks[:, PROMPT + i], cfg,
                                 mesh=pm)
         steps.append(lg)
-    res[f"serve/{arch}"] = torch.stack(steps).numpy()
+    res[key] = torch.stack(steps).numpy()
 
 
 def _port_reshard(pm, mesh_name, z, res):
@@ -290,9 +380,11 @@ def _rank(rank, world, inputs, out, store):
                 _port_lm(pm, name, arch, z, res,
                          ckpt if (name, arch) == ("2x2", CKPT_ARCH)
                          else None)
-        if name == SERVE_MESH:
+        if name in (SERVE_MESH, SERVE_SPLIT_MESH):
             for arch in LM_ARCHS:
-                _port_serve(pm, arch, z, res)
+                _port_serve(pm, arch, z, res, serve_key(name, arch))
+        if name == VOCAB_MESH:
+            _port_vocab(pm, z, res)
         if name in RESTORE_MESHES:
             _port_restore(pm, name, z, res, ckpt)
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
@@ -351,7 +443,10 @@ def run_reference(inputs: str, out: str) -> None:
     from jax.sharding import AxisType, NamedSharding
     from jax.sharding import PartitionSpec as P
 
+    import dataclasses
+
     import repro.configs as RCF
+    from repro.distributed import sharding as RSH
     from repro.models.lm import model as RM
     from repro.models.lm import moe as RMOE
     from repro.models.lm.config import MoESpec
@@ -383,6 +478,16 @@ def run_reference(inputs: str, out: str) -> None:
         (_, (o, a)), (gp, gx) = jax.jit(jax.value_and_grad(
             loss, argnums=(0, 1), has_aux=True))(p, jnp.asarray(z["moe/x"]))
         return o, a, gx, gp
+
+    def placed(rp, mesh):
+        """``rp`` placed by the reference's ``lm_param_spec`` and its
+        zero AdamW state by ``opt_state_specs`` (ZeRO-1)."""
+        axes = RSH.MeshAxes()
+        specs = RSH.param_specs(rp, RSH.lm_param_spec, axes, mesh)
+        o = RO.adamw_init(rp)
+        ospecs = RSH.opt_state_specs(o, rp, specs, axes, mesh)
+        return (jax.device_put(rp, RSH.named(mesh, specs)),
+                jax.device_put(o, RSH.named(mesh, ospecs)))
 
     def put(key, o, a, gx, gp):
         res[f"{key}/out"] = np.asarray(o)
@@ -416,8 +521,8 @@ def run_reference(inputs: str, out: str) -> None:
 
         for arch in LM_ARCHS if name in LM_MESHES else ():
             rcfg = RCF.get_arch(arch).make_config(reduced=True)
-            rp = jax.tree.map(jnp.asarray,
-                              tree_from(z, f"lm/{arch}/params/"))
+            rp, ro = placed(jax.tree.map(jnp.asarray, tree_from(
+                z, f"lm/{arch}/params/")), mesh)
             batch = {k: jnp.asarray(z[f"lm/{arch}/batch/{k}"])
                      for k in ("tokens", "labels")}
             act = P(("data",), None, None)
@@ -435,8 +540,7 @@ def run_reference(inputs: str, out: str) -> None:
             # the reference's train step at grad_accum 1: these
             # gradients, then adamw_update
             p1, o1, m = jax.jit(lambda g, o, p: RO.adamw_update(
-                RO.AdamWConfig(**ADAMW), g, o, p))(grads,
-                                                   RO.adamw_init(rp), rp)
+                RO.AdamWConfig(**ADAMW), g, o, p))(grads, ro, rp)
             res[f"{key}/step/loss"] = np.asarray(loss)
             res[f"{key}/step/grad_norm"] = np.asarray(m["grad_norm"])
             for path, v in jax.tree_util.tree_flatten_with_path(
@@ -448,18 +552,18 @@ def run_reference(inputs: str, out: str) -> None:
                                             act_spec=act),
                     RO.AdamWConfig(**ADAMW), grad_accum=ACCUM[2])
                 with jax.set_mesh(mesh):
-                    p2, o2, m = jax.jit(step)(rp, RO.adamw_init(rp), batch)
+                    p2, o2, m = jax.jit(step)(rp, ro, batch)
                 res[f"{key}/accum/loss"] = np.asarray(m["loss"])
                 res[f"{key}/accum/grad_norm"] = np.asarray(m["grad_norm"])
                 for path, v in jax.tree_util.tree_flatten_with_path(
                         {"params": p2, "opt": o2})[0]:
                     res[f"{key}/accum/{_path(path)}"] = np.asarray(v)
 
-        if name == SERVE_MESH:
+        if name in (SERVE_MESH, SERVE_SPLIT_MESH):
             for arch in LM_ARCHS:
                 rcfg = RCF.get_arch(arch).make_config(reduced=True)
-                rp = jax.tree.map(jnp.asarray,
-                                  tree_from(z, f"lm/{arch}/params/"))
+                rp = placed(jax.tree.map(jnp.asarray, tree_from(
+                    z, f"lm/{arch}/params/")), mesh)[0]
                 toks = jnp.asarray(z[f"lm/{arch}/batch/tokens"])
                 lg, cache = jax.jit(lambda p, t: RM.prefill(
                     p, t, rcfg, max_len=PROMPT + DECODE + 2, mesh=mesh))(
@@ -470,7 +574,32 @@ def run_reference(inputs: str, out: str) -> None:
                 for i in range(DECODE):
                     lg, cache = dec(rp, cache, toks[:, PROMPT + i])
                     steps.append(np.asarray(lg))
-                res[f"serve/{arch}"] = np.stack(steps)
+                res[serve_key(name, arch)] = np.stack(steps)
+
+        if name == VOCAB_MESH:
+            rcfg = RCF.get_arch(VOCAB_ARCH).make_config(reduced=True)
+            batch = {k: z[f"lm/{VOCAB_ARCH}/batch/{k}"]
+                     for k in ("tokens", "labels")}
+            act = P(("data",), None, None)
+            for tied in (True, False):
+                c = dataclasses.replace(rcfg, tie_embeddings=tied)
+                rp = placed(jax.tree.map(jnp.asarray, tree_from(
+                    z, f"vocab/{int(tied)}/params/")), mesh)[0]
+                key = f"vocab/{int(tied)}"
+                with jax.set_mesh(mesh):
+                    res[f"{key}/hidden"] = np.asarray(jax.jit(
+                        lambda p, t: RM.forward(p, t, c, mesh=mesh,
+                                                act_spec=act)[0])(
+                        rp, jnp.asarray(bad_ids(batch["tokens"],
+                                                BAD_TOKENS))))
+                    for bname, bad in BAD_LABELS.items():
+                        b = {"tokens": jnp.asarray(batch["tokens"]),
+                             "labels": jnp.asarray(bad_ids(
+                                 batch["labels"], bad))}
+                        res[f"{key}/loss/{bname}"] = np.asarray(jax.jit(
+                            lambda p, b: RM.lm_loss(p, b, c, mesh=mesh,
+                                                    act_spec=act)[0])(
+                            rp, b))
 
     # the autograd check's two model ranks, and R13's two data shards
     put("trap", *moe_grads(mesh_of(TRAP_MESH), 1, BALANCE[1]))
