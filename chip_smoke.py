@@ -373,8 +373,19 @@ not beside this script, it exits with code 2 and prints no result.
            (22.5 GB, after the ranks exit: its ms and peak) within 1e-2
            relative in norm; then one NCCL rank on a (1, 1) mesh, bit
            for bit equal to no mesh, and NCCL refusing two ranks on one
-           card.  gloo through the host on one card: no estimate of a
-           multi-card run
+           card.  The GNN and DIN families under ``mlp_param_spec``
+           (``mlp_reduced``): the reduced SchNet, DimeNet, GraphCast and
+           EquiformerV2 on one graph (nodes and edges split over
+           ``data``) and on the launcher's molecules, and the reduced
+           DIN, one AdamW step each on (1, 4) and (2, 2), on the card
+           against the CPU ranks and the card without a mesh within
+           1e-6 (1 + |CPU|); DIN's train_batch and GraphCast's
+           full_graph_sm at their published widths on (2, 2)
+           (``mlp_full``): ms a step on the slowest rank against one
+           process, the collective share, the tally (equal to the
+           counting mesh's), each rank's peak, loss and gradients
+           against one process.  gloo through the host on one card: no
+           estimate of a multi-card run
   timers   the profiler's retries (a window with no device rows, or a
            row whose count is not a multiple of the calls, is profiled
            again), every time taken with CUDA events because no try was
@@ -411,6 +422,13 @@ every checkout of the port makes alike; phase ``build`` first, for the
 checkout's ``ptxas`` lines.
 Run it for two checkouts in turns (parent, change, change, parent) in
 one call to compare them on one card.
+
+    python3 chip_smoke.py --ab-gnn SRC
+
+runs only phase ``ab_gnn`` with the package under ``SRC``: SchNet's and
+DimeNet's molecule steps at published widths (``gnn_cell``,
+AB_GNN_STEPS timed after GNN_WARMUP, a new batch each), the host-bound
+cells where a change to the models' Python shows; in turns as ``--ab``.
 """
 
 from __future__ import annotations
@@ -4861,6 +4879,8 @@ GNN_NOISE = 1e-6
 GNN_CELLS = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_WARMUP = 2
 GNN_STEPS = 5
+AB_GNN_ARCHS = ("schnet", "dimenet")   # --ab-gnn's molecule steps
+AB_GNN_STEPS = 20
 GNN_SEED = 3
 GNN_FANOUTS = (15, 10)
 GNN_SEEDS = 1024       # minibatch_lg's seed nodes a step
@@ -5284,6 +5304,33 @@ def gnn_example():
             "seconds": round(time.perf_counter() - t0, 3)}
 
 
+def molecule_graphs(n):
+    """``n`` batches of the molecule cell (seed GNN_SEED), every node
+    real, in ``gnn_cell``'s form."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data import molecule_batches
+
+    ms = GNN_SHAPES["molecule"]
+    mol = molecule_batches(ms["n"], ms["e"], ms["batch"], seed=GNN_SEED)
+    return [(dict(b, node_mask=np.ones(b["pos"].shape[:2], bool)), None,
+             None) for b in (next(mol) for _ in range(n))]
+
+
+def phase_ab_gnn(src):
+    """``--ab-gnn SRC``: each of AB_GNN_ARCHS' molecule steps (``gnn_cell``)
+    with the ``repro_torch`` package under ``src``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    graphs = molecule_graphs(GNN_WARMUP + AB_GNN_STEPS)
+    for arch in AB_GNN_ARCHS:
+        rec = gnn_cell(arch, "molecule", torch.device(DEVICE), graphs,
+                       prof=False)
+        emit("ab_gnn", src=src, arch=arch, ms=rec["ms_per_step"],
+             ms_median=rec["ms_per_step_median"], losses=rec["losses"])
+
+
 def phase_gnn(ks, card):
     """The GNN family on the card, float32 products without TF32: the
     four reduced configs against the CPU (``gnn_small_case``); each at
@@ -5295,8 +5342,6 @@ def phase_gnn(ks, card):
     on SchNet.  No kernel of the port lies on this path: the counts are
     reset before and read after."""
     import torch
-    from repro_torch.configs.base import GNN_SHAPES
-    from repro_torch.data import molecule_batches
 
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5307,11 +5352,7 @@ def phase_gnn(ks, card):
     t1 = time.perf_counter()
     csr = products_csr()
     t_csr = time.perf_counter() - t1
-    ms = GNN_SHAPES["molecule"]
-    mol = molecule_batches(ms["n"], ms["e"], ms["batch"], seed=GNN_SEED)
-    graphs = {"molecule": [
-        (dict(b, node_mask=np.ones(b["pos"].shape[:2], bool)), None, None)
-        for b in (next(mol) for _ in range(GNN_WARMUP + GNN_STEPS))]}
+    graphs = {"molecule": molecule_graphs(GNN_WARMUP + GNN_STEPS)}
     cells, host_s = {}, {}
     for arch in GNN_ARCHS:
         for cell in GNN_CELLS:
@@ -5562,6 +5603,33 @@ MESH_TP_GRAD_TOL = 5e-2   # each gradient leaf's block, relative in norm:
 #                           beside it
 
 
+# the GNN and DIN families under mlp_param_spec: each reduced config one
+# AdamW step (the launcher's data: 8 molecules of 12 atoms, DIN's 64
+# rows; and for each GNN one graph of MESH_MLP_GRAPH's nodes and edges,
+# its nodes and edges split over data) as four gloo ranks on each mesh of
+# MESH_SHAPES, on the card and on the CPU, and on the card without a mesh
+MESH_MLP_ARCHS = ("schnet", "dimenet", "graphcast", "equiformer-v2", "din")
+MESH_MLP_GRAPH = dict(n=64, e=192, n_pad=16, d_feat=8, triplets=512)
+MESH_MLP_TOL = 1e-6    # the card's ranks against the CPU ranks and against
+#                        the card without a mesh: loss, grad_norm and every
+#                        parameter after the step within MESH_MLP_TOL
+#                        (1 + |CPU|)
+# at published widths on (2, 2): DIN's train_batch (1,000,000 items,
+# B = 65,536) and GraphCast's full_graph_sm (d 512, 16 layers, 3,072 nodes
+# and 10,752 edges of Cora's shape, f = 1,433), one forward and backward
+# held against one process, then an untimed AdamW step, MESH_MLP_ITERS
+# timed ones (the median reported, in one process alike) and one with
+# every collective timed
+MESH_MLP_FULL = (("din", "train_batch"), ("graphcast", "full_graph_sm"))
+MESH_MLP_FULL_MESH = (2, 2)
+MESH_MLP_ITERS = 3
+MESH_MLP_SEED = 11
+MESH_MLP_LOSS_TOL = 1e-5   # the ranks' loss against one process, relative
+MESH_MLP_GRAD_TOL = 1e-4   # each gradient leaf's block, relative in norm
+#                            (float32 on both sides, summed in other
+#                            orders: the phase train bound on DIN)
+
+
 def mesh_gen(dev, i):
     """The full layer's generator number ``i`` (expert e: ``i = e``; the
     router, the shared expert, x and the output's cotangent after the
@@ -5701,22 +5769,20 @@ def mesh_train(arch, dev, pm, ckpt=None):
     after is saved there (every rank calls it)."""
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.configs.base import train_state
     from repro_torch.data import lm_batches
-    from repro_torch.distributed import save_checkpoint
+    from repro_torch.distributed import lm_param_spec, save_checkpoint
     from repro_torch.distributed import collectives as CO
     from repro_torch.distributed.tree import walk
     from repro_torch.models.lm import init_params, lm_loss
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train import AdamWConfig, make_train_step
 
     cfg = get_arch(arch).make_config(reduced=True)
     state = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
     b = next(lm_batches(cfg.vocab, MESH_BATCH["seq"], MESH_BATCH["batch"],
                         seed=1))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
-    if pm is None:
-        opt = adamw_init(state)
-    else:
-        state, opt = mesh_placed(state, pm)
+    state, opt = train_state(state, lm_param_spec, pm)
     step = make_train_step(lambda p, bb: lm_loss(p, bb, cfg, mesh=pm),
                            AdamWConfig(), mesh=pm)
     rec = {"loss": [], "grad_norm": []}
@@ -5728,20 +5794,6 @@ def mesh_train(arch, dev, pm, ckpt=None):
     if ckpt is not None:
         save_checkpoint(ckpt, MESH_STEPS, {"params": state, "opt": opt})
     return rec
-
-
-def mesh_placed(params, pm):
-    """``params`` ``reshard``ed by ``lm_param_spec`` onto ``pm`` and a
-    zero AdamW state placed by ``opt_state_specs`` (ZeRO-1)."""
-    from repro_torch.distributed import (MeshAxes, lm_param_spec,
-                                         opt_state_specs, param_specs,
-                                         reshard)
-    from repro_torch.train import adamw_init
-
-    specs = param_specs(params, lm_param_spec, MeshAxes(), pm)
-    opt = adamw_init(params)
-    return reshard(params, pm, specs), reshard(opt, pm, opt_state_specs(
-        opt, params, specs, MeshAxes(), pm))
 
 
 def mesh_tp_config():
@@ -5774,19 +5826,13 @@ def mesh_tp_inputs(dev):
 def mesh_tp_grads(params, batch, cfg, pm):
     """(loss, {path: gradient}) of ``lm_loss`` on this rank's leaves (its
     rows of the batch under ``pm``)."""
-    import torch
     from repro_torch.distributed import collectives as CO
-    from repro_torch.distributed.tree import map_leaves
     from repro_torch.models.lm import lm_loss
 
-    xs = {}
-    loc = map_leaves(lambda k, v: xs.setdefault(
-        k, CO.local(v).detach().requires_grad_(True)), params)
     if pm is not None:
         batch = {k: CO.rows_of(v, pm, "data") for k, v in batch.items()}
-    loss, _ = lm_loss(loc, batch, cfg, mesh=pm)
-    gs = torch.autograd.grad(loss, list(xs.values()))
-    return float(loss.detach()), dict(zip(xs, gs))
+    return mesh_grads(lambda p, b: lm_loss(p, b, cfg, mesh=pm), params,
+                      batch)
 
 
 # the crossings' plain forms, timed one by one for a step's collective share
@@ -5800,17 +5846,17 @@ def mesh_tp_counted(mesh=None):
     bytes by kind (what each live rank's tally must equal)."""
     import torch
     from repro_torch.analysis.op_stats import OpStats
+    from repro_torch.configs.base import train_state
+    from repro_torch.distributed import lm_param_spec
     from repro_torch.distributed.collectives import CountingMesh
     from repro_torch.models.lm import lm_loss, param_shapes
-    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train import AdamWConfig, make_train_step
 
     if mesh is None:
         mesh = dict(zip(("data", "model"), MESH_TP["mesh"]))
     cfg = mesh_tp_config()
     cm = CountingMesh(mesh) if mesh else None
-    params = param_shapes(cfg)
-    state, opt = (mesh_placed(params, cm) if cm is not None
-                  else (params, adamw_init(params)))
+    state, opt = train_state(param_shapes(cfg), lm_param_spec, cm)
     batch = {k: torch.empty((MESH_TP["batch"], MESH_TP["seq"]),
                             dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
@@ -5829,18 +5875,21 @@ def mesh_tp_rank(dev, pm, out_dir):
     MESH_TP_ITERS timed AdamW steps (host clock around synchronised
     steps, started together after a barrier), then one step with every
     collective timed (synchronised before and after) and its bytes
-    tallied by kind."""
+    tallied by kind (``mesh_timed``); its peak and the bytes the rank
+    held before its inputs."""
     import torch
     import torch.distributed as dist
-    from repro_torch.distributed import collectives as CO
+    from repro_torch.configs.base import train_state
+    from repro_torch.distributed import lm_param_spec
     from repro_torch.models.lm import lm_loss
     from repro_torch.train import AdamWConfig, make_train_step
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = int(torch.cuda.memory_allocated(dev))
     cfg, params, batch = mesh_tp_inputs(dev)
-    state, opt = mesh_placed(params, pm)
+    state, opt = train_state(params, lm_param_spec, pm)
     del params
     torch.cuda.empty_cache()
     loss, grads = mesh_tp_grads(state, batch, cfg, pm)
@@ -5852,9 +5901,39 @@ def mesh_tp_rank(dev, pm, out_dir):
                            AdamWConfig(), mesh=pm)
     peak = int(torch.cuda.max_memory_allocated(dev))
     torch.cuda.reset_peak_memory_stats(dev)
+    carry = [state, opt]
+    del state, opt
+    met, timed = mesh_timed(step, carry, batch, MESH_TP_ITERS)
+    rec = {"loss": loss, **timed,
+           "peak_bytes": max(peak, int(torch.cuda.max_memory_allocated(
+               dev))),
+           "step_peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+           "base_bytes": base, "step_loss": float(met["loss"])}
+    del batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_timed(step, carry, batch, iters):
+    """An untimed warm-up step and ``iters`` timed steps of a process
+    mesh's ranks (host clock around synchronised steps, started together
+    after a barrier), then one step with every collective timed
+    (synchronised before and after) and its bytes tallied by kind: (the
+    last step's metrics, {ms, collective_ms, instrumented_ms,
+    collective_share, tally}).  ``carry`` is ``[state, opt]``, emptied
+    here: with no reference left in the caller, each step's inputs are
+    freed as it returns, so the peak is a training loop's (a caller
+    holding the first state keeps a second copy of the parameters and
+    moments alive through every step)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as CO
+
+    state, opt = carry
+    carry.clear()
     state, opt, met = step(state, opt, batch)                # warm-up
     ms = []
-    for _ in range(MESH_TP_ITERS):
+    for _ in range(iters):
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5887,16 +5966,10 @@ def mesh_tp_rank(dev, pm, out_dir):
     finally:
         for n, fn in plain.items():
             setattr(CO, n, fn)
-    rec = {"loss": loss, "ms": ms, "collective_ms": spent[0] * 1e3,
-           "instrumented_ms": whole * 1e3,
-           "collective_share": spent[0] / whole, "tally": tally.bytes,
-           "peak_bytes": max(peak, int(torch.cuda.max_memory_allocated(
-               dev))),
-           "step_peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
-           "step_loss": float(met["loss"])}
-    del state, opt, batch
-    torch.cuda.empty_cache()
-    return rec
+    return met, {
+        "ms": ms, "collective_ms": spent[0] * 1e3,
+        "instrumented_ms": whole * 1e3, "collective_share": spent[0] / whole,
+        "tally": tally.bytes}
 
 
 def mesh_tp_plain(dev, out_dir, ranks):
@@ -5979,6 +6052,297 @@ def mesh_tp_plain(dev, out_dir, ranks):
     return rec
 
 
+MESH_MLP_ADAMW = dict(lr=1e-3, warmup_steps=1, clip_norm=1.0, eps=1e-3)
+# the reduced cases' AdamW (the CPU tests'): eps 1e-3 bounds a leaf's step
+# by lr |g| / eps where its gradient is rounding noise (EquiformerV2's last
+# attention biases, zero in exact arithmetic), so the step compares
+
+
+def mesh_mlp_cells(arch):
+    return ("train",) if arch == "din" else ("graph", "molecule")
+
+
+def mesh_mlp_graph(arch, cfg):
+    """One graph of MESH_MLP_GRAPH's nodes and edges as host arrays (the
+    last ``n_pad`` edges masked 0 -> 0, the last node masked), seeded:
+    features (GraphCast: ``n_vars`` and a target), an energy, DimeNet's
+    triplets."""
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    g = MESH_MLP_GRAPH
+    n, e = g["n"], g["e"]
+    rng = np.random.default_rng(MESH_MLP_SEED)
+    src = rng.integers(0, n, e)
+    dst = (src + 1 + rng.integers(0, n - 1, e)) % n
+    src[e - g["n_pad"]:] = dst[e - g["n_pad"]:] = 0
+    b = {"pos": rng.standard_normal((n, 3)).astype(np.float32) * 1.5,
+         "edge_src": src.astype(np.int32), "edge_dst": dst.astype(np.int32),
+         "edge_mask": np.arange(e) < e - g["n_pad"],
+         "node_mask": np.arange(n) < n - 1}
+    f = cfg.n_vars if arch == "graphcast" else cfg.d_feat
+    b["feat"] = rng.standard_normal((n, f)).astype(np.float32)
+    if arch == "graphcast":
+        b["target"] = b["feat"] * np.float32(0.9)
+    else:
+        b["energy"] = np.float32(rng.standard_normal())
+    if arch == "dimenet":
+        b.update(zip(("id_kj", "id_ji", "triplet_mask"),
+                     build_triplets(src, dst, n, g["triplets"])))
+    return b
+
+
+def mesh_mlp_case(arch, cell, dev):
+    """A reduced case on ``dev``: (loss function of a mesh, parameters,
+    batch, batch specs of a mesh).  The launcher's data and parameters
+    (``launch.train.build``: seed 0; GraphCast's target 0.9 times its
+    features, as the launcher's loss takes it), or one graph
+    (``mesh_mlp_graph``) with parameters from a CPU generator (seed 0),
+    the non-GraphCast models with a feature encoder; the loss and specs
+    are the cells' own (``configs.base``)."""
+    import torch
+    from repro_torch.configs import base as CB
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as LT
+    from repro_torch.models.recsys import din
+
+    cfg = get_arch(arch).make_config(reduced=True)
+    if arch == "din":
+        params, _, data, to_dev = LT.build("din", device=dev)
+        return ((lambda mesh: lambda p, b: (din.loss_fn(p, b, cfg, mesh),
+                                            {})),
+                params, to_dev(next(data)), lambda mesh: None)
+    mod = gnn_module(arch)
+    if cell == "molecule":
+        params, _, data, to_dev = LT.build(arch, device=dev)
+        b = to_dev(next(data))
+        if arch == "graphcast":
+            b["target"] = b["feat"] * 0.9
+            b.pop("energy")
+    else:
+        if arch != "graphcast":
+            cfg = dataclasses.replace(cfg, d_feat=MESH_MLP_GRAPH["d_feat"])
+        params = mod.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device=dev)
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in mesh_mlp_graph(arch, cfg).items()}
+    batched = cell == "molecule"
+    return ((lambda mesh: CB._gnn_loss(arch, mod, cfg, batched, mesh)),
+            params, b, lambda mesh: CB.gnn_batch_specs(b, batched, mesh))
+
+
+def mesh_mlp_train(arch, cell, dev, pm):
+    """One AdamW step (MESH_MLP_ADAMW) of a reduced case on ``dev``:
+    under the process mesh ``pm`` its parameters resharded by
+    ``mlp_param_spec`` and the moments by ``opt_state_specs`` (ZeRO-1),
+    the batch cut by the cell's specs; without one (``pm`` None) the
+    single-process step.  The loss, global grad norm and the parameters
+    after (this rank's shards)."""
+    from repro_torch.configs.base import train_state
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed import mlp_param_spec
+    from repro_torch.distributed.tree import walk
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    loss_of, params, batch, specs_of = mesh_mlp_case(arch, cell, dev)
+    params, opt = train_state(params, mlp_param_spec, pm)
+    step = make_train_step(loss_of(pm), AdamWConfig(**MESH_MLP_ADAMW),
+                           mesh=pm,
+                           batch_specs=None if pm is None else specs_of(pm))
+    state, opt, met = step(params, opt, batch)
+    return {"loss": [float(met["loss"])],
+            "grad_norm": [float(met["grad_norm"])],
+            "params": {k: CO.local(v).detach().cpu()
+                       for k, v in walk(state)}}
+
+
+def mesh_mlp_full_inputs(arch, shape, dev):
+    """A published-width case on ``dev``: (its cell, config, parameters
+    from a CPU generator (MESH_MLP_SEED), batch, loss function of a
+    mesh, batch specs of a mesh).  DIN's ``train_batch``: one
+    ``din_batches`` batch of 65,536 rows; GraphCast's ``full_graph_sm``:
+    phase gnn's graph of step 0 (``gnn_graph``, ``gnn_batch``)."""
+    import torch
+    from repro_torch.configs import base as CB
+    from repro_torch.configs import get_arch
+    from repro_torch.data import din_batches
+    from repro_torch.models.recsys import din
+
+    spec = get_arch(arch)
+    gen = torch.Generator().manual_seed(MESH_MLP_SEED)
+    if arch == "din":
+        cfg = spec.make_config()
+        b = next(din_batches(cfg.n_items, cfg.n_cates, cfg.seq_len,
+                             CB.RECSYS_SHAPES[shape]["batch"],
+                             seed=MESH_MLP_SEED))
+        return (spec.cells[shape], cfg,
+                din.init_params(gen, cfg, device=dev),
+                {k: torch.as_tensor(v, device=dev) for k, v in b.items()},
+                lambda mesh: lambda p, bb: (din.loss_fn(p, bb, cfg, mesh),
+                                            {}),
+                lambda mesh: None)
+    s = CB.GNN_SHAPES[shape]
+    cfg = spec.make_config(d_feat=s["f"], shape=shape)
+    mod = gnn_module(arch)
+    g, E, _ = gnn_graph(shape, 0, None, None)
+    b = {k: torch.as_tensor(v, device=dev)
+         for k, v in gnn_batch(arch, g, E, 0).items()}
+    return (spec.cells[shape], cfg, mod.init_params(gen, cfg, device=dev), b,
+            lambda mesh: CB._gnn_loss(arch, mod, cfg, False, mesh),
+            lambda mesh: CB.gnn_batch_specs(b, False, mesh))
+
+
+def mesh_grads(loss_fn, params, batch):
+    """(loss, {path: gradient}) of ``loss_fn`` on this rank's leaves."""
+    import torch
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed.tree import map_leaves
+
+    xs = {}
+    loc = map_leaves(lambda k, v: xs.setdefault(
+        k, CO.local(v).detach().requires_grad_(True)), params)
+    loss, _ = loss_fn(loc, batch)
+    gs = torch.autograd.grad(loss, list(xs.values()))
+    return float(loss.detach()), dict(zip(xs, gs))
+
+
+def mesh_mlp_full_rank(dev, pm, out_dir):
+    """This rank's share of each MESH_MLP_FULL case on (2, 2): its loss
+    and gradient blocks (summed over ``data``; saved for the parent), a
+    warm-up and MESH_MLP_ITERS timed AdamW steps and one step with every
+    collective timed and tallied (``mesh_timed``); its peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import train_state
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed import mlp_param_spec
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    out = {}
+    for arch, shape in MESH_MLP_FULL:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, params, batch, loss_of, specs_of = mesh_mlp_full_inputs(
+            arch, shape, dev)
+        state, opt = train_state(params, mlp_param_spec, pm)
+        del params
+        specs = specs_of(pm)
+        blk = {k: (CO.rows_of(v, pm) if specs is None
+                   else CO.block(v, pm, specs[k])) for k, v in batch.items()}
+        loss, grads = mesh_grads(loss_of(pm), state, blk)
+        torch.save({"loss": loss, "grads": {
+            k: CO.all_reduce(g, pm, "data").cpu() for k, g in grads.items()}},
+            os.path.join(out_dir, f"mlp{dist.get_rank()}_{arch}.pt"))
+        del grads, blk
+        step = make_train_step(loss_of(pm), AdamWConfig(), mesh=pm,
+                               batch_specs=specs)
+        carry = [state, opt]
+        del state, opt
+        met, timed = mesh_timed(step, carry, batch, MESH_MLP_ITERS)
+        out[arch] = {"shape": shape, "loss": loss, **timed,
+                     "step_loss": float(met["loss"]),
+                     "peak_bytes": int(torch.cuda.max_memory_allocated(dev))}
+        del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_mlp_counted(arch, shape, mesh):
+    """The cell's step counted on meta for rank 0 of ``mesh`` on a
+    counting mesh (``Cell.build``), or in one process with ``mesh`` {}:
+    FLOPs, unfused bytes and the collectives' bytes by kind (what each
+    live rank's tally must equal)."""
+    from repro_torch.analysis.op_stats import OpStats
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.collectives import CountingMesh
+
+    fn, args = get_arch(arch).cells[shape].build(
+        CountingMesh(mesh) if mesh else None)
+    with OpStats() as st:
+        fn(*args)
+    stats = st.stats()
+    return {"flops": stats["flops"], "bytes": stats["bytes"],
+            "collectives": stats["collectives"]}
+
+
+def mesh_mlp_full_plain(dev, out_dir, ranks):
+    """Each MESH_MLP_FULL case in one process on the card: its loss and
+    gradients against the ranks' (each rank's block, relative in norm),
+    its AdamW step's ms (a warm-up and MESH_MLP_ITERS timed, as the
+    ranks') and peak (above what the process held before); the ranks'
+    tallies against the counting mesh's."""
+    import torch
+    from repro_torch.distributed import MeshAxes, mlp_param_spec
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+
+    dp, tp = MESH_MLP_FULL_MESH
+    out = {}
+    for arch, shape in MESH_MLP_FULL:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = int(torch.cuda.memory_allocated(dev))
+        cell, cfg, params, batch, loss_of, _ = mesh_mlp_full_inputs(
+            arch, shape, dev)
+        loss, grads = mesh_grads(loss_of(None), params, batch)
+        got = [torch.load(os.path.join(out_dir, f"mlp{r}_{arch}.pt"))
+               for r in range(dp * tp)]
+        worst = (0.0, "")
+        for k, g in grads.items():
+            spec = mlp_param_spec(k, tuple(g.shape), MeshAxes(), tp)
+            for r, res in enumerate(got):
+                want = spec_block(g, spec, divmod(r, tp), (dp, tp))
+                a = res["grads"][k].to(dev).double()
+                err = float((a - want.double()).norm()
+                            / want.double().norm().clamp(min=1e-30))
+                if err > worst[0]:
+                    worst = (err, f"{k} rank {r}")
+        del grads, got
+        step = make_train_step(loss_of(None), AdamWConfig())
+        opt = adamw_init(params)
+        ms = []
+        for i in range(1 + MESH_MLP_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        rank_recs = [r["mlp"][arch] for r in ranks]
+        rec = {"arch": arch, "shape": shape, "mesh": [dp, tp],
+               "ranks": rank_recs,
+               "ms_slowest_rank": max(float(np.median(r["ms"]))
+                                      for r in rank_recs),
+               "collective_share": max(r["collective_share"]
+                                       for r in rank_recs),
+               "tally": rank_recs[0]["tally"],
+               "peak_bytes": [r["peak_bytes"] for r in rank_recs],
+               "plain_ms": ms, "plain_ms_median": float(np.median(ms)),
+               "plain_peak_bytes": int(
+                   torch.cuda.max_memory_allocated(dev)) - base,
+               "loss_plain": loss,
+               "loss_rel_err": max(abs(r["loss"] - loss) / abs(loss)
+                                   for r in rank_recs),
+               "grad_rel_err": worst,
+               "loss_tolerance": MESH_MLP_LOSS_TOL,
+               "grad_tolerance": MESH_MLP_GRAD_TOL,
+               "counted": {"rank 0": mesh_mlp_counted(
+                   arch, shape, {"data": dp, "model": tp}),
+                   "one process": mesh_mlp_counted(arch, shape, {})}}
+        del params, opt, batch
+        torch.cuda.empty_cache()
+        if any(r["tally"] != rec["counted"]["rank 0"]["collectives"]
+               for r in rank_recs):
+            raise AssertionError(f"{arch} {shape}: a rank's collective "
+                                 f"tally != the counting mesh's")
+        if rec["loss_rel_err"] > MESH_MLP_LOSS_TOL \
+                or worst[0] > MESH_MLP_GRAD_TOL:
+            raise AssertionError(f"{arch} {shape} on 4 ranks != one "
+                                 f"process: {rec}")
+        out[arch] = rec
+    return out
+
+
 def mesh_rank(rank, world, store, out_dir):
     """One of phase mesh's gloo ranks, all four on the card: the reduced
     configs on each mesh of MESH_SHAPES on the card (the (2, 2) llama4
@@ -6005,14 +6369,60 @@ def mesh_rank(rank, world, store, out_dir):
                         if (where, dp, tp, arch) == MESH_CKPT else None)
                 res[f"{where} {dp}x{tp} {arch}"] = mesh_train(arch, d, pm,
                                                               ckpt)
+            t0 = time.perf_counter()
+            for arch in MESH_MLP_ARCHS:
+                for cell in mesh_mlp_cells(arch):
+                    res[f"{where} {dp}x{tp} {arch} {cell}"] = \
+                        mesh_mlp_train(arch, cell, d, pm)
+            res["mlp_reduced_seconds"] = res.get(
+                "mlp_reduced_seconds", 0.0) + time.perf_counter() - t0
     res["full"] = mesh_full_rank(dev, make_process_mesh(
         *MESH_FULL["mesh"], dev), out_dir)
     res["tp"] = mesh_tp_rank(dev, make_process_mesh(*MESH_TP["mesh"], dev),
                              out_dir)
+    t0 = time.perf_counter()
+    res["mlp"] = mesh_mlp_full_rank(dev, make_process_mesh(
+        *MESH_MLP_FULL_MESH, dev), out_dir)
+    res["mlp_full_seconds"] = time.perf_counter() - t0
     res["kernel_launches"] = ks.counts()
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_mlp_reduced(dev, ranks):
+    """The reduced GNN and DIN cases: each rank's step on the card
+    against the same rank's on the CPU, and against the card without a
+    mesh (each rank's blocks of its parameters by ``mlp_param_spec``),
+    within MESH_MLP_TOL (1 + |want|)."""
+    from repro_torch.distributed import MeshAxes, mlp_param_spec
+
+    out = []
+    for arch in MESH_MLP_ARCHS:
+        for cell in mesh_mlp_cells(arch):
+            plain = mesh_mlp_train(arch, cell, dev, None)
+            for dp, tp in MESH_SHAPES:
+                key = f"{dp}x{tp} {arch} {cell}"
+                errs = []
+                for r, res in enumerate(ranks):
+                    want = dict(plain, params={
+                        k: spec_block(v, mlp_param_spec(
+                            k, tuple(v.shape), MeshAxes(), tp),
+                            divmod(r, tp), (dp, tp))
+                        for k, v in plain["params"].items()})
+                    errs.append(mesh_err(res["card " + key], want))
+                rec = {"arch": arch, "cell": cell, "mesh": [dp, tp],
+                       "loss_card": ranks[0]["card " + key]["loss"],
+                       "loss_cpu": ranks[0]["cpu " + key]["loss"],
+                       "err_vs_cpu": max(mesh_err(r["card " + key],
+                                                  r["cpu " + key])
+                                         for r in ranks),
+                       "err_vs_plain": max(errs)}
+                out.append(rec)
+                if max(rec["err_vs_cpu"], rec["err_vs_plain"]) \
+                        > MESH_MLP_TOL:
+                    raise AssertionError(f"mesh {key}: {rec}")
+    return out
 
 
 def spec_block(full, spec, coord, shape):
@@ -6128,9 +6538,13 @@ def phase_mesh(ks, card):
     ranks and read back; DeepSeek-V3's MoE layer at its published widths
     on (1, 4) against the layer without a mesh; gemma2-2b's two
     full-width layers on (1, 4) (ms a step on the slowest rank, the
-    collective share and bytes by kind, peaks) against one process; then
-    one NCCL rank on a (1, 1) mesh, bit for bit equal to no mesh, and
-    NCCL refusing two ranks on one card.  No kernel of the port lies on this path: the counts are
+    collective share and bytes by kind, peaks) against one process; the
+    GNN and DIN families under ``mlp_param_spec`` (ZeRO-1 moments): the
+    reduced configs one step each on (1, 4) and (2, 2) against the CPU
+    ranks and the card without a mesh, DIN's train_batch and GraphCast's
+    full_graph_sm at published widths on (2, 2) against one process;
+    then one NCCL rank on a (1, 1) mesh, bit for bit equal to no mesh,
+    and NCCL refusing two ranks on one card.  No kernel of the port lies on this path: the counts are
     reset before and read after, in this process and in each rank, and
     their sum is the phase's."""
     import shutil
@@ -6183,6 +6597,9 @@ def phase_mesh(ks, card):
             if max(rec["err_vs_cpu"], rec.get("err_vs_plain", 0)) \
                     > MESH_TOL:
                 raise AssertionError(f"mesh {key}: {rec}")
+    t_mlp = time.perf_counter()
+    mlp_reduced = mesh_mlp_reduced(dev, ranks)
+    t_mlp = time.perf_counter() - t_mlp
     ckpt = mesh_checkpoint(ranks, tmp)
     full = {"config": "deepseek-v3-671b MoE FFN, bf16", **MESH_FULL,
             "reduced": MESH_FULL_CUT, "tolerance": MESH_FULL_TOL,
@@ -6211,6 +6628,9 @@ def phase_mesh(ks, card):
         raise AssertionError("a rank's collective tally != the counting "
                              "mesh's")
     tp_rec.update(mesh_tp_plain(dev, tmp, ranks))
+    t3 = time.perf_counter()
+    mlp_full = mesh_mlp_full_plain(dev, tmp, ranks)
+    t_mlp += time.perf_counter() - t3
     t2 = time.perf_counter()
 
     # one NCCL rank: the same training arm on a (1, 1) mesh
@@ -6250,6 +6670,14 @@ def phase_mesh(ks, card):
             "reduced_vs_cpu": reduced, "tolerance": MESH_TOL,
             "steps": MESH_STEPS, "batch": MESH_BATCH, "full": full,
             "tensor_parallel": tp_rec, "checkpoint": ckpt,
+            "mlp_reduced": mlp_reduced, "mlp_tolerance": MESH_MLP_TOL,
+            "mlp_adamw": MESH_MLP_ADAMW, "mlp_full": mlp_full,
+            "mlp_seconds": {  # the GNN and DIN work: in the slowest
+                # rank, and in this process after the ranks
+                "ranks_reduced": max(r["mlp_reduced_seconds"]
+                                     for r in ranks),
+                "ranks_full": max(r["mlp_full_seconds"] for r in ranks),
+                "compare": round(t_mlp, 3)},
             "nccl": {"mesh": [1, 1], "bit_equal_to_no_mesh": bit_equal,
                      "refuses_two_ranks_on_one_card": refused},
             "kernel_launches": launched,
@@ -6563,7 +6991,11 @@ def main() -> int:
     ap.add_argument("--ab", metavar="SRC",
                     help="time K1-K7, K9, K10 and DIN's serving with "
                          "the package under SRC only (phase_ab)")
+    ap.add_argument("--ab-gnn", metavar="SRC",
+                    help="time SchNet's and DimeNet's molecule steps with "
+                         "the package under SRC only (phase_ab_gnn)")
     a = ap.parse_args()
+    src = a.ab or a.ab_gnn
     try:
         import torch
     except ImportError as e:
@@ -6573,7 +7005,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script runs on a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.abspath(a.ab) if a.ab else os.path.join(
+    sys.path.insert(0, os.path.abspath(src) if src else os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "src"))
     try:
         from repro_torch.kernels import _build
@@ -6588,6 +7020,9 @@ def main() -> int:
     if a.ab:
         phase_build(_build)
         phase_ab(ks, card, a.ab)
+        return 0
+    if a.ab_gnn:
+        phase_ab_gnn(a.ab_gnn)
         return 0
     import scipy
 

@@ -12,16 +12,26 @@ one device:
                  cell's are the parameters, the AdamW state and a batch
 
 The reference attaches a mesh sharding to each input.  A cell built
-with no mesh is the whole step on one device; an LM cell built with a
+with no mesh is the whole step on one device; a cell built with a
 process or counting mesh (``build(mesh)``: ``collectives.CountingMesh``
-for rank 0 of the production mesh) is one rank's step under
-``lm_param_spec``: its parameters ``reshard``ed by it (this rank's
-blocks), a train cell's AdamW moments by ``opt_state_specs`` (ZeRO-1)
-and its whole batch (the step cuts its rows), a serving cell's tokens
-and cache cut to this rank's rows where the data axes divide the batch
-(the reference's token spec), the cache in the port's layout under the
-mesh (``init_cache``).  The GNN and recsys cells take no mesh
-(``mlp_param_spec``'s tensor parallelism is not ported).
+for rank 0 of the production mesh) is one rank's step, its parameters
+``reshard``ed by the family's rule (this rank's blocks) and a train
+cell's AdamW moments by ``opt_state_specs`` (ZeRO-1):
+
+* an LM cell under ``lm_param_spec``: a train cell's whole batch (the
+  step cuts its rows), a serving cell's tokens and cache cut to this
+  rank's rows where the data axes divide the batch (the reference's
+  token spec), the cache in the port's layout under the mesh
+  (``init_cache``);
+* a GNN cell under ``mlp_param_spec``: its whole batch, which the step
+  cuts by the reference's ``_gnn_batch_sds`` specs
+  (:func:`gnn_batch_specs`): a batch of molecules by molecule, a full
+  graph's nodes, edges and triplets each into their blocks over the
+  data axes, its energy whole;
+* a recsys cell under ``mlp_param_spec``: the train cell's whole batch
+  (the step cuts its rows), a serving cell's rows and the retrieval
+  cell's candidates cut to this rank's block over the data axes (the
+  reference's ``_din_batch_sds`` and candidate specs).
 """
 
 from __future__ import annotations
@@ -76,14 +86,38 @@ LM_SHAPES = {
 def _lm_params(cfg, mesh):
     """The parameters on meta: whole, or this rank's blocks under
     ``lm_param_spec`` (and their specs)."""
-    from ..distributed import lm_param_spec, param_specs, reshard
+    from ..distributed import lm_param_spec
     from ..models.lm import param_shapes
 
-    p_meta = param_shapes(cfg)
+    return _placed(param_shapes(cfg), lm_param_spec, mesh)
+
+
+def _placed(p_meta, rule, mesh):
+    """(the whole parameters, this rank's blocks under ``rule``, their
+    specs); with no mesh the whole ones twice and no specs."""
+    from ..distributed import param_specs, reshard
+
     if mesh is None:
         return p_meta, p_meta, None
-    specs = param_specs(p_meta, lm_param_spec, _axes(mesh), mesh)
+    specs = param_specs(p_meta, rule, _axes(mesh), mesh)
     return p_meta, reshard(p_meta, mesh, specs), specs
+
+
+def train_state(params, rule, mesh):
+    """(parameters, AdamW's zero state) of a train cell: ``params``
+    (``meta`` tensors for shapes, or values) whole with no mesh, or
+    this rank's blocks under ``rule`` on ``mesh`` (a process or counting
+    mesh) with the moments placed by ``opt_state_specs`` (ZeRO-1: split
+    over the data axes too)."""
+    from ..distributed import opt_state_specs, reshard
+    from ..train import adamw_init
+
+    whole, placed, specs = _placed(params, rule, mesh)
+    opt = adamw_init(whole)
+    if mesh is not None:
+        opt = reshard(opt, mesh, opt_state_specs(
+            opt, whole, specs, _axes(mesh), mesh))
+    return placed, opt
 
 
 def _axes(mesh):
@@ -102,18 +136,25 @@ def _rows(batch: int, mesh) -> int:
     return batch // n if batch % n == 0 and batch >= n else batch
 
 
+def _block_rows(n: int, mesh) -> int:
+    """A batch's rows (or candidates) on one rank: split over the data
+    axes, which must divide them (the reference's ``P(data)``)."""
+    if mesh is None:
+        return n
+    k = _axes(mesh).data_size(mesh)
+    if n % k:
+        raise ValueError(f"{n} rows do not split over {k} data ranks")
+    return n // k
+
+
 def _lm_train_builder(cfg_fn, seq, batch):
     def build(mesh=None):
-        from ..distributed import opt_state_specs, reshard
-        from ..models.lm import lm_loss
-        from ..train import AdamWConfig, adamw_init, make_train_step
+        from ..distributed import lm_param_spec
+        from ..models.lm import lm_loss, param_shapes
+        from ..train import AdamWConfig, make_train_step
 
         cfg = cfg_fn()
-        p_meta, params, specs = _lm_params(cfg, mesh)
-        opt = adamw_init(p_meta)
-        if mesh is not None:
-            opt = reshard(opt, mesh, opt_state_specs(
-                opt, p_meta, specs, _axes(mesh), mesh))
+        params, opt = train_state(param_shapes(cfg), lm_param_spec, mesh)
         b_meta = {"tokens": _meta((batch, seq), torch.int32),
                   "labels": _meta((batch, seq), torch.int32)}
         step = make_train_step(
@@ -244,20 +285,29 @@ def _gnn_batch_meta(arch: str, s: Dict, triplet_factor: int = 2):
     return batch
 
 
-def _gnn_loss(arch: str, module, cfg, batched: bool):
+def gnn_batch_specs(batch: Dict, batched: bool, mesh) -> Dict:
+    """The reference's ``_gnn_batch_sds`` specs of a GNN batch: every
+    leaf over the data axes on its leading dim (molecules, or a full
+    graph's nodes, edges and triplets), a full graph's energy whole."""
+    data = _axes(mesh).data
+    return {k: () if not batched and k == "energy" else (data,)
+            for k in batch}
+
+
+def _gnn_loss(arch: str, module, cfg, batched: bool, mesh=None):
     def graph_energy_loss(params, batch):
         # geometric models on feature graphs: graph-scalar regression
-        pred = module.apply(params, batch, cfg)
+        pred = module.apply(params, batch, cfg, mesh)
         return ((pred - batch["energy"]) ** 2, {})
 
     def graphcast_loss(params, batch):
-        return (module.loss_fn(params, batch, cfg), {})
+        return (module.loss_fn(params, batch, cfg, mesh), {})
 
     def batched_loss(params, batch):
         if arch == "graphcast":
-            return (module.molecule_loss(params, batch, cfg), {})
+            return (module.molecule_loss(params, batch, cfg, mesh), {})
         # the molecular losses flatten the batch themselves
-        return (module.loss_fn(params, batch, cfg), {})
+        return (module.loss_fn(params, batch, cfg, mesh), {})
 
     if batched:
         return batched_loss
@@ -269,17 +319,21 @@ def _gnn_loss(arch: str, module, cfg, batched: bool):
 def _gnn_builder(name: str, module, cfg_fn, shape: str):
     s = GNN_SHAPES[shape]
 
-    def build():
-        from ..train import AdamWConfig, adamw_init, make_train_step
+    def build(mesh=None):
+        from ..distributed import mlp_param_spec
+        from ..train import AdamWConfig, make_train_step
 
         # feature-graph cells need d_feat wired into the config
         cfg = cfg_fn(d_feat=None if s["batched"] else s["f"], shape=shape)
-        p_meta = module.param_shapes(cfg)
-        o_meta = adamw_init(p_meta)
+        params, opt = train_state(module.param_shapes(cfg), mlp_param_spec,
+                                  mesh)
         b_meta = _gnn_batch_meta(name, s)
-        step = make_train_step(_gnn_loss(name, module, cfg, s["batched"]),
-                               AdamWConfig())
-        return step, (p_meta, o_meta, b_meta)
+        specs = (None if mesh is None
+                 else gnn_batch_specs(b_meta, s["batched"], mesh))
+        step = make_train_step(
+            _gnn_loss(name, module, cfg, s["batched"], mesh),
+            AdamWConfig(), mesh=mesh, batch_specs=specs)
+        return step, (params, opt, b_meta)
 
     return build
 
@@ -319,32 +373,36 @@ def _din_batch_meta(B, S, with_label=True):
 def _din_builder(cfg_fn, shape: str):
     s = RECSYS_SHAPES[shape]
 
-    def build():
+    def build(mesh=None):
+        from ..distributed import mlp_param_spec
         from ..models.recsys import din
 
         cfg = cfg_fn()
         p_meta = din.param_shapes(cfg)
         if s["kind"] == "train":
-            from ..train import AdamWConfig, adamw_init, make_train_step
+            from ..train import AdamWConfig, make_train_step
 
-            o_meta = adamw_init(p_meta)
+            params, opt = train_state(p_meta, mlp_param_spec, mesh)
             b_meta = _din_batch_meta(s["batch"], cfg.seq_len)
             step = make_train_step(
-                lambda p, b: (din.loss_fn(p, b, cfg), {}), AdamWConfig())
-            return step, (p_meta, o_meta, b_meta)
+                lambda p, b: (din.loss_fn(p, b, cfg, mesh), {}),
+                AdamWConfig(), mesh=mesh)
+            return step, (params, opt, b_meta)
+        params = _placed(p_meta, mlp_param_spec, mesh)[1]
         if s["kind"] == "serve":
-            b_meta = _din_batch_meta(s["batch"], cfg.seq_len,
-                                     with_label=False)
-            return (lambda p, b: din.apply(p, b, cfg)), (p_meta, b_meta)
-        # retrieval: one user, C candidates
-        C = s["n_candidates"]
+            b_meta = _din_batch_meta(_block_rows(s["batch"], mesh),
+                                     cfg.seq_len, with_label=False)
+            return ((lambda p, b: din.apply(p, b, cfg, mesh)),
+                    (params, b_meta))
+        # retrieval: one user, C candidates split over the data axes
+        C = round_up(s["n_candidates"], 8192)
         b_meta = {
             "hist_items": _meta((cfg.seq_len,), torch.int32),
             "hist_mask": _meta((cfg.seq_len,), torch.bool),
-            "candidates": _meta((round_up(C, 8192),), torch.int32),
+            "candidates": _meta((_block_rows(C, mesh),), torch.int32),
         }
-        return ((lambda p, b: din.score_candidates(p, b, cfg)),
-                (p_meta, b_meta))
+        return ((lambda p, b: din.score_candidates(p, b, cfg, mesh=mesh)),
+                (params, b_meta))
 
     return build
 

@@ -8,8 +8,9 @@ Every rank runs the same program on its own rows (``data``) and its own
 experts, heads, hidden columns and vocabulary rows (``model``).  The
 reference runs these arms inside ``shard_map`` or leaves GSPMD to place
 them; here each crossing of an axis is one function, each the identity
-on an axis the mesh does not have or that holds one rank.  ``axes`` is one axis name or a tuple
-of them (``("pod", "data")``, crossed as one group):
+with no mesh (``None``) and on an axis the mesh does not have or that
+holds one rank.  ``axes`` is one axis name or a tuple of them
+(``("pod", "data")``, crossed as one group):
 
 * ``reduce_from``: forward a sum over the axes, backward the identity.
   It completes partial sums of a layer whose inputs are the same on
@@ -21,14 +22,20 @@ of them (``("pod", "data")``, crossed as one group):
 * ``all_gather``: forward the ranks' blocks joined along a tensor dim,
   backward this rank's block of the cotangent (a replicated consumer
   hands every rank the whole cotangent).
+* ``gather_sum``: forward the same join, backward the cotangent summed
+  over the ranks and cut to this rank's block (a reduce-scatter), where
+  each rank's consumer differs: a graph's node rows gathered over
+  ``data`` for each rank's own edges.
+* ``reduce_scatter``: forward this rank's block of a sum over the ranks,
+  backward the ranks' cotangent blocks joined (an all-gather): the
+  edge-to-node sums of each rank's edges returned to the node blocks.
 * ``first_of``: forward the value at coordinate 0 of the axes, backward
   the cotangent over their size.  That is the reference's ``shard_map``
   output of spec ``P()`` with its check off (its MoE aux loss): the
   value is shard 0's, while the gradient is that of the shards' mean
   (ROADMAP R13).
-* ``all_reduce``, ``max_over``, ``reduce_scatter``: a sum, a maximum
-  and a summed block with no autograd rule (token counts, the loss's
-  logsumexp shift, gradients).
+* ``all_reduce``, ``max_over``: a sum and a maximum with no autograd
+  rule (token counts, the loss's logsumexp shift, gradients).
 
 A parameter's gradient under a process mesh is the sum over the data
 ranks of each rank's gradient: each rank's backward gives its rows'
@@ -158,7 +165,10 @@ def process_mesh(mesh):
 
 
 def _axes(mesh, axes: Axes) -> Tuple[str, ...]:
-    """The names of ``axes`` the mesh has, in the order given."""
+    """The names of ``axes`` the mesh has, in the order given (none for
+    no mesh)."""
+    if mesh is None:
+        return ()
     names = mesh.mesh_dim_names
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     return tuple(a for a in axes if a in names)
@@ -313,6 +323,29 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.b, ctx.b), None, None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.group, ctx.dim, ctx.index = group, dim, index
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter_sum(g, ctx.group, ctx.dim, ctx.index), None, None,
+                None)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_sum(x, group, dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None, None
+
+
 def _apply(fn, x, mesh, axes):
     group = _group(mesh, axes)
     if group is None:
@@ -341,6 +374,16 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, group, dim % x.dim(), axis_index(mesh, axes))
 
 
+def gather_sum(x: torch.Tensor, mesh, axes: Axes, dim: int
+               ) -> torch.Tensor:
+    """The ranks' blocks of ``axes`` joined along ``dim`` (backward: the
+    cotangent summed over the ranks, then this rank's block)."""
+    group = _group(mesh, axes)
+    if group is None:
+        return x
+    return _GatherSum.apply(x, group, dim % x.dim(), axis_index(mesh, axes))
+
+
 def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """``x`` summed over ``axes``, in place (no autograd)."""
     group = _group(mesh, axes)
@@ -360,12 +403,13 @@ def max_over(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, mesh, axes: Axes, dim: int
                    ) -> torch.Tensor:
-    """This rank's block along ``dim`` of ``x`` summed over ``axes`` (no
-    autograd; ``x`` itself where the mesh has none of them)."""
+    """This rank's block along ``dim`` of ``x`` summed over ``axes``
+    (backward: the ranks' cotangent blocks joined; ``x`` itself where the
+    mesh has none of them)."""
     group = _group(mesh, axes)
     if group is None:
         return x
-    return _scatter_sum(x, group, dim, axis_index(mesh, axes))
+    return _ScatterSum.apply(x, group, dim % x.dim(), axis_index(mesh, axes))
 
 
 def rows_of(x: torch.Tensor, mesh, axes: Axes = "data") -> torch.Tensor:
@@ -381,10 +425,13 @@ def rows_of(x: torch.Tensor, mesh, axes: Axes = "data") -> torch.Tensor:
 
 def block(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of the logical tensor ``x`` under ``spec`` (a
-    view)."""
+    view); a dim its axes do not divide raises ``ValueError``."""
     for dim, entry in enumerate(spec):
         if entry is not None:
             n, i = axis_size(mesh, entry), axis_index(mesh, entry)
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"split over the {n} ranks of {entry!r}")
             b = x.shape[dim] // n
             x = x.narrow(dim, i * b, b)
     return x

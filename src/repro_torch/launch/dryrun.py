@@ -10,8 +10,8 @@ pod and reads XLA's memory, cost and collective analyses.  The port
 compiles no SPMD program: it builds the port's ``Cell`` (inputs as
 ``meta`` tensors), runs its step once under
 :func:`repro_torch.analysis.count_step` (autograd included for train
-cells), and for an LM cell also rank 0's step of the production mesh
-on a ``collectives.CountingMesh``, and records:
+cells), and also rank 0's step of the production mesh on a
+``collectives.CountingMesh``, and records:
 
     n_devices            1: the count is of the whole cell's step on one
                          device, so ``flops`` and the byte counts are
@@ -31,18 +31,21 @@ on a ``collectives.CountingMesh``, and records:
                          once).  A meta run allocates nothing, so its
                          peak is not measured and there is no
                          ``temp_size_in_bytes``
-    mesh_step            LM cells: rank 0's step of the production mesh
+    mesh_step            rank 0's step of the production mesh
                          (``n_devices`` 256 or 512), its inputs cut to
-                         rank 0's blocks by ``lm_param_spec``, ZeRO-1's
-                         ``opt_state_specs`` and the batch spec, run under
-                         ``OpStats`` on the counting mesh: ``flops``,
-                         ``bytes_accessed`` and ``collectives`` (bytes by
-                         kind, the reference's names) per device
-    collectives          LM cells: ``mesh_step``'s, the bytes every
-                         crossing of a mesh axis moves per device, under
-                         the reference's key and kind names (counted by
-                         the code the ranks run, not measured on NCCL);
-                         GNN and recsys cells: {}
+                         rank 0's blocks by the family's rule
+                         (``lm_param_spec``; ``mlp_param_spec`` for the
+                         GNN and recsys cells), ZeRO-1's
+                         ``opt_state_specs`` and the batch specs (a full
+                         graph's nodes and edges over the data axes),
+                         run under ``OpStats`` on the counting mesh:
+                         ``flops``, ``bytes_accessed`` and
+                         ``collectives`` (bytes by kind, the reference's
+                         names) per device
+    collectives          ``mesh_step``'s, the bytes every crossing of a
+                         mesh axis moves per device, under the
+                         reference's key and kind names (counted by the
+                         code the ranks run, not measured on NCCL)
     outputs              the step's output leaves, (key path, shape, dtype)
 
 Results land in ``results/torch/dryrun/<arch>__<shape>__<mesh>.json``;
@@ -83,12 +86,13 @@ NOTES = {
                        "outputs (an input written in place and returned "
                        "counts once); a meta run allocates nothing, so its "
                        "peak (temp) is not measured",
-    "collectives": "LM cells: mesh_step's collectives, the bytes of each "
+    "collectives": "mesh_step's collectives, the bytes of each "
                    "collective's result on rank 0 of the production mesh "
-                   "(the reference's convention) under lm_param_spec and "
-                   "ZeRO-1, tallied by the crossings the process mesh's "
-                   "ranks run, not measured on NCCL; GNN and recsys cells: "
-                   "{}, their mlp_param_spec tensor parallelism is queued",
+                   "(the reference's convention) under lm_param_spec (LM "
+                   "cells) or mlp_param_spec (GNN and recsys cells) and "
+                   "ZeRO-1, a full graph's nodes and edges split over the "
+                   "data axes, tallied by the crossings the process "
+                   "mesh's ranks run, not measured on NCCL",
 }
 
 
@@ -227,10 +231,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
             "output_size_in_bytes": io["output"]}
         rec["arg_bytes_per_device"] = arg_bytes_per_device(
             cell.kind, spec.family, args, mesh, axes)
-        rec["collectives"] = {}
-        if spec.family == "lm":
-            rec["mesh_step"] = mesh_step(cell, mesh)
-            rec["collectives"] = rec["mesh_step"]["collectives"]
+        rec["mesh_step"] = mesh_step(cell, mesh)
+        rec["collectives"] = rec["mesh_step"]["collectives"]
         rec["notes"] = NOTES
         rec["outputs"] = _leaves(out)
         rec["t_count_s"] = round(time.perf_counter() - t0, 2)

@@ -22,13 +22,40 @@ Batched molecules, ``(B, n, ...)`` arrays, are flattened by
 :func:`flatten_molecules` into one disjoint graph of ``B * n`` nodes
 with ``graph`` (N,) naming each node's molecule; the reference
 ``jax.vmap``s the single-graph model over the molecules instead.
+
+**A graph split over the data ranks** (:class:`GraphSplit`).  The
+reference places a full graph's node and edge arrays ``P(data)`` and
+leaves GSPMD to move what each step needs; here the moves are explicit.
+Each rank holds its block of the nodes and its block of the edges (and
+of DimeNet's triplets); the edge ids stay global node ids (``id_kj``
+and ``id_ji`` global edge ids):
+
+* ``gather``: the node rows a rank's edges read, and one level down
+  the edge rows (geometry, messages) DimeNet's triplets read, are
+  gathered over ``data`` (``collectives.gather_sum``: backward, each
+  rank's cotangent summed and cut back to the blocks);
+* ``to_nodes`` / ``to_edges``: each rank sums its edges into all nodes
+  (its triplets into all edges), and a reduce-scatter returns the sums
+  to the blocks (backward, the blocks' cotangents gathered);
+* ``softmax``: an edge softmax over destinations takes its maximum over
+  ``data`` (no gradient: the softmax does not depend on it) and sums
+  the ranks' partial denominators;
+* ``total``: a readout's or a masked mean's partial sums completed over
+  ``data`` before anything divides them.
+
+A batch of molecules split over ``data`` holds whole molecules on each
+rank, so its graph is local (``GraphSplit`` with no axes) and only its
+loss's mean crosses.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
+
+from ...distributed import collectives as CO
+from ..nn import DATA
 
 # keys of a batched-molecule dict that hold node ids, edge ids, and
 # per-node or per-edge values
@@ -97,22 +124,79 @@ def smooth_cutoff(dist: torch.Tensor, cutoff: float, p: int = 6
     return 1.0 + a * x**p + b * x ** (p + 1) + c * x ** (p + 2)
 
 
+class GraphSplit:
+    """How one graph's nodes and edges lie over the ``axes`` of ``mesh``:
+    this rank holds ``n_local`` nodes and ``e_local`` edges, the same
+    block of each on every rank (no mesh, or no axes: the whole graph)."""
+
+    def __init__(self, mesh, n_local: int, e_local: int,
+                 axes: Sequence[str] = DATA):
+        self.pm, self.axes = CO.process_mesh(mesh), tuple(axes)
+        self.k = CO.axis_size(self.pm, self.axes)       # ranks it spans
+        self.n_nodes, self.n_edges = n_local * self.k, e_local * self.k
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every node's (or edge's) row of ``x``, this rank's block of
+        them."""
+        return CO.gather_sum(x, self.pm, self.axes, 0)
+
+    def to_nodes(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's node block of the sums of every rank's rows ``x``
+        into their (global) node ids ``idx``."""
+        return CO.reduce_scatter(seg_sum(x, idx, self.n_nodes), self.pm,
+                                 self.axes, 0)
+
+    def to_edges(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The same into (global) edge ids: this rank's edge block."""
+        return CO.reduce_scatter(seg_sum(x, idx, self.n_edges), self.pm,
+                                 self.axes, 0)
+
+    def softmax(self, scores: torch.Tensor, idx: torch.Tensor
+                ) -> torch.Tensor:
+        """:func:`seg_softmax` of this rank's edges' ``scores`` within
+        each destination node ``idx``, whose edges may lie on every
+        rank."""
+        m = CO.max_over(seg_max(scores, idx, self.n_nodes), self.pm,
+                        self.axes)
+        e = torch.exp(scores - m[idx])
+        z = self.gather(self.to_nodes(e, idx))
+        return e / torch.clamp(z[idx], min=1e-9)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a partial sum of this rank's rows, summed over the
+        ranks (backward: the identity)."""
+        return CO.reduce_from(x, self.pm, self.axes)
+
+    def count(self, x: torch.Tensor) -> torch.Tensor:
+        """A partial count summed over the ranks, no gradient."""
+        return CO.all_reduce(x.detach().clone(), self.pm, self.axes)
+
+
 def masked_graph_readout(node_out: torch.Tensor, node_mask) -> torch.Tensor:
     if node_mask is None:
         return node_out.sum(0)
     return (node_out * node_mask[:, None].to(node_out.dtype)).sum(0)
 
 
-def graph_readout(node_out: torch.Tensor, batch: Dict) -> torch.Tensor:
+def graph_readout(node_out: torch.Tensor, batch: Dict, split: GraphSplit
+                  ) -> torch.Tensor:
     """The masked sum of ``node_out`` (N, 1) per graph: a scalar for one
-    graph, (B,) for flattened molecules (a segment sum over
-    ``batch["graph"]``)."""
+    graph (summed over the ranks of ``split``), (B,) for flattened
+    molecules (a segment sum over ``batch["graph"]``)."""
     nmask = batch.get("node_mask")
     if nmask is not None:
         node_out = node_out * nmask[:, None].to(node_out.dtype)
     if "graph" not in batch:
-        return node_out.sum()
+        return split.total(node_out.sum())
     return seg_sum(node_out, batch["graph"], batch["n_graphs"])[:, 0]
+
+
+def graph_split(batch: Dict, mesh) -> GraphSplit:
+    """The split of a batch's graph: over the data axes for one graph,
+    local for flattened molecules (each rank's molecules are whole)."""
+    axes = () if "graph" in batch else DATA
+    return GraphSplit(mesh, batch["pos"].shape[0],
+                      batch["edge_src"].shape[0], axes)
 
 
 def flatten_molecules(batch: Dict) -> Dict:

@@ -9,7 +9,16 @@ the host (``build_triplets``) to a static padded budget.
 
 The output block sums every edge's message into its destination, masked
 edges included, as the reference's does (ROADMAP R11): a masked edge's
-message comes from ``msg_init`` and is not zero.
+message comes from ``msg_init`` and is not zero.  Split over ``data``,
+a masked edge on any rank still adds its message, as it does there.
+
+Under a process mesh (``mesh``) the MLPs and the species table follow
+``mlp_param_spec``'s blocks over ``model`` (``nn``; ``bilin`` and the
+projections stay whole), and one graph's nodes, edges and triplets are
+split over ``data`` (``common.GraphSplit``): the node rows and the
+edge rows (geometry, ``down``'s messages) that a rank's edges and
+triplets read are gathered, the triplets' sums returned to the edge
+blocks and the edges' sums to the node blocks.
 """
 
 from __future__ import annotations
@@ -21,10 +30,10 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..nn import Params, dense, dense_init, embed, embed_init, mlp, mlp_init
-from ..nn import tree_to
+from ..nn import Params, data_mean, dense, dense_init, embed_init
+from ..nn import local_tree, lookup, mlp, mlp_init, tree_to
 from .common import bessel_rbf, edge_vectors, flatten_molecules
-from .common import graph_readout, seg_sum
+from .common import graph_readout, graph_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,20 +130,21 @@ def param_shapes(cfg: DimeNetConfig) -> Params:
         return _draw(torch.Generator(), cfg)
 
 
-def dense0(p, x):
-    return mlp(p, x, act="silu", final_act="silu")
+def dense0(p, x, mesh=None):
+    return mlp(p, x, act="silu", final_act="silu", mesh=mesh)
 
 
-def apply(params: Params, batch: Dict, cfg: DimeNetConfig) -> torch.Tensor:
+def apply(params: Params, batch: Dict, cfg: DimeNetConfig, mesh=None
+          ) -> torch.Tensor:
     """The graph's scalar (energy); (B,) for flattened molecules."""
-    pos = batch["pos"]
+    params = local_tree(params)
+    g = graph_split(batch, mesh)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch.get("edge_mask")
     id_kj, id_ji = batch["id_kj"].long(), batch["id_ji"].long()
     tmask = batch["triplet_mask"]
-    N = pos.shape[0]
 
-    vec, dist = edge_vectors(pos, src, dst)     # vec = x_src - x_dst
+    vec, dist = edge_vectors(g.gather(batch["pos"]), src, dst)
     rbf = bessel_rbf(dist, cfg.n_radial, cfg.cutoff)
     if emask is not None:
         rbf = rbf * emask[:, None].to(rbf.dtype)
@@ -143,40 +153,44 @@ def apply(params: Params, batch: Dict, cfg: DimeNetConfig) -> torch.Tensor:
     if cfg.d_feat is not None:
         hnode = dense(params["enc"], batch["feat"])
     else:
-        hnode = embed(params["embed"], batch["species"])
+        hnode = lookup(params["embed"]["emb"], batch["species"],
+                       cfg.n_species, mesh)
+    hnode = g.gather(hnode)
     m = mlp(
         params["msg_init"],
         torch.cat([hnode[src], hnode[dst], rbf_h], -1),
-        act="silu", final_act="silu",
+        act="silu", final_act="silu", mesh=mesh,
     )                                            # (E, d)
 
     # triplet geometry: angle between edge ji (j->i) and kj (k->j)
-    v_ji = vec[id_ji]
-    v_kj = -vec[id_kj]                          # orient k->j at node j
+    vec_all, dist_all = g.gather(vec), g.gather(dist)
+    v_ji = vec_all[id_ji]
+    v_kj = -vec_all[id_kj]                      # orient k->j at node j
     cosang = torch.sum(v_ji * v_kj, -1) / torch.clamp(
         torch.linalg.vector_norm(v_ji, dim=-1)
         * torch.linalg.vector_norm(v_kj, dim=-1), min=1e-9)
-    sbf = _angular_basis(cosang, dist[id_kj], cfg)
+    sbf = _angular_basis(cosang, dist_all[id_kj], cfg)
     sbf = sbf * tmask[:, None].to(sbf.dtype)
 
-    E = m.shape[0]
     nb = cfg.n_bilinear
-    out_acc = m.new_zeros((N, cfg.d_hidden))
+    out_acc = m.new_zeros((batch["pos"].shape[0], cfg.d_hidden))
     for b in range(cfg.n_blocks):
         bp = params[f"blk{b}"]
         sb = dense(bp["sbf_proj"], sbf)                   # (T, nb)
-        mk = dense(bp["down"], m)[id_kj]                  # (T, nb)
+        mk = g.gather(dense(bp["down"], m))[id_kj]         # (T, nb)
         # einsum("tb,tc,bcd->td"): the outer product, then one matmul
         tr = (sb[:, :, None] * mk[:, None, :]).reshape(-1, nb * nb) \
             @ bp["bilin"].reshape(nb * nb, -1)
-        agg = seg_sum(tr, id_ji, E)                       # (E, d)
-        m = m + mlp(bp["msg_mlp"], m * rbf_h + agg, act="silu")
-        out_acc = out_acc + seg_sum(dense0(bp["out"], m), dst, N)
-    out = mlp(params["out_final"], out_acc, act="silu")   # (N, 1)
-    return graph_readout(out, batch)
+        agg = g.to_edges(tr, id_ji)                       # (E, d)
+        m = m + mlp(bp["msg_mlp"], m * rbf_h + agg, act="silu", mesh=mesh)
+        out_acc = out_acc + g.to_nodes(dense0(bp["out"], m, mesh), dst)
+    out = mlp(params["out_final"], out_acc, act="silu", mesh=mesh)  # (N, 1)
+    return graph_readout(out, batch, g)
 
 
-def loss_fn(params: Params, batch: Dict, cfg: DimeNetConfig) -> torch.Tensor:
-    """Batched-molecule MSE over ``(B, n, ...)`` molecules."""
-    pred = apply(params, flatten_molecules(batch), cfg)
-    return torch.mean((pred - batch["energy"]) ** 2)
+def loss_fn(params: Params, batch: Dict, cfg: DimeNetConfig, mesh=None
+            ) -> torch.Tensor:
+    """Batched-molecule MSE over ``(B, n, ...)`` molecules (under a mesh
+    this rank's molecules, the mean over all of them)."""
+    pred = apply(params, flatten_molecules(batch), cfg, mesh)
+    return data_mean((pred - batch["energy"]) ** 2, mesh)

@@ -13,6 +13,15 @@ The reference's in-place updates (``.at[...].set`` in the SO(2)
 convolution, ``.at[:, 0, :].add`` in the FFN) are out-of-place writes
 here (``index_copy``, a concatenation), which autograd follows.  A
 masked edge's attention logit is -1e30, as the reference's.
+
+Under a process mesh (``mesh``) the MLPs (``rad``, ``attn``,
+``ffn_gate``, ``ffn_scalar``, ``out``) and the species table follow
+``mlp_param_spec``'s blocks over ``model`` (``nn``; the ``so2_*`` maps
+stay whole, as the rule keeps them), and one graph's nodes and edges
+are split over ``data`` (``common.GraphSplit``): the normed node
+features each rank's edges read are gathered, the attention's softmax
+takes its maximum and denominators over the ranks, and the messages are
+summed back to the node blocks.
 """
 
 from __future__ import annotations
@@ -24,10 +33,10 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..nn import Params, dense, dense_init, embed, embed_init, mlp, mlp_init
-from ..nn import tree_to
+from ..nn import Params, data_mean, dense, dense_init, embed_init
+from ..nn import local_tree, lookup, mlp, mlp_init, tree_to
 from .common import bessel_rbf, edge_vectors, flatten_molecules
-from .common import graph_readout, seg_softmax, seg_sum
+from .common import graph_readout, graph_split
 from .so3 import rot_to_z, wigner_d_stack
 
 
@@ -163,22 +172,24 @@ def _so2_conv(lp: Params, x: torch.Tensor, cfg: EquiformerV2Config):
     return out
 
 
-def apply(params: Params, batch: Dict, cfg: EquiformerV2Config
+def apply(params: Params, batch: Dict, cfg: EquiformerV2Config, mesh=None
           ) -> torch.Tensor:
     """The graph's scalar (energy); (B,) for flattened molecules."""
-    pos = batch["pos"]
+    params = local_tree(params)
+    g = graph_split(batch, mesh)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch.get("edge_mask")
-    N = pos.shape[0]
+    N = batch["pos"].shape[0]
     K, C, L = cfg.n_coef, cfg.d_hidden, cfg.l_max
 
     if cfg.d_feat is not None:
         scal = dense(params["enc"], batch["feat"])
     else:
-        scal = embed(params["embed"], batch["species"])
+        scal = lookup(params["embed"]["emb"], batch["species"],
+                      cfg.n_species, mesh)
     x = torch.cat([scal[:, None, :], scal.new_zeros((N, K - 1, C))], 1)
 
-    vec, dist = edge_vectors(pos, src, dst)
+    vec, dist = edge_vectors(g.gather(batch["pos"]), src, dst)
     dirs = vec / torch.clamp(dist[:, None], min=1e-9)
     rot = rot_to_z(dirs)
     D = wigner_d_stack(rot, L)
@@ -189,31 +200,30 @@ def apply(params: Params, batch: Dict, cfg: EquiformerV2Config
     Hh = cfg.n_heads
     for i in range(cfg.n_layers):
         lp = params[f"layer{i}"]
-        xn = _equiv_norm(x, L)
+        xn = g.gather(_equiv_norm(x, L))
         # message in edge frame
         xe = _rotate(xn[src], D, L)                       # (E, K, C)
-        radial = mlp(lp["rad"], rbf, act="silu")          # (E, C)
+        radial = mlp(lp["rad"], rbf, act="silu", mesh=mesh)   # (E, C)
         xe = xe * radial[:, None, :]
         me = _so2_conv(lp, xe, cfg)
         # invariant attention (m=0 scalars of message + receiver scalars)
         inv = torch.cat([me[:, 0, :], xn[dst][:, 0, :]], -1)
-        logits = mlp(lp["attn"], inv, act="silu")          # (E, H)
+        logits = mlp(lp["attn"], inv, act="silu", mesh=mesh)  # (E, H)
         if emask is not None:
             logits = torch.where(emask[:, None], logits, -1e30)
-        alpha = seg_softmax(logits, dst, N)                # (E, H)
+        alpha = g.softmax(logits, dst)                     # (E, H)
         me = me.reshape(me.shape[0], K, Hh, C // Hh)
         me = me * alpha[:, None, :, None]
         me = me.reshape(me.shape[0], K, C)
         if emask is not None:
             me = me * emask[:, None, None].to(me.dtype)
         me = _rotate(me, D, L, transpose=True)             # back to global
-        agg = seg_sum(me, dst, N)
-        x = x + agg
+        x = x + g.to_nodes(me, dst)
         # scalar-gated equivariant FFN
         xn = _equiv_norm(x, L)
-        s = mlp(lp["ffn_scalar"], xn[:, 0, :], act="silu")
+        s = mlp(lp["ffn_scalar"], xn[:, 0, :], act="silu", mesh=mesh)
         gates = torch.sigmoid(
-            mlp(lp["ffn_gate"], xn[:, 0, :], act="silu")
+            mlp(lp["ffn_gate"], xn[:, 0, :], act="silu", mesh=mesh)
         ).reshape(N, L + 1, C)
         gate_full = torch.repeat_interleave(
             gates, torch.as_tensor([2 * l + 1 for l in range(L + 1)],
@@ -222,12 +232,13 @@ def apply(params: Params, batch: Dict, cfg: EquiformerV2Config
         x = x + xn * gate_full
         x = torch.cat([x[:, :1, :] + s[:, None, :], x[:, 1:, :]], 1)
 
-    out = mlp(params["out"], x[:, 0, :], act="silu")       # (N, 1) invariant
-    return graph_readout(out, batch)
+    out = mlp(params["out"], x[:, 0, :], act="silu", mesh=mesh)  # (N, 1)
+    return graph_readout(out, batch, g)
 
 
-def loss_fn(params: Params, batch: Dict, cfg: EquiformerV2Config
-            ) -> torch.Tensor:
-    """Batched-molecule MSE over ``(B, n, ...)`` molecules."""
-    pred = apply(params, flatten_molecules(batch), cfg)
-    return torch.mean((pred - batch["energy"]) ** 2)
+def loss_fn(params: Params, batch: Dict, cfg: EquiformerV2Config,
+            mesh=None) -> torch.Tensor:
+    """Batched-molecule MSE over ``(B, n, ...)`` molecules (under a mesh
+    this rank's molecules, the mean over all of them)."""
+    pred = apply(params, flatten_molecules(batch), cfg, mesh)
+    return data_mean((pred - batch["energy"]) ** 2, mesh)

@@ -7,6 +7,12 @@ segment-sum aggregation, atom-wise dense layers with shifted softplus.
 
 A masked edge's RBF is zeroed, as the reference zeroes it; its filter is
 ``mlp(0)``, zero only while the filter's biases are (ROADMAP R11).
+
+Under a process mesh (``mesh``) the MLPs and the species table follow
+``mlp_param_spec``'s blocks over ``model`` (``nn``), and one graph's
+nodes and edges are split over ``data`` (``common.GraphSplit``): the
+``in2f`` rows a rank's edges read are gathered, each rank's messages
+summed back to the node blocks, the readout summed over the ranks.
 """
 
 from __future__ import annotations
@@ -17,10 +23,10 @@ from typing import Dict, Optional
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ..nn import Params, dense, dense_init, embed, embed_init, mlp, mlp_init
-from ..nn import tree_to
+from ..nn import Params, data_mean, dense, dense_init, embed_init
+from ..nn import local_tree, lookup, mlp, mlp_init, tree_to
 from .common import edge_vectors, flatten_molecules, gaussian_rbf
-from .common import graph_readout, seg_sum
+from .common import graph_readout, graph_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,31 +70,37 @@ def param_shapes(cfg: SchNetConfig) -> Params:
         return _draw(torch.Generator(), cfg)
 
 
-def apply(params: Params, batch: Dict, cfg: SchNetConfig) -> torch.Tensor:
+def apply(params: Params, batch: Dict, cfg: SchNetConfig, mesh=None
+          ) -> torch.Tensor:
     """The graph's scalar (energy); (B,) for flattened molecules."""
-    pos = batch["pos"]
+    params = local_tree(params)
+    g = graph_split(batch, mesh)
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch.get("edge_mask")
-    N = pos.shape[0]
     if cfg.d_feat is not None:
         h = dense(params["enc"], batch["feat"])
     else:
-        h = embed(params["embed"], batch["species"])
+        h = lookup(params["embed"]["emb"], batch["species"], cfg.n_species,
+                   mesh)
+    pos = g.gather(batch["pos"])
     _, dist = edge_vectors(pos, src, dst)
     rbf = gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff)
     if emask is not None:
         rbf = rbf * emask[:, None].to(rbf.dtype)
     for i in range(cfg.n_interactions):
         ip = params[f"int{i}"]
-        w = mlp(ip["filter"], rbf, act="ssp", final_act="ssp")   # (E, d)
-        m = dense(ip["in2f"], h)[src] * w
-        agg = seg_sum(m, dst, N)
-        h = h + mlp(ip["f2out"], agg, act="ssp")
-    out = mlp(params["out"], h, act="ssp")                        # (N, 1)
-    return graph_readout(out, batch)
+        w = mlp(ip["filter"], rbf, act="ssp", final_act="ssp",
+                mesh=mesh)                                        # (E, d)
+        m = g.gather(dense(ip["in2f"], h))[src] * w
+        agg = g.to_nodes(m, dst)
+        h = h + mlp(ip["f2out"], agg, act="ssp", mesh=mesh)
+    out = mlp(params["out"], h, act="ssp", mesh=mesh)             # (N, 1)
+    return graph_readout(out, batch, g)
 
 
-def loss_fn(params: Params, batch: Dict, cfg: SchNetConfig) -> torch.Tensor:
-    """Batched-molecule MSE over ``(B, n, ...)`` molecules."""
-    pred = apply(params, flatten_molecules(batch), cfg)
-    return torch.mean((pred - batch["energy"]) ** 2)
+def loss_fn(params: Params, batch: Dict, cfg: SchNetConfig, mesh=None
+            ) -> torch.Tensor:
+    """Batched-molecule MSE over ``(B, n, ...)`` molecules (under a mesh
+    this rank's molecules, the mean over all of them)."""
+    pred = apply(params, flatten_molecules(batch), cfg, mesh)
+    return data_mean((pred - batch["energy"]) ** 2, mesh)

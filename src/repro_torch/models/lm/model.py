@@ -59,9 +59,9 @@ MLA's latent ``ckv``/``kpe``, the cache stays whole on every rank
 model axis of one, no crossing of ``model`` is made.
 
 Token ids outside ``[-V, V)`` embed as NaN rows and ids in ``[-V, 0)``
-wrap, as the reference's ``jnp.take`` answers (``nn.embed``).  A tree's
-device is its tensors' device; ``init_params`` and ``init_cache`` take
-``device`` (``None``: the GPU).
+wrap, as the reference's ``jnp.take`` answers (``nn.take_rows``).  A
+tree's device is its tensors' device; ``init_params`` and
+``init_cache`` take ``device`` (``None``: the GPU).
 """
 
 from __future__ import annotations
@@ -73,9 +73,12 @@ import torch.utils.checkpoint
 
 from ...device import DeviceLike, resolve_device
 from ...distributed import collectives as CO
-from ..nn import (ACT, Params, dense, dense_init, embed_init,
-                  norm_init, rmsnorm, scan_blocks, stack_init, take_rows,
-                  tree_index, tree_to)
+from ..nn import (ACT, DATA, MODEL, Params, dense, dense_init, embed_init,
+                  lookup, norm_init, rmsnorm, scan_blocks, stack_init,
+                  take_rows, tree_index, tree_to)
+from ..nn import is_block as _is_block
+from ..nn import local_tree as _locals
+from ..nn import model_of as _model
 from ..nn import softcap as _softcap
 from .attention import (banded_attention, decode_attention, flash_attention,
                         rope)
@@ -196,60 +199,9 @@ def param_shapes(cfg: LMConfig) -> Params:
 # blocks
 # --------------------------------------------------------------------------
 
-MODEL = "model"
-DATA = ("pod", "data")   # the axes a training batch's rows are split over
-
-
-def _model(mesh):
-    """(process mesh or None, tp, this rank's coordinate on ``model``)."""
-    pm = CO.process_mesh(mesh)
-    if pm is None:
-        return None, 1, 0
-    return pm, CO.axis_size(pm, MODEL), CO.axis_index(pm, MODEL)
-
-
-def _locals(params: Params) -> Params:
-    """Every leaf as this rank holds it (a DTensor's local shard)."""
-    if isinstance(params, dict):
-        return {k: _locals(v) for k, v in params.items()}
-    return CO.local(params)
-
-
-def _is_block(w: torch.Tensor, dim: int, full: int, tp: int, what: str
-              ) -> bool:
-    """Whether ``w`` holds this rank's block of ``full`` entries on
-    ``dim`` (split over ``model``) rather than all of them; any other
-    width raises."""
-    n = w.shape[dim]
-    if n == full:
-        return False
-    if tp > 1 and n * tp == full:
-        return True
-    raise ValueError(f"{what}: dim {dim} of {tuple(w.shape)} is neither "
-                     f"{full} nor its block over {tp} model ranks")
-
-
-def _lookup(emb: torch.Tensor, ids: torch.Tensor, vocab: int, mesh
-            ) -> torch.Tensor:
-    """Rows ``ids`` of the embedding (``take_rows``' rule: ``[-V, 0)``
-    wraps, outside ``[-V, V)`` a row of NaN).  Split on the vocabulary,
-    each rank contributes its range's rows and zeros for the rest, and
-    ``reduce_from`` sums the parts."""
-    pm, tp, m = _model(mesh)
-    if not _is_block(emb, -2, vocab, tp, "embed/emb"):
-        return take_rows(emb, ids)
-    n = emb.shape[-2]
-    safe = ids.clamp(-vocab, vocab - 1)
-    loc = safe % vocab - m * n
-    mine = (loc >= 0) & (loc < n)
-    rows = emb[loc.clamp(0, n - 1)].masked_fill(~mine[..., None], 0.0)
-    x = CO.reduce_from(rows, pm, MODEL)
-    return x.masked_fill((safe != ids)[..., None], float("nan"))
-
-
 def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                   mesh=None):
-    x = _lookup(params["embed"]["emb"], tokens, cfg.vocab, mesh)
+    x = lookup(params["embed"]["emb"], tokens, cfg.vocab, mesh)
     if cfg.embed_scale:
         # the factor rounded to the activations' dtype first, as the
         # reference's jnp.asarray(sqrt(d), x.dtype)
@@ -554,8 +506,8 @@ def lm_loss(
     if cfg.mtp_depth > 0:
         # MTP(1): predict t+2 from [h_t ; emb(label_t)] through one block
         mp = params["mtp"]
-        emb_next = _lookup(params["embed"]["emb"], batch["labels"],
-                           cfg.vocab, mesh)
+        emb_next = lookup(params["embed"]["emb"], batch["labels"],
+                          cfg.vocab, mesh)
         h2 = dense(mp["proj"], torch.cat([hidden, emb_next], -1))
         pos = _positions(h2.shape[0], h2.shape[1], h2.device)
         h2, _ = _block_train(

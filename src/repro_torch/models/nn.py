@@ -1,6 +1,6 @@
-"""Minimal NN substrate (the port of ``repro.models.nn``, the parts DIN
-and the LM family need): parameters are nested dicts of tensors, layers
-are plain functions, initialisers draw from an explicit
+"""Minimal NN substrate (the port of ``repro.models.nn``, the parts DIN,
+the GNN and the LM families need): parameters are nested dicts of
+tensors, layers are plain functions, initialisers draw from an explicit
 ``torch.Generator``.
 
 The layout is the reference's: a dense layer holds ``w`` of shape
@@ -8,6 +8,29 @@ The layout is the reference's: a dense layer holds ``w`` of shape
 ``y = x @ w + b``, so converted JAX parameters need no transpose.
 Initialisers draw on the default device (the CPU, or ``meta`` under
 ``torch.device("meta")`` for shapes only); callers move the tree.
+
+**Under a process mesh** (``mesh``: a ``DeviceMesh`` or a counting
+mesh) ``mlp`` and ``lookup`` take the leaves as
+``distributed.sharding.mlp_param_spec`` places them, this rank's blocks
+(a DTensor's local shard, or the block itself), and read which each is
+from its width, the Megatron pairing over ``model`` (the rule splits
+only an MLP's ``l{k}/w`` and a table's rows, so ``dense`` takes whole
+leaves):
+
+* a column-split ``w`` (its ``d_out`` a block of its bias's, which the
+  rule never splits) takes its input, replicated over ``model``, by
+  ``copy_to`` and adds its slice of the bias (which enters by
+  ``copy_to`` too, so its gradient is whole on every rank);
+* a row-split ``w`` takes the previous layer's column block where the
+  two pair (an ``mlp``'s ``l{k}`` after ``l{k-1}``), or cuts its own
+  slice of a replicated input (after ``copy_to``); ``reduce_from``
+  completes the sum and the bias is added once;
+* a column block with no row-split partner (a one-layer MLP, or the
+  last layer's) is gathered over ``model``;
+* a row-split table is looked up vocabulary-parallel (:func:`lookup`).
+
+Every layer's output is replicated over ``model``.  With whole leaves,
+no mesh, or a model axis of one rank, nothing crosses.
 """
 
 from __future__ import annotations
@@ -18,7 +41,11 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as CO
+
 Params = Dict[str, Any]
+MODEL = "model"     # the mesh axis the tensor-parallel leaves split over
+DATA = ("pod", "data")     # the axes a batch's rows are split over
 
 
 # --------------------------------------------------------------------------
@@ -59,6 +86,77 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int],
 # layers
 # --------------------------------------------------------------------------
 
+def model_of(mesh):
+    """(process mesh or None, tp, this rank's coordinate on ``model``)."""
+    pm = CO.process_mesh(mesh)
+    return pm, CO.axis_size(pm, MODEL), CO.axis_index(pm, MODEL)
+
+
+def is_block(w: torch.Tensor, dim: int, full: int, tp: int, what: str
+             ) -> bool:
+    """Whether ``w`` holds this rank's block of ``full`` entries on
+    ``dim`` (split over ``model``) rather than all of them; any other
+    width raises."""
+    n = w.shape[dim]
+    if n == full:
+        return False
+    if tp > 1 and n * tp == full:
+        return True
+    raise ValueError(f"{what}: dim {dim} of {tuple(w.shape)} is neither "
+                     f"{full} nor its block over {tp} model ranks")
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x``, this rank's rows of a batch split evenly over
+    the data axes: the local sum completed over them (backward: the
+    identity), over the global count."""
+    pm = CO.process_mesh(mesh)
+    if pm is None:
+        return x.mean()
+    return CO.reduce_from(x.sum(), pm, DATA) / (x.numel()
+                                                 * CO.axis_size(pm, DATA))
+
+
+def local_tree(params: Params) -> Params:
+    """Every leaf as this rank holds it (a DTensor's local shard)."""
+    if isinstance(params, dict):
+        return {k: local_tree(v) for k, v in params.items()}
+    return CO.local(params)
+
+
+def _cols(p: Params, tp: int) -> bool:
+    """Whether ``p["w"]`` arrives as this rank's block of its columns:
+    its width against its bias's, which the rule keeps whole.  The rule
+    splits columns only of an MLP's ``l0``, which has a bias; a layer
+    without one (a projection) is whole."""
+    if "b" not in p:
+        return False
+    return is_block(p["w"], -1, p["b"].shape[-1], tp, "dense w")
+
+
+def _col_layer(p: Params, x: torch.Tensor, pm, m: int) -> torch.Tensor:
+    """A column-split layer on a replicated input: this rank's columns."""
+    n = p["w"].shape[-1]
+    y = CO.copy_to(x, pm, MODEL) @ p["w"]
+    if "b" in p:
+        y = y + CO.copy_to(p["b"], pm, MODEL).narrow(-1, m * n, n)
+    return y
+
+
+def _row_layer(p: Params, x: torch.Tensor, pm, m: int, paired: bool
+               ) -> torch.Tensor:
+    """A row-split layer: ``x`` this rank's block of the input columns
+    (``paired``) or the replicated input, cut here; one sum over
+    ``model``, then the bias."""
+    if not paired:
+        n = p["w"].shape[-2]
+        x = CO.copy_to(x, pm, MODEL).narrow(-1, m * n, n)
+    y = CO.reduce_from(x @ p["w"], pm, MODEL)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"]
     if "b" in p:
@@ -66,21 +164,37 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of ``p["emb"]``, as the reference's ``jnp.take``
-    gives them: ids in ``[-V, 0)`` wrap, and an id outside ``[-V, V)``
-    gives a row of NaN.  The ids are clamped and the rows of those that
-    moved filled in place, on the device, so a bad id neither syncs with
-    the host nor fires a device-side assert."""
-    return take_rows(p["emb"], ids)
+def lookup(emb: torch.Tensor, ids: torch.Tensor, rows: int, mesh=None
+           ) -> torch.Tensor:
+    """Rows ``ids`` of a table of ``rows`` rows (``take_rows``' rule:
+    ``[-V, 0)`` wraps, outside ``[-V, V)`` a row of NaN), whole (no
+    mesh, or the rule left it whole) or split on its rows over
+    ``model``, where each rank contributes its range's rows and zeros
+    for the rest, and ``reduce_from`` sums the parts.  An id outside
+    this rank's range reads the row at its offset modulo the block (its
+    value and gradient masked to zero): clamped to the block's ends, the
+    ids of the other ranks would pile onto two rows, and the backward's
+    accumulation serialises on a row that many ids share."""
+    pm, tp, m = model_of(mesh)
+    if not is_block(emb, -2, rows, tp, "emb"):
+        return take_rows(emb, ids)
+    n = emb.shape[-2]
+    safe = ids.clamp(-rows, rows - 1)
+    loc = safe % rows - m * n
+    mine = (loc >= 0) & (loc < n)
+    out = emb[loc % n].masked_fill(~mine[..., None], 0.0)
+    out = CO.reduce_from(out, pm, MODEL)
+    return out.masked_fill((safe != ids)[..., None], float("nan"))
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor, dim: int = 0
               ) -> torch.Tensor:
     """``jnp.take(table, ids, axis=dim)`` for ``dim`` 0, or
-    ``jnp.take_along_axis(table, ids, axis=-1)`` for ``dim`` -1, with
-    the reference's rule for ids outside ``[-n, n)`` (see
-    :func:`embed`)."""
+    ``jnp.take_along_axis(table, ids, axis=-1)`` for ``dim`` -1, as the
+    reference gives them: ids in ``[-n, 0)`` wrap, and an id outside
+    ``[-n, n)`` gives NaN.  The ids are clamped and the entries of those
+    that moved filled in place, on the device, so a bad id neither syncs
+    with the host nor fires a device-side assert."""
     n = table.shape[dim]
     safe = ids.clamp(-n, n - 1)
     bad = safe != ids
@@ -131,12 +245,35 @@ ACT: Dict[str, Callable] = {
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu",
-        final_act: str = "identity") -> torch.Tensor:
+        final_act: str = "identity", mesh=None) -> torch.Tensor:
+    """The layers ``l0 .. l{n-1}``; under a mesh in the Megatron pairing
+    (a column-split layer's block feeds the next layer's row-split ``w``
+    with no crossing between them), the output replicated."""
     n = len(p)
+    pm, tp, m = model_of(mesh)
+    if tp == 1:
+        for i in range(n):
+            x = dense(p[f"l{i}"], x)
+            x = ACT[act](x) if i < n - 1 else ACT[final_act](x)
+        return x
+    blk = False         # x holds this rank's block of its columns
     for i in range(n):
-        x = dense(p[f"l{i}"], x)
+        lp = p[f"l{i}"]
+        if "b" not in lp:
+            raise ValueError(f"mlp l{i}: under a model axis a layer needs "
+                             f"its bias to read its split from")
+        if blk and lp["w"].shape[-2] != x.shape[-1]:
+            x, blk = CO.all_gather(x, pm, MODEL, -1), False
+        if blk:
+            x, blk = _row_layer(lp, x, pm, m, paired=True), False
+        elif _cols(lp, tp):
+            x, blk = _col_layer(lp, x, pm, m), True
+        elif is_block(lp["w"], -2, x.shape[-1], tp, f"l{i}/w"):
+            x = _row_layer(lp, x, pm, m, paired=False)
+        else:
+            x = dense(lp, x)
         x = ACT[act](x) if i < n - 1 else ACT[final_act](x)
-    return x
+    return CO.all_gather(x, pm, MODEL, -1) if blk else x
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,11 @@ Under a process mesh (``mesh``) the step takes the whole batch on every
 rank, cuts each microbatch's rows for this rank's ``data`` coordinate
 (so ``grad_accum`` keeps its meaning), and runs ``loss_fn`` on them:
 its loss must be the whole batch's, each rank's backward giving its
-rows' share of the gradient, as ``lm_loss(..., mesh=mesh)`` does.  The
+rows' share of the gradient, as ``lm_loss(..., mesh=mesh)`` does.
+``batch_specs`` (``{key: spec}``, the reference's batch specs) cuts each
+leaf by its own spec instead: a full graph's node and edge arrays each
+into their blocks over the data axes, a ``()`` leaf (its energy) kept
+whole.  The
 parameters and moments are placed leaves (``distributed.elastic.
 reshard``: DTensors on a process mesh, rank 0's blocks on a counting
 mesh), e.g. the parameters by ``lm_param_spec`` and the moments by
@@ -28,7 +32,7 @@ norm is global (``optim.global_norm``).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -55,6 +59,7 @@ def make_train_step(
     grad_accum: int = 1,
     has_metrics: bool = True,
     mesh=None,
+    batch_specs: Optional[Dict[str, Any]] = None,
 ) -> Callable:
     """loss_fn(params, batch) -> scalar | (scalar, metrics dict)."""
     pm = CO.process_mesh(mesh)
@@ -62,6 +67,9 @@ def make_train_step(
     def rows(batch):
         if pm is None:
             return batch
+        if batch_specs is not None:
+            return {k: CO.block(v, pm, batch_specs[k])
+                    for k, v in batch.items()}
         return {k: CO.rows_of(v, pm, DATA) for k, v in batch.items()}
 
     def full_loss(params, batch):

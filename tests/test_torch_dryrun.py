@@ -31,13 +31,13 @@ JAX package's, on the CPU, and the two repairs the dry run needed.
   shardings dropped (with them, JAX 0.9 refuses every cell); the MoE
   cells of llama4-maverick and deepseek-v3 are left out where the
   reference's cell does not trace (its expert-parallel arm on the mesh).
-* ``mesh_step``: every LM cell also counts rank 0's step of the
-  production mesh on a counting mesh (``lm_param_spec``, ZeRO-1); its
+* ``mesh_step``: every cell also counts rank 0's step of the
+  production mesh on a counting mesh (``lm_param_spec`` for the LM
+  cells, ``mlp_param_spec`` for the GNN and DIN cells, ZeRO-1); its
   record is ok, its per-device FLOPs at or below the one-card count,
   and its collectives (the record's top-level ``collectives``) non-empty
-  under the reference's kind names.  The GNN and DIN records keep
-  ``collectives == {}``, and the roofline reads every record with its
-  one-card terms unchanged.
+  under the reference's kind names; the roofline reads every record
+  with its one-card terms unchanged.
 """
 
 import dataclasses
@@ -458,13 +458,10 @@ def test_run_cell_matches_reference_outputs(arch, shape, prefill_cut):
 
 
 def _check_collectives(rec):
-    """An LM record's ``mesh_step`` (ok, 256 devices, FLOPs at or below
-    the one-card count, collectives under the reference's kinds) is its
-    top-level ``collectives``; a GNN or DIN record keeps ``{}``."""
-    if rec["family"] != "lm":
-        assert rec["collectives"] == {} and "mesh_step" not in rec
-        assert "queued" in rec["notes"]["collectives"]
-        return
+    """A record's ``mesh_step`` (ok, 256 devices, FLOPs at or below the
+    one-card count, collectives under the reference's kinds) is its
+    top-level ``collectives``, for every family."""
+    assert "queued" not in rec["notes"]["collectives"]
     ms = rec["mesh_step"]
     assert ms["ok"] and ms["n_devices"] == 256
     assert 0 < ms["flops"] <= rec["flops"]
@@ -478,6 +475,24 @@ def _check_collectives(rec):
 
 LM_TRAIN = [(a, s) for a, s, c in C.all_cells()
             if c.kind == "train" and C.get_arch(a).family == "lm"]
+MLP_CELLS = [(a, s) for a, s, _ in C.all_cells()
+             if C.get_arch(a).family != "lm"]
+
+
+@pytest.mark.parametrize("arch,shape", MLP_CELLS)
+def test_mlp_cells_count_the_two_pod_mesh_step(arch, shape):
+    """Every GNN and DIN cell at its published widths on rank 0 of the
+    two-pod mesh (2 x 16 x 16, the data axes ``("pod", "data")``), its
+    inputs cut by ``mlp_param_spec``, ZeRO-1 and the batch specs, through
+    the code the ranks run: ok, with collectives under the reference's
+    kinds and FLOPs below the (16, 16) mesh's rank 0."""
+    cell = C.get_arch(arch).cells[shape]
+    ms = dryrun.mesh_step(cell, M.make_production_mesh(multi_pod=True))
+    one = dryrun.mesh_step(cell, M.make_production_mesh())
+    assert ms["ok"] and ms["n_devices"] == 512
+    assert ms["collectives"]["total"] > 0
+    assert set(ms["collectives"]) <= {"total", *KINDS}
+    assert 0 < ms["flops"] < one["flops"]
 
 
 @pytest.mark.parametrize("arch,shape", LM_TRAIN)
