@@ -1,0 +1,10 @@
+"""The harness's tests import it as ``rrbench`` and the program from
+``src``, as ``rrbench/run.py`` does."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
