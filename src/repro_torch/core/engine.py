@@ -47,9 +47,17 @@ Every batch runs in the reference's ``repro_torch.obs`` spans
 synchronisation: ``engine.fused`` and ``engine.route_prune`` end in the
 ratchet's read of the largest candidate count, which waits for the
 device, a two-phase ``engine.scan`` times only the launch, and
-``engine.sync`` holds the wait for the results.  With the tracer on,
+``engine.sync`` holds the wait for the results.  ``engine.fused`` and
+``engine.route_prune`` carry that wait as ``wait_us`` (summed over the
+ratchet's re-runs), so the rest of the span is host time: route,
+quantize, launch.  With the tracer on,
 each batch also records ``engine.batch_us``, ``engine.<kind>.query_us``
 and ``engine.<kind>.queries`` and sets the ``engine.n_compiles`` gauge.
+
+``stats["k1_scan_tests"]`` counts the box tests the fused kernel's scan
+performs, over every launch, re-runs included: each query tile tests
+its ``TB`` queries against the ``TP`` entries of each of its
+``min(cnt, kcap)`` scanned candidate tiles.
 
 The reference's fault-injection hooks sit where its engine has them
 (:mod:`repro_torch.resilience.faults`): ``engine.route_prune`` at the
@@ -89,6 +97,7 @@ from ..kernels.range_query.fused import (
 from ..kernels.range_query.layout import (
     ID_SENTINEL,
     TB,
+    TP,
     UPLOAD_COUNTERS,  # noqa: F401  (the handoff counters, read as engine's)
     build_tile_pyramid,
     forest_planes,
@@ -345,7 +354,7 @@ class QueryEngine:
             "batches": 0, "queries": 0,
             "adopted": int(self._arena.adopted),
             "tiles_scanned": 0, "tiles_grid": 0, "tiles_full_scan": 0,
-            "fused_reruns": 0,
+            "fused_reruns": 0, "k1_scan_tests": 0,
         }
         # candidate-capacity high-water mark, shared by both paths: only
         # ratchets up
@@ -417,23 +426,31 @@ class QueryEngine:
     def _fused_ratchet(self, args, mode: str, kc: Optional[int] = None):
         """One fused launch at the current capacity high-water mark; a
         batch whose true candidate count passes it ratchets the mark and
-        re-runs.  Returns ``(out, kcap, tiles)``: for collect, ``out`` is
-        the ``(top, counts)`` pair; ``tiles`` the live candidate tiles."""
+        re-runs.  Returns ``(out, kcap, tiles, wait_ns)``: for collect,
+        ``out`` is the ``(top, counts)`` pair; ``tiles`` the live
+        candidate tiles; ``wait_ns`` the host's wait on the counts' reads.
+        Adds each launch's scanned box tests to ``k1_scan_tests``: the
+        counts' sum where no tile overflowed, else one more reduction."""
         Bb = args[6].shape[1]
+        wait_ns = 0
         while True:
             kcap = min(self._kb_hwm, self.n_tiles)
             self._shapes.add(("fused", mode, Bb, kcap, kc))
             out, cnt = fused_serve(*args, mode=mode, kcap=kcap,
                                    nt=self.n_tiles, dim=self.dim,
                                    device=self.device)
+            t0 = time.perf_counter_ns()
             mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
+            wait_ns += time.perf_counter_ns() - t0
+            scanned = tot if mx <= kcap else int(cnt.clamp(max=kcap).sum())
+            self.stats["k1_scan_tests"] += scanned * TP * TB
             if mx <= kcap or kcap >= self.n_tiles:
                 break
             self._kb_hwm = min(_bucket(mx, 1), self.n_tiles)
             self.stats["fused_reruns"] += 1
         if mode == "collect":
             out = _collect_post(out, kc=kc)
-        return out, kcap, tot
+        return out, kcap, tot, wait_ns
 
     def _fused_serve(self, us: np.ndarray, rects: np.ndarray, mode: str,
                      kc: Optional[int] = None):
@@ -442,11 +459,13 @@ class QueryEngine:
         fault_point("engine.route_prune", n=len(us))
         with span("engine.pad_batch", cat="engine"):
             Bb, us_dev, rsoa = self._pad(us, rects)
-        with span("engine.fused", cat="engine", batch=len(us), mode=mode):
+        with span("engine.fused", cat="engine", batch=len(us),
+                  mode=mode) as sp:
             forced, args = self._serve_args(rsoa, *self._route(us_dev))
             # the ratchet's read of the largest count waits for the
             # device, so the span covers the whole fused launch
-            out, kcap, tot = self._fused_ratchet(args, mode, kc)
+            out, kcap, tot, wait_ns = self._fused_ratchet(args, mode, kc)
+            sp.set(wait_us=wait_ns / 1e3)
         self.stats["batches"] += 1
         self.stats["queries"] += len(us)
         self.stats["tiles_scanned"] += tot
@@ -464,14 +483,16 @@ class QueryEngine:
         fault_point("engine.route_prune", n=B)
         with span("engine.pad_batch", cat="engine"):
             Bb, us_dev, rsoa = self._pad(us, rects)
-        with span("engine.route_prune", cat="engine", batch=B):
+        with span("engine.route_prune", cat="engine", batch=B) as sp:
             qs, qe, pts, exc = self._route(us_dev)
             mask = prune_tiles(self._arena.fine, self._arena.coarse, rsoa,
                                qs, qe, dim=self.dim, device=self.device)
             cand, cnt = compact_ascending(mask, self.n_tiles)
             # the read of the largest count waits for the device, so the
             # span covers lookup + prune + candidate compaction
+            t0 = time.perf_counter_ns()
             mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
+            sp.set(wait_us=(time.perf_counter_ns() - t0) / 1e3)
             self._kb_hwm = max(self._kb_hwm,
                                min(_bucket(max(mx, 1), 1), self.n_tiles))
             forced = self._forced(rsoa, pts, exc)

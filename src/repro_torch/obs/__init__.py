@@ -6,7 +6,8 @@ the reference's).
 * :mod:`~repro_torch.obs.tracer` — span tracer (context manager + decorator,
   thread-safe, ~100ns when disabled) emitting Chrome-trace JSON; wraps
   the hot paths of the engine, cluster, frontend, dynamic overlay and
-  the offline build stages.
+  the offline build stages.  Under a ``torch.profiler`` capture every
+  span is also a profiler range, on the capture's clock, and records.
 * :mod:`~repro_torch.obs.metrics` — counters / gauges / bounded log-linear
   histograms with exact (``np.percentile``-identical) p50/p95/p99/p999
   while unsaturated; the one percentile implementation in the repo.

@@ -29,6 +29,9 @@ def device_trace(logdir: str, enabled: bool = True, device=None):
     """Opt-in ``torch.profiler`` capture around a serving pass, written
     as a Chrome trace to ``logdir/device_trace.json``.
 
+    The trace holds every ``obs.span`` the pass crosses as a range of
+    its name, on the profiler's clock, and ``TRACER`` records them too.
+
     ``device=None`` records CPU and CUDA activity (the card's kernels);
     ``device="cpu"`` (or any non-CUDA device) records CPU activity only.
     No-op when ``enabled`` is False, and degrades to a no-op (rather

@@ -2,16 +2,24 @@
 
 The serving stack (engine -> cluster -> frontend, plus the offline build
 stages) is instrumented with :func:`span` context managers.  Disabled —
-the default — a span is one module-attribute check and the return of a
-shared no-op context manager, so the hot path pays ~100ns per span
-(``chip_smoke.py --ab`` times the engines with it off against a
-checkout without it).
+the default — a span is one module-attribute check, one read of
+``torch.profiler``'s capture flag and the return of a shared no-op
+context manager, so the hot path pays ~100ns per span
+(``benchmarks/obs_overhead.py`` measures it).
 Enabled, each span records a Chrome trace "complete" event (``ph: "X"``)
 into a bounded in-memory buffer: name, category, thread id, start/dur in
-microseconds, and any keyword args.  The buffer is thread-safe (the
+microseconds, and any keyword args, also those a span is given at its
+end (:meth:`_Span.set`).  The buffer is thread-safe (the
 frontend scheduler thread and compaction builders trace concurrently
 with the caller) and drops-with-a-counter rather than growing without
 bound.
+
+While a ``torch.profiler`` capture runs in the process (the harness's
+traced window, :func:`~repro_torch.obs.profiler.device_trace`), every
+span also opens a profiler range of its name on its thread and records
+into the buffer, enabled or not: the stages then sit in the profiler's
+own timeline, on its clock, beside the card's kernels.  When the capture
+stops, both stop.
 
 Open the dump in ``chrome://tracing`` / https://ui.perfetto.dev:
 
@@ -26,6 +34,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -35,6 +44,24 @@ from . import trace_context
 # Timestamps are perf_counter_ns throughout, so spans recorded on any
 # thread share one monotonic clock and line up in the trace viewer.
 _now_ns = time.perf_counter_ns
+
+
+class _ProfilerUnbound:
+    """Stands for ``torch.autograd.profiler`` until torch is loaded: no
+    capture can run before, and the first read after it binds the module
+    itself, whose ``_is_profiler_enabled`` is the flag ``torch.profiler``
+    sets while a capture runs.  The package imports no torch."""
+
+    def __getattr__(self, name):
+        global _PROFILER
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return False
+        _PROFILER = mod
+        return getattr(mod, name)
+
+
+_PROFILER = _ProfilerUnbound()
 
 
 class Tracer:
@@ -215,24 +242,43 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **args) -> None:
+        """Nothing to record."""
+
 
 _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_name", "_cat", "_args", "_t0")
+    __slots__ = ("_name", "_cat", "_args", "_t0", "_range")
 
     def __init__(self, name: str, cat: str, args: Optional[dict]):
         self._name = name
         self._cat = cat
         self._args = args
+        self._range = None
+        if _PROFILER._is_profiler_enabled:
+            # an operator-like range (~1 µs), not a user annotation: the
+            # profiler puts no copy of it among the card's activity
+            from torch._C._profiler import _RecordFunctionFast
+
+            self._range = _RecordFunctionFast(name)
+
+    def set(self, **args) -> None:
+        """Add keyword args known only inside the span (a wait timed
+        within it); they land beside those given at its start."""
+        self._args = {**self._args, **args} if self._args else args
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = _now_ns()
         return self
 
     def __exit__(self, *exc):
         t1 = _now_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
         args = self._args
         # an active per-request scope stamps its trace ids onto every
         # span recorded within it — the causal key the flight-recorder
@@ -249,11 +295,14 @@ class _Span:
 def span(name: str, cat: str = "", **args):
     """Context manager timing one stage.  ``with span("engine.scan"): ...``
 
-    Disabled (the default) this returns a shared no-op — the check is a
-    single attribute load, so instrumented hot paths stay hot.  Keyword
-    args land in the Chrome trace event's ``args`` field.
+    Disabled (the default) and with no ``torch.profiler`` capture
+    running, this returns a shared no-op — the checks are two attribute
+    loads, so instrumented hot paths stay hot.  Under a capture the span
+    is also a profiler range of the same name.  Keyword args, and those
+    given to ``.set`` inside the block, land in the Chrome trace event's
+    ``args`` field.
     """
-    if not TRACER.enabled:
+    if not TRACER.enabled and not _PROFILER._is_profiler_enabled:
         return _NULL
     return _Span(name, cat, args or None)
 
@@ -267,13 +316,10 @@ def traced(name: Optional[str] = None, cat: str = ""):
 
         @functools.wraps(fn)
         def wrapper(*a, **kw):
-            if not TRACER.enabled:
+            if not TRACER.enabled and not _PROFILER._is_profiler_enabled:
                 return fn(*a, **kw)
-            t0 = _now_ns()
-            try:
+            with _Span(label, cat, None):
                 return fn(*a, **kw)
-            finally:
-                TRACER.record(label, cat, t0, _now_ns() - t0, None)
 
         return wrapper
 

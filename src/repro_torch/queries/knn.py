@@ -57,9 +57,10 @@ def _fused_count(engine, us_sub: np.ndarray, rects: np.ndarray,
     routing = state.get("routing")
     if routing is None:
         routing = state["routing"] = engine._route(us_dev)
-    with span("engine.fused", cat="engine", batch=n, mode="count"):
+    with span("engine.fused", cat="engine", batch=n, mode="count") as sp:
         forced, args = engine._serve_args(rsoa, *routing)
-        out, _, tot = engine._fused_ratchet(args, "count")
+        out, _, tot, wait_ns = engine._fused_ratchet(args, "count")
+        sp.set(wait_us=wait_ns / 1e3)
     engine.stats["batches"] += 1
     engine.stats["queries"] += n
     engine.stats["tiles_scanned"] += tot
