@@ -55,9 +55,14 @@ each batch also records ``engine.batch_us``, ``engine.<kind>.query_us``
 and ``engine.<kind>.queries`` and sets the ``engine.n_compiles`` gauge.
 
 ``stats["k1_scan_tests"]`` counts the box tests the fused kernel's scan
-performs, over every launch, re-runs included: each query tile tests
-its ``TB`` queries against the ``TP`` entries of each of its
-``min(cnt, kcap)`` scanned candidate tiles.
+performed, over every launch, re-runs included: each query tile tests
+its ``TB`` queries against the ``TP`` entries of each candidate tile it
+scanned.  Count and collect scan all ``min(cnt, kcap)`` of them; reach
+stops testing a query at its first hit, and a tile whose queries all
+have one is skipped.  ``stats["k1_tiles_skipped"]`` counts those
+skipped tiles, ``min(cnt, kcap)`` less the tiles scanned, summed over
+the query tiles of every launch: the plain version skips none, and
+skipped over skipped plus scanned is how often the early exit engages.
 
 The reference's fault-injection hooks sit where its engine has them
 (:mod:`repro_torch.resilience.faults`): ``engine.route_prune`` at the
@@ -354,7 +359,7 @@ class QueryEngine:
             "batches": 0, "queries": 0,
             "adopted": int(self._arena.adopted),
             "tiles_scanned": 0, "tiles_grid": 0, "tiles_full_scan": 0,
-            "fused_reruns": 0, "k1_scan_tests": 0,
+            "fused_reruns": 0, "k1_scan_tests": 0, "k1_tiles_skipped": 0,
         }
         # candidate-capacity high-water mark, shared by both paths: only
         # ratchets up
@@ -429,21 +434,32 @@ class QueryEngine:
         re-runs.  Returns ``(out, kcap, tiles, wait_ns)``: for collect,
         ``out`` is the ``(top, counts)`` pair; ``tiles`` the live
         candidate tiles; ``wait_ns`` the host's wait on the counts' reads.
-        Adds each launch's scanned box tests to ``k1_scan_tests``: the
-        counts' sum where no tile overflowed, else one more reduction."""
+        Adds each launch's performed box tests to ``k1_scan_tests`` and
+        its skipped tiles to ``k1_tiles_skipped``: the tiles a reach
+        launch scanned are summed in the same read as the counts; the
+        candidates up to the capacity are the counts' sum where no tile
+        overflowed, else one more reduction."""
         Bb = args[6].shape[1]
         wait_ns = 0
         while True:
             kcap = min(self._kb_hwm, self.n_tiles)
             self._shapes.add(("fused", mode, Bb, kcap, kc))
+            scanned = (torch.empty(Bb // TB, dtype=torch.int32,
+                                   device=self.device)
+                       if mode == "reach" else None)
             out, cnt = fused_serve(*args, mode=mode, kcap=kcap,
                                    nt=self.n_tiles, dim=self.dim,
-                                   device=self.device)
+                                   device=self.device, scanned=scanned)
             t0 = time.perf_counter_ns()
-            mx, tot = torch.stack([cnt.max(), cnt.sum()]).tolist()
+            sums = [cnt.max(), cnt.sum()]
+            if scanned is not None:
+                sums.append(scanned.sum())
+            mx, tot, *scanned_sum = torch.stack(sums).tolist()
             wait_ns += time.perf_counter_ns() - t0
-            scanned = tot if mx <= kcap else int(cnt.clamp(max=kcap).sum())
-            self.stats["k1_scan_tests"] += scanned * TP * TB
+            capped = tot if mx <= kcap else int(cnt.clamp(max=kcap).sum())
+            tested = scanned_sum[0] if scanned_sum else capped
+            self.stats["k1_scan_tests"] += tested * TP * TB
+            self.stats["k1_tiles_skipped"] += capped - tested
             if mx <= kcap or kcap >= self.n_tiles:
                 break
             self._kb_hwm = min(_bucket(mx, 1), self.n_tiles)

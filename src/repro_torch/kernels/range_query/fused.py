@@ -27,13 +27,22 @@ Capacity contract: both scan at most ``kcap`` candidate tiles per query
 tile and report the *true* per-tile candidate counts.  A count above
 ``kcap`` means the scan was truncated and the caller re-runs at a larger
 capacity (the engine's ratchet).
+
+Scanned-count contract: given ``scanned``, a ``(B // TB,)`` int32 tensor,
+both write into it the candidate tiles each query tile's scan tested.
+The kernel's reach scan stops testing a query once it has a hit, so a
+tile whose queries all have one is skipped: its count is at most
+``min(cnt, kcap)``, and equals it where no query of the tile hits.  The
+plain version, and the kernel's count and collect scans, test every
+candidate and write ``min(cnt, kcap)``.  ``out`` and ``cnt`` are the
+same either way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -215,7 +224,7 @@ def fused_serve_torch(
 # --------------------------------------------------------------------------
 
 _MODE_CODE = {"reach": 0, "count": 1, "collect": 2}
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
 
 def fused_serve(
     qfine: torch.Tensor,        # (2*dim, NTp) int16 quantized fine MBRs
@@ -233,6 +242,7 @@ def fused_serve(
     nt: int,                    # true fine tile count
     dim: int = 2,
     device: DeviceLike = None,
+    scanned: Optional[torch.Tensor] = None,  # (B // TB,) int32, written
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-launch fused serve.  Returns ``(out, cnt)``:
 
@@ -240,6 +250,9 @@ def fused_serve(
       mode collect: (B, kcap*TP) int32 ids-or-sentinel matrix;
     * ``cnt`` — (B // TB,) int32 true candidate-tile counts.  Any value
       > ``kcap`` means the scan was truncated.
+
+    ``scanned``, where given, gets the candidate tiles each query tile's
+    scan tested (the module's scanned-count contract).
 
     ``device`` (``None``: the GPU) must be where the tensors lie.  On a
     CUDA device the hand-written kernel runs, and a build or launch
@@ -252,10 +265,16 @@ def fused_serve(
     if not same_device(entries_soa.device, dev):
         raise ValueError(f"entries_soa lies on {entries_soa.device}, "
                          f"expected {dev}")
+    if scanned is not None:
+        check_tensor("scanned", scanned, torch.int32,
+                     (rects_soa.shape[1] // TB,), dev)
     if dev.type == "cpu":
-        return fused_serve_torch(
+        out, cnt = fused_serve_torch(
             qfine, qcoarse, entries_soa, ids_soa, r16, r32, rects_soa,
             qstart, qend, mode=mode, kcap=kcap, nt=nt, dim=dim)
+        if scanned is not None:
+            torch.clamp(cnt, max=kcap, out=scanned)
+        return out, cnt
 
     P = entries_soa.shape[1]
     B = rects_soa.shape[1]
@@ -290,9 +309,12 @@ def fused_serve(
          qfine.data_ptr(), qcoarse.data_ptr(), entries_soa.data_ptr(),
          ids_soa.data_ptr(), r16.data_ptr(), r32.data_ptr(),
          rects_soa.data_ptr(), qstart.data_ptr(), qend.data_ptr(),
-         out.data_ptr(), cnt.data_ptr(), ntp, nt, P, B, kcap,
+         out.data_ptr(), cnt.data_ptr(),
+         None if scanned is None else scanned.data_ptr(), ntp, nt, P, B, kcap,
          cluster_size(nb, sm_count(dev)))
     fused_serve.launches += 1
+    if scanned is not None and mode != "reach":
+        torch.clamp(cnt, max=kcap, out=scanned)
     return out, cnt
 
 

@@ -14,7 +14,10 @@ engine on the CPU, the device build on the card against the host build,
 the leaf-scan and wavefront engines on the card against the host
 descent, the two pyramid prunes (K1, K2) on slices of every kind
 (disjoint, nested, degenerate, one over the whole arena) at B = 8 to
-2048 and on the yelp x0.5 base arena's 77,440 tiles, an out-of-range
+2048 and on the yelp x0.5 base arena's 77,440 tiles, K1's reach early
+exit (queries that hit in their first candidate, never, or only in
+sparse tiles beyond a truncating capacity, empty slices) at cluster
+sizes 1 to 8 with its count of scanned tiles, an out-of-range
 vertex id that must leave the card usable, the cluster's sharded engine
 on the card at 1, 4 and 8 shards (one K1, or one K2 and one K3, per
 shard a batch) and its shard stacks gathered from a device build, the
@@ -184,7 +187,117 @@ def test_engine_on_card_matches_cpu(cuda, method):
         assert (gpu.count_batch(us, rects) == cpu.count_batch(us, rects)).all()
         a, b = gpu.collect_batch(us, rects, 7), cpu.collect_batch(us, rects, 7)
         assert (a.ids == b.ids).all() and (a.counts == b.counts).all()
-    assert gpu.stats == cpu.stats
+    # the kernel's reach stops at first hits; the plain version scans all
+    moved = ("k1_scan_tests", "k1_tiles_skipped")
+    assert ({k: v for k, v in gpu.stats.items() if k not in moved}
+            == {k: v for k, v in cpu.stats.items() if k not in moved})
+    assert cpu.stats["k1_tiles_skipped"] == 0
+    assert (gpu.stats["k1_scan_tests"] + gpu.stats["k1_tiles_skipped"] * TP * TB
+            == cpu.stats["k1_scan_tests"])
+
+
+# K1's reach early exit: query tiles whose queries all hit in their first
+# candidate tile, none of whose queries hits, whose queries hit only in
+# sparse tiles (beyond the capacity where it truncates), and of mixed
+# queries with empty slices
+EARLY_KINDS = ("first", "none", "late", "mixed")
+
+
+def early_exit_case(seed, n_tiles, B, kind, device):
+    """K1's inputs for the reach early exit: leaf tile g holds the x-band
+    [g, g + 0.5] (gaps between tiles, so the prune is exact at tile
+    level), 128 points on a rising diagonal at rows y = 100 i / 127, a
+    half row higher in every 37th tile; three trees cut mid-tile.  Each
+    query rect spans 1-300 tiles of its tree from the first on: all
+    rows ("first": a hit in its first candidate tile), a band between
+    rows ("none": candidates, no hit) or around the shifted rows of a
+    few tiles ("late").  "mixed" draws each query's kind, with empty
+    slices among them; where B > TB the last query tile is padding."""
+    rng = np.random.default_rng(seed)
+    P = n_tiles * TP - 37
+    g, i = np.arange(P) // TP, np.arange(P) % TP
+    late = g % 37 == 5
+    x = (g + 0.5 * i / (TP - 1)).astype(np.float32)
+    y = (100 * (i + 0.5 * late) / (TP - 1)).astype(np.float32)
+    esoa = np.empty((4, n_tiles * TP), np.float32)
+    esoa[:2], esoa[2:] = 1.0, 0.0
+    esoa[0, :P] = esoa[2, :P] = x
+    esoa[1, :P] = esoa[3, :P] = y
+    ids = np.full((1, n_tiles * TP), np.iinfo(np.int32).max, np.int32)
+    ids[0, :P] = rng.permutation(P)
+    fine, coarse, nt = build_tile_pyramid(esoa, 2)
+    off = np.array([0, P // 3, P // 2, P])
+    kinds = (rng.choice(["first", "none", "late", "empty"], B)
+             if kind == "mixed" else np.full(B, kind))
+    t = rng.integers(0, 3, B)
+    qs, qe = off[t].copy(), off[t + 1].copy()
+    g0 = (qs + TP - 1) // TP                  # the tree's first whole tile
+    span = np.maximum(qe // TP - g0, 1)
+    first = g0 + rng.integers(0, span)
+    last = np.minimum(first + rng.integers(0, 300, B), g0 + span - 1)
+    r = rng.integers(60, 77, B)               # x in [g + 0.2, g + 0.3]
+    lo_y = np.where(kinds == "first", -1.0,
+                    np.where(kinds == "none", r + 0.1, r + 0.4))
+    hi_y = np.where(kinds == "first", 101.0,
+                    np.where(kinds == "none", r + 0.4, r + 0.6))
+    lo_y = np.where(kinds == "first", lo_y, 100 * lo_y / (TP - 1))
+    hi_y = np.where(kinds == "first", hi_y, 100 * hi_y / (TP - 1))
+    rsoa = np.stack([first + 0.2, lo_y, last + 0.3, hi_y]).astype(np.float32)
+    empty = kinds == "empty"
+    qs[empty] = qe[empty] = rng.integers(0, P, int(empty.sum()))
+    if B > TB:
+        qs[-TB:] = qe[-TB:] = 0
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa
+    extent = np.array([x.min(), y.min(), x.max(), y.max()], np.float64)
+    grid = F.make_quant_grid(extent, 2, device)
+    r16, r32 = F.quantize_rects(grid, T(rsoa), 2)
+    return nt, (F.quantize_fine(grid, T(fine), 2),
+                F.quantize_coarse(grid, T(coarse), 2), T(esoa), T(ids), r16,
+                r32, T(rsoa), T(qs.astype(np.int32)), T(qe.astype(np.int32)))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", EARLY_KINDS)
+def test_reach_early_exit_matches_plain(cuda, monkeypatch, kind, C):
+    """The reach kernel, at cluster size C, bit for bit its plain version
+    in ``out`` and ``cnt`` at capacities below, at and above the true
+    counts; its scanned tiles at most ``min(cnt, kcap)``, equal to it
+    where no query of the tile hits, and at most 2 a query and CTA where
+    every query hits in its first candidate.  Count and collect on the
+    same inputs write ``min(cnt, kcap)``."""
+    monkeypatch.setattr(F, "cluster_size", lambda nb, sms: C)
+    B = 32 * TB
+    nt, args = early_exit_case(7 * C + len(kind), 640, B, kind, cuda)
+    _, cnt = F.fused_serve_torch(*args, mode="reach", kcap=nt, nt=nt)
+    mx = int(cnt.max())
+    assert mx >= 100 and int(cnt[-1]) == 0
+    truncated = 0
+    for kcap in sorted({1, mx // 3, mx, nt}):
+        for mode in F.MODES:
+            scanned = torch.full((B // TB,), -1, dtype=torch.int32,
+                                 device=cuda)
+            got = F.fused_serve(*args, mode=mode, kcap=kcap, nt=nt,
+                                scanned=scanned)
+            want = F.fused_serve_torch(*args, mode=mode, kcap=kcap, nt=nt)
+            assert torch.equal(got[1], want[1]), (mode, kcap)
+            assert torch.equal(got[0], want[0]), (mode, kcap)
+            full = want[1].clamp(max=kcap)
+            if mode != "reach":
+                assert torch.equal(scanned, full), (mode, kcap)
+                continue
+            assert (scanned >= 0).all() and (scanned <= full).all(), kcap
+            dry = ~want[0].reshape(-1, TB).bool().any(dim=1)
+            assert torch.equal(scanned[dry], full[dry]), kcap
+            if kind == "first":
+                assert (scanned <= 2 * C * TB).all(), kcap
+                if kcap >= mx and C == 1:
+                    assert int(full.sum()) > 10 * int(scanned.sum())
+            if kcap < mx:
+                whole = F.fused_serve_torch(*args, mode="reach", kcap=nt,
+                                            nt=nt)[0]
+                truncated += int((whole > want[0]).sum())
+    # a query whose only hits lie beyond the capacity answers 0 on both
+    assert kind not in ("late", "mixed") or truncated > 0
 
 
 @pytest.mark.parametrize("B", [TB, 3 * TB, 32 * TB])

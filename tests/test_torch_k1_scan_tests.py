@@ -3,14 +3,18 @@ fused serve's scan performs, summed over every launch with the ratchet's
 re-runs, against ``sum(min(cnt, kcap)) * TP * TB`` computed from each
 launch's own ``cnt``; on batches that need no re-run, ``tiles_scanned *
 TP * TB``; and nothing on the two-phase path, which never launches the
-fused kernel."""
+fused kernel.  The plain version scans every candidate, so
+``stats["k1_tiles_skipped"]`` stays 0 and ``fused_serve``'s ``scanned``
+output is ``min(cnt, kcap)``."""
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import QueryEngine, build_index
 from repro_torch.core import engine as E
 from repro_torch.data import get_dataset, workload
+from repro_torch.kernels.range_query import fused as F
 from repro_torch.kernels.range_query.layout import TB, TP
 
 
@@ -88,3 +92,38 @@ def test_two_phase_path_counts_no_fused_scan(served, launches):
         _call(eng, mode, *batches[0])
     assert eng.stats["k1_scan_tests"] == 0 and not launches
     assert eng.stats["tiles_scanned"] > 0
+
+
+@pytest.mark.parametrize("mode", ["reach", "count", "collect", "knn"])
+def test_plain_path_skips_no_tile(served, launches, mode):
+    _, idx, batches = served
+    eng = QueryEngine(idx, device="cpu")       # re-runs, then none
+    for b in batches + batches:
+        _call(eng, mode, *b)
+    assert eng.stats["fused_reruns"] >= 1
+    assert eng.stats["k1_tiles_skipped"] == 0
+    assert eng.stats["k1_scan_tests"] == _tests(launches) > 0
+
+
+@pytest.mark.parametrize("mode", F.MODES)
+def test_plain_scanned_count_is_the_capped_count(served, mode):
+    _, idx, batches = served
+    eng = QueryEngine(idx, device="cpu")
+    Bb, us_dev, rsoa = eng._pad(*batches[0])
+    _, args = eng._serve_args(rsoa, *eng._route(us_dev))
+    for kcap in (1, 4, eng.n_tiles):
+        scanned = torch.full((Bb // TB,), -1, dtype=torch.int32)
+        out, cnt = F.fused_serve(*args, mode=mode, kcap=kcap,
+                                 nt=eng.n_tiles, device="cpu",
+                                 scanned=scanned)
+        want = F.fused_serve(*args, mode=mode, kcap=kcap, nt=eng.n_tiles,
+                             device="cpu")
+        assert torch.equal(out, want[0]) and torch.equal(cnt, want[1])
+        assert torch.equal(scanned, cnt.clamp(max=kcap))
+    assert int(cnt.max()) > 1
+    with pytest.raises(ValueError, match="dtype"):
+        F.fused_serve(*args, mode=mode, kcap=4, nt=eng.n_tiles,
+                      device="cpu", scanned=scanned.long())
+    with pytest.raises(ValueError, match="shape"):
+        F.fused_serve(*args, mode=mode, kcap=4, nt=eng.n_tiles,
+                      device="cpu", scanned=scanned[1:])
